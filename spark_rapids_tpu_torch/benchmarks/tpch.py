@@ -1,0 +1,48 @@
+"""TPC-H Q1 and Q6 as DataFrame code.
+
+Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py:q1`` (45) and
+``q6`` (141), written against this engine's DataFrame API.  The other
+twenty queries need joins, strings and the multi-partition exchange,
+which come with later slices.
+"""
+from __future__ import annotations
+
+import datetime as dt
+
+from ..plan import functions as F
+
+col = F.col
+lit = F.lit
+
+
+def _d(y, m, d):
+    return lit(dt.date(y, m, d))
+
+
+def q1(t):
+    li = t["lineitem"].filter(col("l_shipdate") <= _d(1998, 9, 2))
+    disc_price = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    charge = disc_price * (lit(1.0) + col("l_tax"))
+    return (li.group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum("l_quantity").alias("sum_qty"),
+                 F.sum("l_extendedprice").alias("sum_base_price"),
+                 F.sum(disc_price).alias("sum_disc_price"),
+                 F.sum(charge).alias("sum_charge"),
+                 F.avg("l_quantity").alias("avg_qty"),
+                 F.avg("l_extendedprice").alias("avg_price"),
+                 F.avg("l_discount").alias("avg_disc"),
+                 F.count("l_quantity").alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+def q6(t):
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= _d(1994, 1, 1))
+        & (col("l_shipdate") < _d(1995, 1, 1))
+        & (col("l_discount") >= lit(0.05)) & (col("l_discount") <= lit(0.07))
+        & (col("l_quantity") < lit(24.0)))
+    return li.agg(F.sum(col("l_extendedprice") * col("l_discount"))
+                  .alias("revenue"))
+
+
+QUERIES = {1: q1, 6: q6}

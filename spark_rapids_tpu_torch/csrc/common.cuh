@@ -1,0 +1,121 @@
+// Shared helpers of the engine's hand-written kernels (sm_90a).
+//
+// Every exported function has a plain C interface (loaded with ctypes),
+// launches on the stream it is given, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SRT_API extern "C" __attribute__((visibility("default")))
+
+namespace srt {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int BLOCK = 256;           // threads of the tile kernels
+constexpr int ITEMS = 8;             // consecutive rows per thread
+constexpr int TILE = BLOCK * ITEMS;  // rows per tile (one block)
+
+// dtype codes shared with the Python wrappers (ops/kernels/_build.py)
+enum DtypeCode {
+  DT_BOOL = 0, DT_I8 = 1, DT_I16 = 2, DT_I32 = 3, DT_I64 = 4,
+  DT_F32 = 5, DT_F64 = 6, DT_U8 = 7
+};
+
+inline unsigned blocks_for(long long n, int per_block) {
+  long long b = (n + per_block - 1) / per_block;
+  return (unsigned)(b < 1 ? 1 : b);
+}
+
+inline int tiles_for(long long n) { return (int)((n + TILE - 1) / TILE); }
+
+// threads of a one-block scan over `count` entries: a warp multiple,
+// at most 1024 (small inputs do not pay for idle warps)
+inline int scan_threads(int count) {
+  int t = ((count + 31) / 32) * 32;
+  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int t = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// Exclusive prefix sum of one int per thread over the block (any block
+// size that is a multiple of 32, up to 1024).  *total receives the block
+// sum.  Ends with a barrier, so it may be called again in the same kernel.
+__device__ __forceinline__ int block_excl_scan(int v, int* total) {
+  __shared__ int warp_sums[32];
+  __shared__ int s_total;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int incl = warp_incl_scan(v);
+  if (lane == 31) warp_sums[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    int s = lane < nw ? warp_sums[lane] : 0;
+    int si = warp_incl_scan(s);
+    if (lane < nw) warp_sums[lane] = si - s;
+    if (lane == 31) s_total = si;
+  }
+  __syncthreads();
+  const int r = warp_sums[w] + incl - v;
+  *total = s_total;
+  __syncthreads();
+  return r;
+}
+
+// ---------------------------------------------------------------------
+// Multi-block scan of 0/1 flags (uint8), three launches:
+//   scan_tile_sums    : per-tile sum of the flags
+//   scan_tile_offsets : one block turns the tile sums into exclusive
+//                       offsets in place and writes the grand total
+//   (finish)          : each user writes its own per-row output from the
+//                       tile offset plus the in-tile prefix
+// ---------------------------------------------------------------------
+static __global__ void scan_tile_sums(const uint8_t* __restrict__ flags,
+                                      long long n, int* __restrict__ sums) {
+  const long long base = (long long)blockIdx.x * TILE +
+                         (long long)threadIdx.x * ITEMS;
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = base + j;
+    if (i < n) s += flags[i] ? 1 : 0;
+  }
+  int total;
+  block_excl_scan(s, &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+}
+
+static __global__ void scan_tile_offsets(int* __restrict__ sums, int ntiles,
+                                         int* __restrict__ total_out) {
+  int carry = 0;
+  for (int start = 0; start < ntiles; start += blockDim.x) {
+    const int t = start + threadIdx.x;
+    const int v = t < ntiles ? sums[t] : 0;
+    int total;
+    const int ex = block_excl_scan(v, &total);
+    if (t < ntiles) sums[t] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0 && total_out != nullptr) *total_out = carry;
+}
+
+// In-tile exclusive prefix of this thread's first row, given the flags of
+// its ITEMS rows (loaded by the caller).
+__device__ __forceinline__ int thread_prefix(const int* f, int* tile_total) {
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) s += f[j];
+  return block_excl_scan(s, tile_total);
+}
+
+}  // namespace srt

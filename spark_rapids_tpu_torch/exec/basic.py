@@ -1,0 +1,106 @@
+"""Basic device operators: Project and Filter.
+
+Counterpart of ``spark_rapids_tpu/exec/basic.py:22-121``.  The filter
+compacts with K4 (``ops/kernels/gather.py:compact``).  Union, limits and
+Expand come with later slices.
+"""
+from __future__ import annotations
+
+from typing import List
+
+from .. import types as T
+from ..data.column import DeviceBatch, DeviceColumn
+from ..ops.expression import (Expression, as_device_column,
+                              bind_references, output_name)
+from ..ops.kernels.gather import compact
+from .base import DevicePartitionedData, TpuExec
+
+
+class TpuProjectExec(TpuExec):
+    def __init__(self, child, exprs: List[Expression],
+                 schema: T.Schema = None):
+        super().__init__([child])
+        self.exprs = [bind_references(e, child.schema) for e in exprs]
+        if schema is None:
+            schema = T.Schema([
+                T.Field(output_name(raw, i), b.dtype, b.nullable)
+                for i, (raw, b) in enumerate(zip(exprs, self.exprs))])
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
+        n, dev = batch.padded_rows, batch.device
+        mask = batch.row_mask()  # padding rows stay invalid
+        cols = []
+        for e in self.exprs:
+            c = as_device_column(e.eval_tpu(batch), n, dev)
+            cols.append(DeviceColumn(c.dtype, c.data, c.validity & mask,
+                                     c.lengths))
+        return DeviceBatch(self._schema, cols, batch.num_rows)
+
+    def execute_columnar(self, ctx):
+        child = self.children[0].execute_columnar(ctx)
+
+        def make(pid):
+            def it():
+                for db in child.iterator(pid):
+                    yield self._compute(db)
+            return it
+
+        return DevicePartitionedData(
+            [make(i) for i in range(child.n_partitions)])
+
+    def describe(self):
+        return f"TpuProject[{', '.join(e.sql() for e in self.exprs)}]"
+
+
+class TpuFilterExec(TpuExec):
+    def __init__(self, child, condition: Expression):
+        super().__init__([child])
+        self.condition = bind_references(condition, child.schema)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def _keep(self, batch: DeviceBatch):
+        c = as_device_column(self.condition.eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        return c.data & c.validity
+
+    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
+        return compact(batch, self._keep(batch))
+
+    def execute_columnar(self, ctx):
+        child = self.children[0].execute_columnar(ctx)
+
+        def make(pid):
+            def it():
+                for db in child.iterator(pid):
+                    yield self._compute(db)
+            return it
+
+        return DevicePartitionedData(
+            [make(i) for i in range(child.n_partitions)])
+
+    def describe(self):
+        return f"TpuFilter[{self.condition.sql()}]"
+
+
+def register(register_exec):
+    from ..plan import physical as P
+
+    register_exec(
+        P.ProjectExec,
+        convert=lambda meta, ch: TpuProjectExec(
+            ch[0], meta.plan.exprs, meta.plan.schema),
+        desc="columnar projection on the device",
+        exprs_of=lambda plan: list(plan.exprs))
+    register_exec(
+        P.FilterExec,
+        convert=lambda meta, ch: TpuFilterExec(ch[0], meta.plan.condition),
+        desc="columnar filter with stream compaction on the device",
+        exprs_of=lambda plan: [plan.condition])

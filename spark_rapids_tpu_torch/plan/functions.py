@@ -1,0 +1,161 @@
+"""User-facing column expression API.
+
+Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
+``col``, ``lit``, the aggregates ``sum``/``count``/``avg``/``min``/
+``max``, and ``Column`` with arithmetic, comparison, boolean, alias,
+null-test and sort-order operators.  String, math, date and conditional
+functions come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from ..ops import aggregates as agg
+from ..ops import arithmetic as ar
+from ..ops import predicates as pred
+from ..ops.expression import (Alias, Expression, Literal,
+                              UnresolvedAttribute)
+
+
+class Column:
+    """Wrapper over an Expression with pythonic operators."""
+
+    def __init__(self, expr: Expression):
+        self.expr = expr
+
+    def __add__(self, other):
+        return Column(ar.Add(self.expr, _e(other)))
+
+    def __radd__(self, other):
+        return Column(ar.Add(_e(other), self.expr))
+
+    def __sub__(self, other):
+        return Column(ar.Subtract(self.expr, _e(other)))
+
+    def __rsub__(self, other):
+        return Column(ar.Subtract(_e(other), self.expr))
+
+    def __mul__(self, other):
+        return Column(ar.Multiply(self.expr, _e(other)))
+
+    def __rmul__(self, other):
+        return Column(ar.Multiply(_e(other), self.expr))
+
+    def __truediv__(self, other):
+        return Column(ar.Divide(self.expr, _e(other)))
+
+    def __rtruediv__(self, other):
+        return Column(ar.Divide(_e(other), self.expr))
+
+    def __eq__(self, other):  # type: ignore[override]
+        return Column(pred.EqualTo(self.expr, _e(other)))
+
+    def __ne__(self, other):  # type: ignore[override]
+        return Column(pred.Not(pred.EqualTo(self.expr, _e(other))))
+
+    def __lt__(self, other):
+        return Column(pred.LessThan(self.expr, _e(other)))
+
+    def __le__(self, other):
+        return Column(pred.LessThanOrEqual(self.expr, _e(other)))
+
+    def __gt__(self, other):
+        return Column(pred.GreaterThan(self.expr, _e(other)))
+
+    def __ge__(self, other):
+        return Column(pred.GreaterThanOrEqual(self.expr, _e(other)))
+
+    def __and__(self, other):
+        return Column(pred.And(self.expr, _e(other)))
+
+    def __or__(self, other):
+        return Column(pred.Or(self.expr, _e(other)))
+
+    def __invert__(self):
+        return Column(pred.Not(self.expr))
+
+    def alias(self, name: str) -> "Column":
+        return Column(Alias(self.expr, name))
+
+    def is_null(self) -> "Column":
+        return Column(pred.IsNull(self.expr))
+
+    def is_not_null(self) -> "Column":
+        return Column(pred.IsNotNull(self.expr))
+
+    def asc(self) -> "SortKey":
+        return SortKey(self.expr, ascending=True)
+
+    def desc(self) -> "SortKey":
+        return SortKey(self.expr, ascending=False)
+
+    def __hash__(self):
+        return id(self)
+
+    def __repr__(self):  # pragma: no cover
+        return f"Column({self.expr.sql()})"
+
+
+class SortKey:
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.expr = expr
+        self.ascending = ascending
+        # Spark default: nulls first for ASC, nulls last for DESC
+        self.nulls_first = ascending if nulls_first is None else nulls_first
+
+
+def _e(x) -> Expression:
+    if isinstance(x, Column):
+        return x.expr
+    if isinstance(x, Expression):
+        return x
+    return Literal(x)
+
+
+def _col_e(x) -> Expression:
+    """Bare strings in a column position are column names (pyspark)."""
+    if isinstance(x, str):
+        return UnresolvedAttribute(x)
+    return _e(x)
+
+
+def col(name: str) -> Column:
+    return Column(UnresolvedAttribute(name))
+
+
+def lit(v: Any, dtype=None) -> Column:
+    return Column(Literal(v, dtype))
+
+
+class AggColumn(Column):
+    def __init__(self, func: agg.AggregateFunction,
+                 name: Optional[str] = None):
+        super().__init__(agg.AggregateExpression(func))
+        self.func = func
+        self._name = name
+
+    def alias(self, name: str) -> "AggColumn":
+        return AggColumn(self.func, name)
+
+
+def sum(c) -> AggColumn:  # noqa: A001 - mirrors pyspark naming
+    return AggColumn(agg.Sum(_col_e(c)))
+
+
+def count(c="*") -> AggColumn:
+    child = None if (isinstance(c, str) and c == "*") else _col_e(c)
+    return AggColumn(agg.Count(child))
+
+
+def avg(c) -> AggColumn:
+    return AggColumn(agg.Average(_col_e(c)))
+
+
+
+def min(c) -> AggColumn:  # noqa: A001
+    return AggColumn(agg.Min(_col_e(c)))
+
+
+def max(c) -> AggColumn:  # noqa: A001
+    return AggColumn(agg.Max(_col_e(c)))

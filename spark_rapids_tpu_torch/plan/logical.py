@@ -1,0 +1,206 @@
+"""Logical plan and DataFrame API.
+
+Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slice:
+``LocalRelation``, ``Filter``, ``Project``, ``Aggregate`` and ``Sort``,
+and a ``DataFrame`` with ``filter``, ``with_column``, ``select``,
+``group_by().agg``, ``agg``, ``sort``, ``collect`` and ``explain``.  Joins, limits, unions,
+windows, file scans and writes come with later slices.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+from .. import types as T
+from ..data.column import HostBatch
+from ..ops.expression import (Alias, Expression, UnresolvedAttribute,
+                              bind_references, output_name)
+from . import functions as F
+
+
+class LogicalPlan:
+    def __init__(self, children: Sequence["LogicalPlan"] = ()):
+        self.children = list(children)
+
+    @property
+    def schema(self) -> T.Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self):
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        s = "  " * indent + self.describe()
+        for c in self.children:
+            s += "\n" + c.tree_string(indent + 1)
+        return s
+
+    def describe(self) -> str:
+        return self.name
+
+    def __repr__(self):  # pragma: no cover
+        return self.tree_string()
+
+
+class LocalRelation(LogicalPlan):
+    def __init__(self, batches: List[HostBatch], schema: T.Schema,
+                 n_partitions: int = 1):
+        super().__init__()
+        self.batches = batches
+        self._schema = schema
+        self.n_partitions = n_partitions
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+class Project(LogicalPlan):
+    def __init__(self, child: LogicalPlan, exprs: List[Expression]):
+        super().__init__([child])
+        self.exprs = exprs
+
+    @property
+    def schema(self):
+        child_schema = self.children[0].schema
+        fields = []
+        for i, e in enumerate(self.exprs):
+            bound = bind_references(e, child_schema)
+            fields.append(T.Field(output_name(e, i), bound.dtype,
+                                  bound.nullable))
+        return T.Schema(fields)
+
+    def describe(self):
+        return f"Project[{', '.join(e.sql() for e in self.exprs)}]"
+
+
+class Filter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, condition: Expression):
+        super().__init__([child])
+        self.condition = condition
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Filter[{self.condition.sql()}]"
+
+
+class Aggregate(LogicalPlan):
+    def __init__(self, child: LogicalPlan, keys: List[Expression],
+                 aggregates: List[Expression]):
+        super().__init__([child])
+        self.keys = keys
+        self.aggregates = aggregates  # AggregateExpression or Alias thereof
+
+    @property
+    def schema(self):
+        child_schema = self.children[0].schema
+        fields = []
+        for i, k in enumerate(self.keys):
+            b = bind_references(k, child_schema)
+            fields.append(T.Field(output_name(k, i), b.dtype, b.nullable))
+        for j, a in enumerate(self.aggregates):
+            b = bind_references(a, child_schema)
+            fields.append(T.Field(
+                output_name(a, len(self.keys) + j), b.dtype, b.nullable))
+        return T.Schema(fields)
+
+    def describe(self):
+        return (f"Aggregate[keys={[k.sql() for k in self.keys]}, "
+                f"aggs={[a.sql() for a in self.aggregates]}]")
+
+
+class Sort(LogicalPlan):
+    def __init__(self, child: LogicalPlan, keys: List[F.SortKey],
+                 global_sort: bool = True):
+        super().__init__([child])
+        self.keys = keys
+        self.global_sort = global_sort
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Sort[global={self.global_sort}]"
+
+
+def _to_expr(c) -> Expression:
+    if isinstance(c, str):
+        return UnresolvedAttribute(c)
+    if isinstance(c, F.Column):
+        return c.expr
+    if isinstance(c, Expression):
+        return c
+    raise TypeError(f"not a column: {c!r}")
+
+
+class GroupedData:
+    def __init__(self, df: "DataFrame", keys):
+        self._df = df
+        self._keys = [_to_expr(k) for k in keys]
+
+    def agg(self, *aggs) -> "DataFrame":
+        exprs = []
+        for a in aggs:
+            if isinstance(a, F.AggColumn):
+                e = a.expr if a._name is None else Alias(a.expr, a._name)
+            elif isinstance(a, F.Column):
+                e = a.expr
+            else:
+                raise TypeError(f"not an aggregate: {a!r}")
+            exprs.append(e)
+        return DataFrame(self._df.session,
+                         Aggregate(self._df.plan, self._keys, exprs))
+
+
+class DataFrame:
+    def __init__(self, session, plan: LogicalPlan):
+        self.session = session
+        self.plan = plan
+
+    @property
+    def schema(self) -> T.Schema:
+        return self.plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names
+
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame(self.session,
+                         Project(self.plan, [_to_expr(c) for c in cols]))
+
+    def with_column(self, name: str, c) -> "DataFrame":
+        exprs = [UnresolvedAttribute(n) for n in self.columns if n != name]
+        exprs.append(Alias(_to_expr(c), name))
+        return DataFrame(self.session, Project(self.plan, exprs))
+
+    def filter(self, condition) -> "DataFrame":
+        return DataFrame(self.session,
+                         Filter(self.plan, _to_expr(condition)))
+
+    def group_by(self, *keys) -> GroupedData:
+        return GroupedData(self, keys)
+
+    def agg(self, *aggs) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs)
+
+    def sort(self, *keys) -> "DataFrame":
+        sort_keys = [k if isinstance(k, F.SortKey)
+                     else F.SortKey(_to_expr(k)) for k in keys]
+        return DataFrame(self.session, Sort(self.plan, sort_keys, True))
+
+    def _result_batch(self) -> HostBatch:
+        return self.session.execute(self.plan)
+
+    def collect(self) -> List[tuple]:
+        return self._result_batch().to_rows()
+
+    def explain(self, mode: str = "ALL") -> str:
+        return self.session.explain(self.plan, mode)
+
+    def __repr__(self):  # pragma: no cover
+        return f"DataFrame[{', '.join(map(repr, self.schema.fields))}]"

@@ -1,0 +1,85 @@
+"""Session — the engine's entry point.
+
+Counterpart of ``spark_rapids_tpu/session.py``:
+
+    logical plan -> planner -> physical plan
+      -> TpuOverrides (tag/convert) -> TpuTransitionOverrides -> execute
+
+``Session()`` runs on ``cuda``; a machine without CUDA raises instead of
+falling back to the CPU.  ``Session(device="cpu")`` runs the same device
+path on CPU tensors, where every kernel wrapper takes its plain PyTorch
+version — the tests' mode.  The reference's optimizer (it prunes file
+scans only), scheduler, recovery, serving, streaming and telemetry
+layers are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .config import TpuConf
+from .data.column import HostBatch
+from .plan import logical as L
+from .plan.logical import DataFrame
+from .plan.physical import ExecContext, PhysicalPlan, collect_batches
+from .plan.planner import Planner
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; never a silent CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "Session() runs on CUDA and this machine has no CUDA "
+                "device; pass device='cpu' to run the plain PyTorch path")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class Session:
+    def __init__(self, conf: Optional[Dict] = None, device=None):
+        self.conf = TpuConf(conf)
+        self.device = resolve_device(device)
+        #: metrics of the last execution (ExecContext.metrics)
+        self.last_metrics: Dict[str, int] = {}
+
+    def create_dataframe(self, data, schema=None,
+                         n_partitions: int = 1) -> DataFrame:
+        """From a HostBatch, or a dict of name -> values (with an optional
+        Schema).  The default is one partition: the exchanges this slice
+        ports take a single output partition."""
+        if isinstance(data, HostBatch):
+            batch = data
+        elif isinstance(data, dict):
+            batch = HostBatch.from_pydict(data, schema)
+        else:
+            raise TypeError(f"cannot create a dataframe from {type(data)}")
+        return DataFrame(self, L.LocalRelation([batch], batch.schema,
+                                               n_partitions))
+
+    def physical_plan(self, plan: L.LogicalPlan) -> PhysicalPlan:
+        phys = Planner(self.conf).plan(plan)
+        if not self.conf.is_sql_enabled:
+            raise NotImplementedError(
+                "spark.rapids.tpu.sql.enabled=false selects the host "
+                "engine, which is not ported yet")
+        from .plan.overrides import TpuOverrides
+        from .plan.transitions import TpuTransitionOverrides
+
+        phys = TpuOverrides(self.conf).apply(phys)
+        return TpuTransitionOverrides(self.conf).apply(phys)
+
+    def execute(self, plan: L.LogicalPlan) -> HostBatch:
+        phys = self.physical_plan(plan)
+        ctx = ExecContext(self.conf, self.device)
+        out = collect_batches(phys.execute(ctx), phys.schema)
+        self.last_metrics = dict(ctx.metrics)
+        return out
+
+    def explain(self, plan: L.LogicalPlan, mode: str = "ALL") -> str:
+        from .plan.overrides import TpuOverrides
+
+        phys = Planner(self.conf).plan(plan)
+        return TpuOverrides(self.conf.set(
+            "spark.rapids.tpu.sql.explain", mode)).explain(phys)
