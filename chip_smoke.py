@@ -1,21 +1,28 @@
-"""Drive the PyTorch/CUDA engine's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA engine's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 1. builds the hand-written kernels (spark_rapids_tpu_torch/csrc/*.cu, one
    nvcc per source, in parallel) and prints the build time;
-2. runs TPC-H Q1 and Q6 over lineitem at SF1 (6,000,000 rows, one
+2. runs TPC-H Q1 and Q6 over lineitem, and Q3 and Q4 over customer,
+   orders and lineitem, at SF1 (150,000 customers, 1,500,000 orders,
+   6,000,000 lines; each table with the columns its query reads; one
    partition) through ``Session()`` on ``cuda``, each query with every
-   kernel launch count set to 0 just before it and read just after it,
+   kernel launch count set to 0 just before it and read just after it;
    checks the rows against an independent numpy computation (floats to
-   rel 1e-9), checks that each aggregate received one batch and that Q1
-   launched every kernel (K1–K4) and Q6 the kernels of its plan (K3, K4),
-   and times cold and warm runs;
-3. calls each kernel's wrapper at the main path's shapes (8,388,608 padded
-   rows; a 2,097,152-row reader batch for the filter's compaction) and
-   holds it against its plain PyTorch version on the same card tensors —
-   exact, or rel 1e-9 for float sums — timing kernel, plain version and
-   one PyTorch library call with CUDA events (median of runs after warm-up);
+   rel 1e-9; Q3's top 10 in order), that each aggregate and each join
+   side received one batch, that Q3 plans two shuffled hash joins, and
+   that each query launched the kernels of its plan (Q1: K1–K4, Q6: K3
+   and K4, Q3: K1, K2 and K4–K8, Q4: K4 and K5); prints the table sizes
+   after each filter and join, and times cold and warm runs;
+3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
+   8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
+   inputs of Q3's second join as the run above gave them, K6 for inner
+   and full joins; K8: the 150,000-row c_mktsegment matrix against
+   'BUILDING') and holds it against its plain PyTorch version on the same
+   card tensors — exact, or rel 1e-9 for float sums — timing kernel,
+   plain version and one PyTorch library call with CUDA events (median
+   of runs after warm-up);
 4. prints the card's name and power limit, a ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +173,72 @@ def numpy_q6(hb):
     return [(float(np.sum(c["l_extendedprice"].data[keep] * disc[keep])),)]
 
 
+def _cols(batches):
+    return {f.name: c for b in batches.values()
+            for f, c in zip(b.schema, b.columns)}
+
+
+def _strings_equal(c, literal: bytes):
+    w = c.data.shape[1]
+    lit = np.zeros(w, dtype=np.uint8)
+    lit[:len(literal)] = np.frombuffer(literal, dtype=np.uint8)
+    return (c.lengths == len(literal)) & (c.data == lit).all(axis=1)
+
+
+def _semi(keys, build_keys):
+    """Mask of ``keys`` present in ``build_keys`` (sorted-key probe)."""
+    b = np.unique(build_keys)
+    pos = np.clip(np.searchsorted(b, keys), 0, max(len(b) - 1, 0))
+    return (b[pos] == keys) if len(b) else np.zeros(len(keys), bool)
+
+
+def numpy_q3(tables, sizes):
+    c = _cols(tables)
+    cust = c["c_custkey"].data[_strings_equal(c["c_mktsegment"],
+                                              b"BUILDING")]
+    o_keep = c["o_orderdate"].data < _days(1995, 3, 15)
+    okey = c["o_orderkey"].data[o_keep]
+    odate = c["o_orderdate"].data[o_keep]
+    oship = c["o_shippriority"].data[o_keep]
+    j1 = _semi(c["o_custkey"].data[o_keep], cust)  # c_custkey is unique
+    okey, odate, oship = okey[j1], odate[j1], oship[j1]
+    l_keep = c["l_shipdate"].data > _days(1995, 3, 15)
+    lkey = c["l_orderkey"].data[l_keep]
+    rev = (c["l_extendedprice"].data * (1.0 - c["l_discount"].data))[l_keep]
+    order = np.argsort(okey)
+    okey, odate, oship = okey[order], odate[order], oship[order]
+    j2 = _semi(lkey, okey)                          # o_orderkey is unique
+    at = np.searchsorted(okey, lkey[j2])
+    groups, inv = np.unique(at, return_inverse=True)
+    sums = np.bincount(inv, weights=rev[j2])
+    top = np.lexsort((odate[groups], -sums))[:10]
+    sizes.update({"customer BUILDING": len(cust),
+                  "orders < 1995-03-15": int(o_keep.sum()),
+                  "join 1 (customer x orders)": len(okey),
+                  "lineitem > 1995-03-15": int(l_keep.sum()),
+                  "join 2 (x lineitem)": int(j2.sum()),
+                  "groups": len(groups)})
+    return [(int(okey[groups[i]]), float(sums[i]), int(odate[groups[i]]),
+             int(oship[groups[i]])) for i in top]
+
+
+def numpy_q4(tables, sizes):
+    c = _cols(tables)
+    od = c["o_orderdate"].data
+    o_keep = (od >= _days(1993, 7, 1)) & (od < _days(1993, 10, 1))
+    late = c["l_commitdate"].data < c["l_receiptdate"].data
+    semi = _semi(c["o_orderkey"].data[o_keep],
+                 c["l_orderkey"].data[late])
+    pr = c["o_orderpriority"]
+    bm, ln = pr.data[o_keep][semi], pr.lengths[o_keep][semi]
+    names = np.array([bytes(r[:n]).decode() for r, n in zip(bm, ln)])
+    keys, counts = np.unique(names, return_counts=True)
+    sizes.update({"orders in 1993 Q3": int(o_keep.sum()),
+                  "lineitem late": int(late.sum()),
+                  "semi join": int(semi.sum()), "groups": len(keys)})
+    return [(str(k), int(n)) for k, n in zip(keys, counts)]
+
+
 def check_rows(got, want, what):
     require(len(got) == len(want), f"{what}: {len(got)} rows, want "
             f"{len(want)}")
@@ -188,10 +261,16 @@ def main() -> int:
     from spark_rapids_tpu_torch import Session
     from spark_rapids_tpu_torch.benchmarks import tpch, tpch_datagen
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
+                                                    bucket_rows,
                                                     host_to_device)
+    from spark_rapids_tpu_torch.exec.joins import TpuHashJoinExec
+    from spark_rapids_tpu_torch.ops.expression import (Literal,
+                                                       as_device_column)
     from spark_rapids_tpu_torch.ops.kernels import _build
     from spark_rapids_tpu_torch.ops.kernels import gather as G
+    from spark_rapids_tpu_torch.ops.kernels import join as J
     from spark_rapids_tpu_torch.ops.kernels import segment as S
+    from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
 
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -204,33 +283,64 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s ({out_dir})")
     log_ptxas_summary((out_dir / "build.log").read_text())
 
-    # ---- 2. main path -----------------------------------------------------
+    # ---- 2. main paths ----------------------------------------------------
     t0 = time.perf_counter()
     hb = tpch_datagen.lineitem(sf=SF, seed=SEED)
-    log(f"lineitem SF{SF:g}: {hb.num_rows} rows generated in "
-        f"{time.perf_counter() - t0:.1f} s")
+    host = {q: tpch_datagen.tables(q, sf=SF, seed=SEED) for q in (3, 4)}
+    log(f"tables SF{SF:g} generated in {time.perf_counter() - t0:.1f} s: "
+        f"Q1/Q6 lineitem {hb.num_rows} rows x {len(hb.schema)} columns; "
+        + "; ".join(f"Q{q} " + ", ".join(
+            f"{t} {b.num_rows} x {len(b.schema)}" for t, b in ts.items())
+            for q, ts in host.items()))
     sess = Session()
     torch.zeros(1, device=sess.device)  # CUDA context outside the timings
-    tables = {"lineitem": sess.create_dataframe(hb, n_partitions=1)}
+    tables = {1: {"lineitem": sess.create_dataframe(hb, n_partitions=1)}}
+    tables[6] = tables[1]
+    for q in (3, 4):
+        tables[q] = {t: sess.create_dataframe(b, n_partitions=1)
+                     for t, b in host[q].items()}
     counters = {"K1": [S.SORT_LAUNCHES], "K2": [S.SEGMENT_IDS_LAUNCHES],
                 "K3": [S.SEGMENT_REDUCE_LAUNCHES],
-                "K4": [G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES]}
+                "K4": [G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES],
+                "K5": [J.JOIN_PROBE_LAUNCHES],
+                "K6": [J.JOIN_EXPAND_LAUNCHES],
+                "K7": [J.GATHER_SIDE_LAUNCHES],
+                "K8": [SK.STRING_COMPARE_LAUNCHES]}
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
-    # sort, no segment ids and no gather by a sort permutation
-    must_launch = {1: all_counters,
-                   6: [S.SEGMENT_REDUCE_LAUNCHES, G.COMPACT_LAUNCHES]}
-    want = {1: numpy_q1(hb), 6: numpy_q6(hb)}
+    # sort, no segment ids and no gather by a sort permutation; Q4's semi
+    # join compacts the left side instead of expanding pairs
+    must_launch = {
+        1: [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES,
+            S.SEGMENT_REDUCE_LAUNCHES, G.GATHER_LAUNCHES,
+            G.COMPACT_LAUNCHES],
+        6: [S.SEGMENT_REDUCE_LAUNCHES, G.COMPACT_LAUNCHES],
+        3: [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES, G.GATHER_LAUNCHES,
+            G.COMPACT_LAUNCHES, J.JOIN_PROBE_LAUNCHES,
+            J.JOIN_EXPAND_LAUNCHES, J.GATHER_SIDE_LAUNCHES,
+            SK.STRING_COMPARE_LAUNCHES],
+        4: [G.COMPACT_LAUNCHES, J.JOIN_PROBE_LAUNCHES],
+    }
+    sizes = {3: {}, 4: {}}
+    want = {1: numpy_q1(hb), 6: numpy_q6(hb),
+            3: numpy_q3(host[3], sizes[3]), 4: numpy_q4(host[4], sizes[4])}
+    for q in (3, 4):
+        log(f"Q{q} table sizes after each filter and join (numpy): "
+            f"{sizes[q]}")
+    queries = (1, 6, 3, 4)
+
+    def run(q):
+        return tpch.QUERIES[q](tables[q]).collect()
 
     cold = {}
     results = {}
     launches = {}  # query -> kernel -> CUDA kernels launched in its run
-    for q in (1, 6):
+    for q in queries:
         torch.cuda.synchronize()
         for c in all_counters:
             c.reset()
         t0 = time.perf_counter()
-        results[q] = tpch.QUERIES[q](tables).collect()
+        results[q] = run(q)
         cold[q] = time.perf_counter() - t0
         launches[q] = {k: sum(c.count for c in cs)
                        for k, cs in counters.items()}
@@ -239,27 +349,63 @@ def main() -> int:
         for c in must_launch[q]:
             require(c.count > 0, f"Q{q}: wrapper {c.name} launched no "
                     "kernel")
-        require(sess.last_metrics.get(
-            "TpuHashAggregateExec[partial].numInputBatches") == 1,
-            f"Q{q}: the partial aggregate did not receive exactly one "
-            f"batch: {sess.last_metrics}")
-    for q in (1, 6):
+        m = sess.last_metrics
+        require(m.get("TpuHashAggregateExec[partial].numInputBatches") == 1,
+                f"Q{q}: the partial aggregate did not receive exactly one "
+                f"batch: {m}")
+        if q in (3, 4):
+            pairs = m.get("TpuHashJoinExec.numJoinedPairs")
+            require(pairs == (2 if q == 3 else 1) and
+                    m.get("TpuHashJoinExec.numLeftBatches") == pairs and
+                    m.get("TpuHashJoinExec.numRightBatches") == pairs,
+                    f"Q{q}: a join side did not arrive as one batch: {m}")
+    for q in queries:
         check_rows(results[q], want[q], f"Q{q}")
         log(f"Q{q} rows match numpy: {results[q]}")
+    plan3 = str(sess.physical_plan(tpch.q3(tables[3]).plan))
+    require(plan3.count("TpuShuffledHashJoin[inner]") == 2,
+            f"Q3 does not plan two shuffled hash joins:\n{plan3}")
+    log(f"Q3 device plan:\n{plan3}")
+
+    # one more run of each join query, recording every join's input and
+    # output row counts and keeping Q3's second join's inputs for phase 3
+    joined = []
+    join_impl = TpuHashJoinExec._join
+
+    def recording_join(self, lb, rb):
+        out = join_impl(self, lb, rb)
+        joined.append((self, lb, rb, out))
+        return out
+
+    TpuHashJoinExec._join = recording_join
+    try:
+        for q in (3, 4):
+            joined.clear()
+            run(q)
+            for ex, lb, rb, out in joined:
+                log(f"Q{q} {ex.describe()}: left {int(lb.num_rows)} rows "
+                    f"({lb.padded_rows} padded), right {int(rb.num_rows)} "
+                    f"({rb.padded_rows}), out {int(out.num_rows)} "
+                    f"({out.padded_rows})")
+            if q == 3:
+                q3_join2 = joined[-1]
+    finally:
+        TpuHashJoinExec._join = join_impl
+
     warm = {}
-    for q in (1, 6):
+    for q in queries:
         runs = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tpch.QUERIES[q](tables).collect()
+            run(q)
             runs.append(time.perf_counter() - t0)
         warm[q] = statistics.median(runs)
         log(f"Q{q} SF{SF:g} wall: cold {cold[q] * 1e3:.1f} ms, warm "
             f"{warm[q] * 1e3:.1f} ms (median of 3) on {card}")
 
-    for q in (1, 6):
-        profile_query(q, lambda: tpch.QUERIES[q](tables).collect())
+    for q in queries:
+        profile_query(q, lambda: run(q))
 
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
@@ -275,19 +421,27 @@ def main() -> int:
             for c in (fcols["l_returnflag"], fcols["l_linestatus"])]
     entries = []
 
-    def entry(name, source, replaces, kernel_ms, plain_ms, lib_ms,
-              moved_bytes, ops, ops_per_s, err):
+    def bound(moved_bytes, ops, ops_per_s):
         bound_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
         bound_ops = ops / ops_per_s * 1e3
+        return max(bound_bytes, bound_ops), \
+            "bytes" if bound_bytes >= bound_ops else "operations"
+
+    def entry(name, source, replaces, kernel_ms, plain_ms, lib_ms,
+              moved_bytes, ops, ops_per_s, err, **extra):
+        b, by = bound(moved_bytes, ops, ops_per_s)
+        k = name[:2]
         e = {"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches[1][name[:2]],
-             "launches_by_query": {f"q{q}": launches[q][name[:2]]
-                                   for q in (1, 6)},
+             "replaces": replaces,
+             # summed over the cold runs of the four queries
+             "launches": sum(launches[q][k] for q in queries),
+             "launches_by_query": {f"q{q}": launches[q][k]
+                                   for q in queries},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-             "bound_ms": max(bound_bytes, bound_ops),
-             "bound_by": "bytes" if bound_bytes >= bound_ops
-             else "operations",
-             "library_ms": lib_ms}
+             "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+             "status": "ported; launched in " + ", ".join(
+                 f"Q{q}" for q in queries if launches[q][k]),
+             **extra}
         entries.append(e)
         log(f"{name}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {lib_ms if lib_ms is None else round(lib_ms, 3)} ms, "
@@ -386,11 +540,148 @@ def main() -> int:
           nbytes(rkeep, *arrays) * 2 - nbytes(rkeep), rb.padded_rows,
           FP32_PER_S, 0.0)
 
+    # K5: the probe of Q3's second join (its K1 sorts, K2 ids and K4
+    # gathers included in the time), on the inputs the main path gave it
+    ex, lb, rb, _out = q3_join2
+    lkeys = ex._keys_of(lb, ex.left_keys)
+    rkeys = ex._keys_of(rb, ex.right_keys)
+    l_rm, r_rm = lb.row_mask(), rb.row_mask()
+    nl, nr = lb.padded_rows, rb.padded_rows
+    # checked with has_r (right/full joins ask for it); timed without it,
+    # as the main path's inner joins call it
+    pk = J.probe(lkeys, rkeys, l_rm, r_rm)
+    pp = J.probe_plain(lkeys, rkeys, l_rm, r_rm)
+    for f in J.Probe._fields:
+        require(torch.equal(getattr(pk, f), getattr(pp, f)),
+                f"K5 {f} differs from its plain version")
+    sorted_gr = pp.gr[pp.order_r.to(torch.int64)]
+    log(f"K5/K6/K7 at Q3's second join: {nl} + {nr} padded key rows")
+    entry("K5 join_probe", "spark_rapids_tpu_torch/csrc/join_probe.cu",
+          "spark_rapids_tpu/ops/kernels/join.py:89",
+          cuda_ms(lambda: J.probe(lkeys, rkeys, l_rm, r_rm,
+                                  with_has_r=False)),
+          cuda_ms(lambda: J.probe_plain(lkeys, rkeys, l_rm, r_rm,
+                                        with_has_r=False)),
+          cuda_ms(lambda: torch.searchsorted(sorted_gr, pp.gl)),
+          sum(nbytes(k.data, k.validity, k.lengths) for k in lkeys + rkeys)
+          + nbytes(l_rm, r_rm, *pk[:-1]),
+          (nl + nr) + nl * 2 * max(1, nr.bit_length()), FP32_PER_S, 0.0)
+
+    def k6_bytes(ek, pairs, how):
+        """What emit_counts + expand_pairs must move for this join type,
+        on this run's data: cnt and l_rm read; emit, offs, the total and
+        the pairs written; lo read at the left rows with a match and
+        order_r at the matched slots.  Right and full joins also read
+        has_r and r_rm and write r_extra and the unmatched order."""
+        live = torch.where(l_rm, pk.cnt, torch.zeros_like(pk.cnt))
+        moved = nbytes(pk.cnt, l_rm, ek.emit, ek.offs, ek.total, *pairs) \
+            + 4 * int((live > 0).sum()) + 4 * int(live.sum())
+        if how in ("right", "full"):
+            moved += nbytes(pk.has_r, r_rm, ek.r_extra, ek.unmatched_order)
+        return moved
+
+    # K6: emit counts + expansion, inner (Q3's type) and full
+    k6 = {}
+    for how in ("inner", "full"):
+        ek = J.emit_counts(pk, how, l_rm, r_rm)
+        ep = J.emit_counts_plain(pp, how, l_rm, r_rm)
+        for f in ("emit", "total", "offs"):
+            require(torch.equal(getattr(ek, f), getattr(ep, f)),
+                    f"K6 {how} {f} differs from its plain version")
+        if how == "full":
+            require(torch.equal(ek.r_extra, ep.r_extra) and
+                    torch.equal(ek.unmatched_order, ep.unmatched_order),
+                    "K6 full unmatched rows differ")
+        else:
+            require(ek.r_extra is None and ep.r_extra is None,
+                    "K6 inner built an unmatched-right mask")
+        c_out = bucket_rows(int(ek.total))
+        pairs = J.expand_pairs(pk, ek, c_out)
+        for g, r in zip(pairs, J.expand_pairs_plain(pp, ep, c_out)):
+            require(torch.equal(g, r), f"K6 {how} pairs differ")
+        lanes = torch.arange(nl, dtype=torch.int32, device=dev)
+        moved = k6_bytes(ek, pairs, how)
+        # one binary search over the prefix sums per left-part slot
+        ops = int(ek.offs[-1]) * max(1, nl.bit_length()) + nl
+        b, _by = bound(moved, ops, FP32_PER_S)
+        k6[how] = dict(
+            pairs=pairs, c_out=c_out, bound=b, bytes=moved, ops=ops,
+            ms=cuda_ms(lambda: J.expand_pairs(
+                pk, J.emit_counts(pk, how, l_rm, r_rm), c_out)),
+            plain=cuda_ms(lambda: J.expand_pairs_plain(
+                pp, J.emit_counts_plain(pp, how, l_rm, r_rm), c_out)),
+            lib=cuda_ms(lambda: torch.repeat_interleave(lanes, ek.emit)))
+        log(f"K6 {how}: {int(ek.total)} output rows in {c_out} slots")
+    inner = k6["inner"]
+    entry("K6 join_expand", "spark_rapids_tpu_torch/csrc/join_expand.cu",
+          "spark_rapids_tpu/ops/kernels/join.py:126",
+          inner["ms"], inner["plain"], inner["lib"], inner["bytes"],
+          inner["ops"], FP32_PER_S, 0.0,
+          ms_by_join={h: v["ms"] for h, v in k6.items()},
+          plain_ms_by_join={h: v["plain"] for h, v in k6.items()},
+          library_ms_by_join={h: v["lib"] for h, v in k6.items()},
+          bound_ms_by_join={h: v["bound"] for h, v in k6.items()})
+
+    # K7: both sides of Q3's second join gathered by the inner pairs
+    lidx, ridx, slot_valid = inner["pairs"]
+
+    def gather_both(fn):
+        return fn(lb.columns, lidx, slot_valid) + \
+            fn(rb.columns, ridx, slot_valid)
+
+    for g, r in zip(gather_both(J.gather_side),
+                    gather_both(J.gather_side_plain)):
+        require(torch.equal(g.data, r.data) and
+                torch.equal(g.validity, r.validity) and
+                (r.lengths is None or torch.equal(g.lengths, r.lengths)),
+                f"K7 differs from its plain version in a {r.dtype} column")
+    safe = [(c, torch.clamp(i, 0, c.data.shape[0] - 1).to(torch.int64))
+            for cols_, i in ((lb.columns, lidx), (rb.columns, ridx))
+            for c in cols_]
+    side_bytes = sum(2 * lidx.shape[0] * (
+        c.data.element_size() * (c.data.shape[1] if c.data.dim() == 2
+                                 else 1) + 1
+        + (4 if c.lengths is not None else 0)) for c, _i in safe)
+    entry("K7 gather_side", "spark_rapids_tpu_torch/csrc/gather.cu",
+          "spark_rapids_tpu/ops/kernels/join.py:158",
+          cuda_ms(lambda: gather_both(J.gather_side)),
+          cuda_ms(lambda: gather_both(J.gather_side_plain)),
+          cuda_ms(lambda: [c.data[i] for c, i in safe]),
+          side_bytes + nbytes(lidx, ridx, slot_valid), lidx.shape[0]
+          * len(safe), FP32_PER_S, 0.0)
+
+    # K8: Q3's customer filter, c_mktsegment == 'BUILDING'
+    cb = host_to_device(host[3]["customer"], 128, dev)
+    seg_col = cb.columns[cb.schema.index_of("c_mktsegment")]
+    lit = as_device_column(Literal("BUILDING").eval_tpu(cb),
+                           cb.padded_rows, dev)
+    args = (seg_col.data, seg_col.lengths, lit.data, lit.lengths)
+    got_eq = SK.equals(*args)
+    require(torch.equal(got_eq, SK.equals_plain(*args)),
+            "K8 equals differs from its plain version")
+    require(torch.equal(SK.compare(*args), SK.compare_plain(*args)),
+            "K8 compare differs from its plain version")
+    require(int((got_eq & cb.row_mask()).sum()) ==
+            sizes[3]["customer BUILDING"], "K8 count differs from numpy")
+    w = seg_col.data.shape[1]
+    pos = torch.arange(w, device=dev)[None, :]
+    masked = torch.where(pos < seg_col.lengths[:, None], seg_col.data, 0)
+    wide_lit = torch.nn.functional.pad(lit.data[:1], (
+        0, w - lit.data.shape[1])).expand(cb.padded_rows, w)
+    entry("K8 string_compare", "spark_rapids_tpu_torch/csrc/strings.cu",
+          "spark_rapids_tpu/ops/kernels/stringkernels.py:58",
+          cuda_ms(lambda: SK.equals(*args)),
+          cuda_ms(lambda: SK.equals_plain(*args)),
+          cuda_ms(lambda: (masked == wide_lit).all(1)),
+          nbytes(seg_col.data, seg_col.lengths, lit.data[:1],
+                 lit.lengths[:1], got_eq),
+          cb.padded_rows * w, FP32_PER_S, 0.0)
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
                                             "warm_s": warm[q]}
-                                  for q in (1, 6)},
+                                  for q in queries},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

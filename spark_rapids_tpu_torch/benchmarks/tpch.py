@@ -1,9 +1,10 @@
-"""TPC-H Q1 and Q6 as DataFrame code.
+"""TPC-H Q1, Q3, Q4 and Q6 as DataFrame code.
 
-Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py:q1`` (45) and
-``q6`` (141), written against this engine's DataFrame API.  The other
-twenty queries need joins, strings and the multi-partition exchange,
-which come with later slices.
+Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py:q1`` (45), ``q3``
+(90), ``q4`` (105) and ``q6`` (141), written against this engine's
+DataFrame API.  The other eighteen queries need more joins, string
+functions, distinct, unions or the multi-partition exchange, which come
+with later slices.
 """
 from __future__ import annotations
 
@@ -35,6 +36,33 @@ def q1(t):
             .sort("l_returnflag", "l_linestatus"))
 
 
+def q3(t):
+    cust = t["customer"].filter(col("c_mktsegment") == lit("BUILDING"))
+    orders = t["orders"].filter(col("o_orderdate") < _d(1995, 3, 15))
+    li = t["lineitem"].filter(col("l_shipdate") > _d(1995, 3, 15))
+    j = (cust.select("c_custkey")
+         .join(orders, on=(["c_custkey"], ["o_custkey"]), how="inner")
+         .join(li, on=(["o_orderkey"], ["l_orderkey"]), how="inner"))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (j.group_by("o_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(rev).alias("revenue"))
+            .select("o_orderkey", "revenue", "o_orderdate", "o_shippriority")
+            .sort(col("revenue").desc(), col("o_orderdate").asc())
+            .limit(10))
+
+
+def q4(t):
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= _d(1993, 7, 1))
+        & (col("o_orderdate") < _d(1993, 10, 1)))
+    late = t["lineitem"].filter(col("l_commitdate") < col("l_receiptdate"))
+    return (orders.join(late, on=(["o_orderkey"], ["l_orderkey"]),
+                        how="semi")
+            .group_by("o_orderpriority")
+            .agg(F.count("*").alias("order_count"))
+            .sort("o_orderpriority"))
+
+
 def q6(t):
     li = t["lineitem"].filter(
         (col("l_shipdate") >= _d(1994, 1, 1))
@@ -45,4 +73,4 @@ def q6(t):
                   .alias("revenue"))
 
 
-QUERIES = {1: q1, 6: q6}
+QUERIES = {1: q1, 3: q3, 4: q4, 6: q6}

@@ -103,6 +103,12 @@ TEST_ALLOWED_NON_TPU = conf("spark.rapids.tpu.sql.test.allowedNonTpu").doc(
 EXPLAIN = conf("spark.rapids.tpu.sql.explain").doc(
     "Plan-rewrite explain mode: NONE, ALL, or NOT_ON_TPU").string_conf("NONE")
 
+# --- joins ----------------------------------------------------------------
+BROADCAST_THRESHOLD = conf(
+    "spark.rapids.tpu.sql.broadcastSizeThreshold").doc(
+    "Max estimated build-side bytes for a broadcast hash join; set to 0 "
+    "to force shuffled joins").int_conf(10 * 1024 * 1024)
+
 # --- exchange -------------------------------------------------------------
 SHUFFLE_PARTITIONS = conf("spark.rapids.tpu.sql.shuffle.partitions").doc(
     "Default number of exchange output partitions").int_conf(8)
@@ -138,6 +144,10 @@ class TpuConf:
     def allowed_non_tpu(self) -> List[str]:
         raw = self.get(TEST_ALLOWED_NON_TPU)
         return [s.strip() for s in raw.split(",") if s.strip()]
+
+    @property
+    def broadcast_threshold(self) -> int:
+        return int(self.get(BROADCAST_THRESHOLD))
 
     @property
     def explain(self) -> str:

@@ -118,4 +118,62 @@ __device__ __forceinline__ int thread_prefix(const int* f, int* tile_total) {
   return block_excl_scan(s, tile_total);
 }
 
+// 64-bit forms of the block scan, for sums that can pass 2**31 (the join's
+// output slot counts)
+__device__ __forceinline__ long long warp_incl_scan64(long long v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    long long t = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+__device__ __forceinline__ long long block_excl_scan64(long long v,
+                                                       long long* total) {
+  __shared__ long long warp_sums64[32];
+  __shared__ long long s_total64;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const long long incl = warp_incl_scan64(v);
+  if (lane == 31) warp_sums64[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    long long s = lane < nw ? warp_sums64[lane] : 0;
+    long long si = warp_incl_scan64(s);
+    if (lane < nw) warp_sums64[lane] = si - s;
+    if (lane == 31) s_total64 = si;
+  }
+  __syncthreads();
+  const long long r = warp_sums64[w] + incl - v;
+  *total = s_total64;
+  __syncthreads();
+  return r;
+}
+
+// lower_bound / upper_bound over a nondecreasing array
+template <typename T>
+__device__ __forceinline__ long long lower_bound(const T* __restrict__ a,
+                                                 long long n, T v) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <typename T>
+__device__ __forceinline__ long long upper_bound(const T* __restrict__ a,
+                                                 long long n, T v) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 }  // namespace srt

@@ -1,7 +1,8 @@
-// K4 — stream compaction and gather.
+// K4 — stream compaction and gather; K7 — the null-side gather of a join.
 //
 // Replaces spark_rapids_tpu/ops/kernels/gather.py:compact (33),
-// gather_column (16) and gather_batch (27).  compact keeps the rows whose
+// gather_column (16) and gather_batch (27), and (K7, k7_gather_side)
+// spark_rapids_tpu/ops/kernels/join.py:gather_side (158).  compact keeps the rows whose
 // flag is set (and that lie below num_rows) at the front in their order,
 // puts the dropped rows after them in their order (the reference's stable
 // argsort of ~keep), and clears the validity past the new row count;
@@ -16,6 +17,16 @@
 // scatter launch per array with 1/2/4/8-byte element copies (or a byte
 // loop for matrix rows); reads are coalesced, and the writes of kept rows
 // are contiguous runs.  No atomics: the destinations come from the scan.
+//
+// K7 gathers a join side's column by the output's row indices, where -1
+// gives a null row: validity = valid[idx] && idx >= 0 && slot_valid.  At
+// Q3's second join (an output bucket of 32,768 slots, 4-8 B columns) it
+// reads the index, the slot mask and a gathered row and writes the row,
+// its validity and (strings) its length: ~15 B a slot a column, well
+// under a microsecond at 3.35 TB/s, so the launch sets its time.  Design:
+// data, validity and lengths of one column in one pass (one launch a
+// column), with K4's 1/2/4/8-byte element copies or a byte loop for
+// matrix rows.
 #include "common.cuh"
 
 namespace {
@@ -121,6 +132,57 @@ __global__ void gather_valid(const bool* __restrict__ valid,
   bool v = valid[clamp_index(idx[i], n_src)];
   if (mask != nullptr) v = v && mask[i];
   dst[i] = v;
+}
+
+// order[dest[i]] = i: the stable argsort of ~keep as a row index array
+__global__ void invert_dest(const int* __restrict__ dest, long long n,
+                            int* __restrict__ order) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  order[dest[i]] = (int)i;
+}
+
+// K7: gather one side of a join; an index of -1 yields a null row whose
+// data is row 0's (the reference clips the index), and slot_valid masks
+// the slots past the output's row count
+template <typename E>
+__global__ void gather_side_elems(const E* __restrict__ src,
+                                  const bool* __restrict__ valid,
+                                  const int* __restrict__ lengths,
+                                  const int* __restrict__ idx,
+                                  const bool* __restrict__ slot_valid,
+                                  long long n_out, long long n_src,
+                                  E* __restrict__ dst,
+                                  bool* __restrict__ dst_valid,
+                                  int* __restrict__ dst_lengths) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int v = idx[i];
+  const long long k = clamp_index(v, n_src);
+  dst[i] = src[k];
+  dst_valid[i] = valid[k] && v >= 0 && slot_valid[i];
+  if (dst_lengths != nullptr) dst_lengths[i] = lengths[k];
+}
+
+__global__ void gather_side_bytes(const uint8_t* __restrict__ src,
+                                  int row_bytes,
+                                  const bool* __restrict__ valid,
+                                  const int* __restrict__ lengths,
+                                  const int* __restrict__ idx,
+                                  const bool* __restrict__ slot_valid,
+                                  long long n_out, long long n_src,
+                                  uint8_t* __restrict__ dst,
+                                  bool* __restrict__ dst_valid,
+                                  int* __restrict__ dst_lengths) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  const int v = idx[i];
+  const long long k = clamp_index(v, n_src);
+  const uint8_t* s = src + k * row_bytes;
+  uint8_t* d = dst + i * (long long)row_bytes;
+  for (int j = 0; j < row_bytes; ++j) d[j] = s[j];
+  dst_valid[i] = valid[k] && v >= 0 && slot_valid[i];
+  if (dst_lengths != nullptr) dst_lengths[i] = lengths[k];
 }
 
 }  // namespace
@@ -229,5 +291,64 @@ SRT_API int k4_gather_valid(const void* valid, const void* idx,
                  (cudaStream_t)stream>>>((const bool*)valid, (const int*)idx,
                                          (const bool*)mask, n_out, n_src,
                                          (bool*)dst);
+  return (int)cudaGetLastError();
+}
+
+// k4_compact_plan, then order[dest[i]] = i: the stable argsort of ~keep
+// (kept rows first) as int32 row indices, and the kept count
+SRT_API int k4_compact_order(const void* keep, const void* num_rows,
+                             long long n, void* flags, void* tile_sums,
+                             void* dest, void* count, void* order,
+                             void* stream) {
+  int e = k4_compact_plan(keep, num_rows, n, flags, tile_sums, dest, count,
+                          stream);
+  if (e != 0) return e;
+  invert_dest<<<srt::blocks_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int*)dest, n, (int*)order);
+  return (int)cudaGetLastError();
+}
+
+// K7: one column of a join side gathered by idx (-1 = null row) and
+// masked by slot_valid, data, validity and lengths (NULL for 1-D data) in
+// one pass; row_bytes: the element size, or the byte matrix's width
+SRT_API int k7_gather_side(const void* src, int row_bytes, const void* valid,
+                           const void* lengths, const void* idx,
+                           const void* slot_valid, long long n_out,
+                           long long n_src, void* dst, void* dst_valid,
+                           void* dst_lengths, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned g = srt::blocks_for(n_out, BLOCK);
+  const bool* v = (const bool*)valid;
+  const int* ln = (const int*)lengths;
+  const int* ix = (const int*)idx;
+  const bool* sv = (const bool*)slot_valid;
+  bool* dv = (bool*)dst_valid;
+  int* dl = (int*)dst_lengths;
+  switch (row_bytes) {
+    case 1:
+      gather_side_elems<uint8_t><<<g, BLOCK, 0, st>>>(
+          (const uint8_t*)src, v, ln, ix, sv, n_out, n_src, (uint8_t*)dst,
+          dv, dl);
+      break;
+    case 2:
+      gather_side_elems<uint16_t><<<g, BLOCK, 0, st>>>(
+          (const uint16_t*)src, v, ln, ix, sv, n_out, n_src,
+          (uint16_t*)dst, dv, dl);
+      break;
+    case 4:
+      gather_side_elems<uint32_t><<<g, BLOCK, 0, st>>>(
+          (const uint32_t*)src, v, ln, ix, sv, n_out, n_src,
+          (uint32_t*)dst, dv, dl);
+      break;
+    case 8:
+      gather_side_elems<unsigned long long><<<g, BLOCK, 0, st>>>(
+          (const unsigned long long*)src, v, ln, ix, sv, n_out, n_src,
+          (unsigned long long*)dst, dv, dl);
+      break;
+    default:
+      gather_side_bytes<<<g, BLOCK, 0, st>>>(
+          (const uint8_t*)src, row_bytes, v, ln, ix, sv, n_out, n_src,
+          (uint8_t*)dst, dv, dl);
+  }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,9 @@ from ..plan.physical import ExecContext, PhysicalPlan
 
 class CoalesceGoal:
     def max_with(self, other: "CoalesceGoal") -> "CoalesceGoal":
+        if isinstance(self, RequireSingleBatch) or \
+                isinstance(other, RequireSingleBatch):
+            return RequireSingleBatch()
         if isinstance(self, TargetSize) and isinstance(other, TargetSize):
             if self.target is None:
                 return self
@@ -49,6 +52,14 @@ class TargetRows(CoalesceGoal):
 
     def __repr__(self):
         return f"TargetRows({self.rows})"
+
+
+class RequireSingleBatch(CoalesceGoal):
+    """All of a partition's batches concatenated into one (a join's build
+    side)."""
+
+    def __repr__(self):
+        return "RequireSingleBatch"
 
 
 class DevicePartitionedData:

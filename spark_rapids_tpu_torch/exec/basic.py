@@ -1,12 +1,16 @@
-"""Basic device operators: Project and Filter.
+"""Basic device operators: Project, Filter and the limits.
 
-Counterpart of ``spark_rapids_tpu/exec/basic.py:22-121``.  The filter
-compacts with K4 (``ops/kernels/gather.py:compact``).  Union, limits and
-Expand come with later slices.
+Counterpart of ``spark_rapids_tpu/exec/basic.py:22-121,141-190``.  The
+filter compacts with K4 (``ops/kernels/gather.py:compact``).  A limit
+reads each batch's row count on the host, as the reference does, and
+turns the rows past the limit into padding through validity.  Union
+and Expand come with later slices.
 """
 from __future__ import annotations
 
 from typing import List
+
+import torch
 
 from .. import types as T
 from ..data.column import DeviceBatch, DeviceColumn
@@ -90,6 +94,54 @@ class TpuFilterExec(TpuExec):
         return f"TpuFilter[{self.condition.sql()}]"
 
 
+class TpuLocalLimitExec(TpuExec):
+    def __init__(self, child, n: int):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute_columnar(self, ctx):
+        child = self.children[0].execute_columnar(ctx)
+
+        def make(pid):
+            def it():
+                remaining = self.n
+                for db in child.iterator(pid):
+                    if remaining <= 0:
+                        break
+                    n_rows = int(db.num_rows)  # host sync, as the reference
+                    if n_rows <= remaining:
+                        remaining -= n_rows
+                        yield db
+                        continue
+                    # the padded arrays stay; rows past the limit become
+                    # padding
+                    mask = torch.arange(db.padded_rows, dtype=torch.int32,
+                                        device=db.device) < remaining
+                    cols = [DeviceColumn(c.dtype, c.data, c.validity & mask,
+                                         c.lengths) for c in db.columns]
+                    yield DeviceBatch(db.schema, cols, torch.full(
+                        (), remaining, dtype=torch.int32, device=db.device))
+                    remaining = 0
+            return it
+
+        return DevicePartitionedData(
+            [make(i) for i in range(child.n_partitions)])
+
+    def describe(self):
+        return f"TpuLocalLimit[{self.n}]"
+
+
+class TpuGlobalLimitExec(TpuLocalLimitExec):
+    """Over a single partition (the planner puts the exchange below)."""
+
+    def describe(self):
+        return f"TpuGlobalLimit[{self.n}]"
+
+
 def register(register_exec):
     from ..plan import physical as P
 
@@ -104,3 +156,11 @@ def register(register_exec):
         convert=lambda meta, ch: TpuFilterExec(ch[0], meta.plan.condition),
         desc="columnar filter with stream compaction on the device",
         exprs_of=lambda plan: [plan.condition])
+    register_exec(
+        P.GlobalLimitExec,
+        convert=lambda meta, ch: TpuGlobalLimitExec(ch[0], meta.plan.n),
+        desc="global limit on the device")
+    register_exec(
+        P.LocalLimitExec,
+        convert=lambda meta, ch: TpuLocalLimitExec(ch[0], meta.plan.n),
+        desc="per-partition limit on the device")

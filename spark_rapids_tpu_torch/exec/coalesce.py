@@ -1,11 +1,11 @@
 """Device batch coalescing.
 
 Counterpart of ``spark_rapids_tpu/exec/coalesce.py``: concatenate small
-batches toward a goal (TargetSize bytes or TargetRows; no operator of
-this slice requires a single batch).  The concat reads every row count
-back to the host once (as the reference does) and copies each column's
-live rows into a preallocated buffer of the new row bucket — a plain
-data move, with no hand-written kernel.
+batches toward a goal (TargetSize bytes, TargetRows, or
+RequireSingleBatch: every batch of the partition in one).  The concat
+reads every row count back to the host once (as the reference does) and
+copies each column's live rows into a preallocated buffer of the new
+row bucket — a plain data move, with no hand-written kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ import torch
 from ..config import (BATCH_SIZE_BYTES, BUCKET_MIN_ROWS,
                       SHUFFLE_TARGET_BATCH_ROWS)
 from ..data.column import DeviceBatch, DeviceColumn, bucket_rows
-from .base import (CoalesceGoal, DevicePartitionedData, TargetRows,
-                   TargetSize, TpuExec)
+from .base import (CoalesceGoal, DevicePartitionedData,
+                   RequireSingleBatch, TargetRows, TargetSize, TpuExec)
 
 
 def concat_device_batches(batches: List[DeviceBatch],
@@ -88,6 +88,11 @@ class TpuCoalesceBatchesExec(TpuExec):
 
         def make(pid):
             def it():
+                if isinstance(goal, RequireSingleBatch):
+                    batches = list(child.iterator(pid))
+                    if batches:
+                        yield concat_device_batches(batches, min_bucket)
+                    return
                 if isinstance(goal, TargetRows):
                     rows = goal.rows if goal.rows is not None \
                         else ctx.conf.get(SHUFFLE_TARGET_BATCH_ROWS)

@@ -8,7 +8,7 @@ numpy data can drive both packages.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -50,3 +50,18 @@ def to_reference_arrays(batch: HostBatch
         else:
             arrays[f.name] = c.data
     return fields, arrays
+
+
+def from_reference_tables(
+        tables: Mapping[str, Tuple[Sequence[Tuple[str, str]],
+                                   Mapping[str, np.ndarray]]]
+) -> Dict[str, HostBatch]:
+    """Many tables at once: table name -> (fields, name -> array) in the
+    reference's layout, as ``to_reference_tables`` gives them."""
+    return {t: from_reference_arrays(fields, [arrays[n] for n, _ in fields])
+            for t, (fields, arrays) in tables.items()}
+
+
+def to_reference_tables(batches: Mapping[str, HostBatch]):
+    """table name -> (fields, name -> array) in the reference's layout."""
+    return {t: to_reference_arrays(b) for t, b in batches.items()}

@@ -44,7 +44,16 @@ def as_device_column(x, n_padded: int, device) -> DeviceColumn:
     if isinstance(x, DeviceColumn):
         return x
     if x.dtype.is_string:
-        raise NotImplementedError("string scalars are not on the device yet")
+        # one encoded row broadcast (stride 0) to n_padded rows: the
+        # string kernels read it once; a consumer that writes it copies
+        from ..data import strings as dstrings
+
+        bm, ln = dstrings.encode([x.value])
+        data = torch.from_numpy(bm).to(device).expand(n_padded, -1)
+        lengths = torch.from_numpy(ln).to(device).expand(n_padded)
+        validity = torch.full((n_padded,), not x.is_null, dtype=torch.bool,
+                              device=device)
+        return DeviceColumn(x.dtype, data, validity, lengths)
     val = 0 if x.is_null else x.value
     data = torch.full((n_padded,), val, dtype=x.dtype.torch_dtype,
                       device=device)

@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, from the sources in the checkout alone,
 into ``csrc/build/<hash of the sources and flags>/`` (listed in
-``.gitignore``), so an edited kernel rebuilds.  The four sources compile
-in parallel, one ``nvcc`` process each.
+``.gitignore``), so an edited kernel rebuilds.  The sources compile in
+parallel, one ``nvcc`` process each.
 
 Nothing here runs at import time: the CPU tests import every module, on
 machines that may have neither ``nvcc`` nor a card.
@@ -59,6 +59,23 @@ KERNELS: Dict[str, tuple] = {
         "k4_scatter_valid": ([P, P, P, Q, P, P], 1),
         "k4_gather_rows": ([P, P, Q, Q, I, P, P], 1),
         "k4_gather_valid": ([P, P, P, Q, Q, P, P], 1),
+        "k4_compact_order": ([P, P, Q, P, P, P, P, P, P], 5),
+        "k7_gather_side": ([P, I, P, P, P, P, Q, Q, P, P, P, P], 1),
+    }),
+    "join_probe": ("join_probe.cu", {
+        "k5_ok": ([P, P, Q, P, P, Q, I, P, P], 1),
+        "k5_concat": ([P, Q, I, P, Q, I, I, P, P], 1),
+        "k5_scatter_ids": ([P, P, P, Q, Q, P, P, P], 1),
+        "k5_search": ([P, Q, P, Q, P, P, P], 1),
+        "k5_has_r": ([P, Q, P, Q, P, P, P], 3),
+    }),
+    "join_expand": ("join_expand.cu", {
+        "k6_emit": ([P, P, Q, P, P, Q, I, I, P, P, P], 1),
+        "k6_scan": ([P, Q, P, P, P, P, P], 3),
+        "k6_expand": ([P, P, Q, P, P, P, Q, P, P, Q, P, P, P, P], 1),
+    }),
+    "strings": ("strings.cu", {
+        "k8_string_compare": ([P, P, I, I, P, P, I, I, Q, I, P, P], 1),
     }),
 }
 LAUNCHES_PER_CALL = {fn: n for _src, fns in KERNELS.values()

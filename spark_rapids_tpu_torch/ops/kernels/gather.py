@@ -89,17 +89,42 @@ def gather_batch(batch: DeviceBatch, order: torch.Tensor, num_rows,
 # ---------------------------------------------------------------------------
 # compaction
 # ---------------------------------------------------------------------------
-def compact_plain(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
-    keep = keep & batch.row_mask()
+def compact_order_plain(keep: torch.Tensor):
     # stable argsort of (not keep): kept rows first, each side in order
     order = torch.sort((~keep).to(torch.uint8), stable=True
                        ).indices.to(torch.int32)
-    count = keep.sum().to(torch.int32)
+    return order, keep.sum().to(torch.int32)
+
+
+def compact_plain(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
+    order, count = compact_order_plain(keep & batch.row_mask())
     kept_mask = torch.arange(batch.padded_rows, dtype=torch.int32,
                              device=keep.device) < count
     return DeviceBatch(batch.schema, [
         gather_column_plain(c, order, kept_mask) for c in batch.columns],
         count)
+
+
+def compact_order(keep: torch.Tensor,
+                  kernels: Optional[B.Kernels] = None):
+    """K4: the stable argsort of ``~keep`` (int32 row indices, kept rows
+    first) and the kept count (int32 device scalar)."""
+    kernels = B.kernels_for(keep, kernels)
+    if kernels is None:
+        return compact_order_plain(keep)
+    n = keep.shape[0]
+    dev = keep.device
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_sums = torch.empty(B.tiles(n), dtype=torch.int32, device=dev)
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    num_rows = torch.full((), n, dtype=torch.int32, device=dev)
+    B.launch(COMPACT_LAUNCHES, kernels.library("gather"), "k4_compact_order",
+             B.ptr(keep.contiguous()), B.ptr(num_rows), n, B.ptr(flags),
+             B.ptr(tile_sums), B.ptr(dest), B.ptr(count), B.ptr(order),
+             kernels.stream(keep))
+    return order, count
 
 
 def compact(batch: DeviceBatch, keep: torch.Tensor,

@@ -1,10 +1,10 @@
 """Predicate expressions.
 
 Counterpart of ``spark_rapids_tpu/ops/predicates.py`` for the slice:
-the five numeric comparisons, And/Or with Kleene logic, Not, IsNull and
-IsNotNull.  String comparisons, EqualNullSafe, IsNaN and In/InSet come
-with a later slice (a comparison with a string side reports no device
-implementation, so the rewrite engine tags it off the device).
+the five comparisons (numbers, dates, and strings through K8,
+``ops/kernels/stringkernels.py``), And/Or with Kleene logic, Not, IsNull
+and IsNotNull.  EqualNullSafe, IsNaN and In/InSet come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import torch
 from .. import types as T
 from ..data.column import DeviceColumn
 from .expression import (BinaryExpression, Expression, UnaryExpression,
-                         as_device_column)
+                         and_validity, as_device_column)
+from .kernels import stringkernels as sk
 
 
 class _Comparison(BinaryExpression):
@@ -29,11 +30,23 @@ class _Comparison(BinaryExpression):
             return l.to(p), r.to(p)
         return l, r
 
-    @property
-    def tpu_supported(self) -> bool:
-        return not (self.left.dtype.is_string
-                    or self.right.dtype.is_string) and all(
-            c.tpu_supported for c in self.children)
+    def eval_tpu(self, batch):
+        if not (self.left.dtype.is_string or self.right.dtype.is_string):
+            return super().eval_tpu(batch)
+        n, dev = batch.padded_rows, batch.device
+        lc = self.left.eval_tpu(batch)
+        rc = self.right.eval_tpu(batch)
+        lcol = as_device_column(lc, n, dev)
+        rcol = as_device_column(rc, n, dev)
+        validity = and_validity(n, dev, lc, rc)
+        if self.op == "==":
+            data = sk.equals(lcol.data, lcol.lengths, rcol.data,
+                             rcol.lengths)
+        else:
+            c = sk.compare(lcol.data, lcol.lengths, rcol.data, rcol.lengths)
+            data = {"<": c < 0, "<=": c <= 0, ">": c > 0,
+                    ">=": c >= 0}[self.op]
+        return DeviceColumn(T.BOOL, data, validity)
 
     def do_tpu(self, l, r):
         return _CMP[self.op](l, r)

@@ -1,14 +1,16 @@
 """Logical plan and DataFrame API.
 
-Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slice:
-``LocalRelation``, ``Filter``, ``Project``, ``Aggregate`` and ``Sort``,
-and a ``DataFrame`` with ``filter``, ``with_column``, ``select``,
-``group_by().agg``, ``agg``, ``sort``, ``collect`` and ``explain``.  Joins, limits, unions,
-windows, file scans and writes come with later slices.
+Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
+ported so far: ``LocalRelation``, ``Filter``, ``Project``,
+``Aggregate``, ``Join``, ``Sort`` and ``Limit``, and a ``DataFrame``
+with ``filter``, ``with_column``, ``select``, ``group_by().agg``,
+``agg``, ``join``, ``sort``, ``limit``, ``collect`` and ``explain``.
+Unions, distinct, windows, file scans and writes come with later
+slices.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from .. import types as T
 from ..data.column import HostBatch
@@ -112,6 +114,33 @@ class Aggregate(LogicalPlan):
                 f"aggs={[a.sql() for a in self.aggregates]}]")
 
 
+class Join(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: List[Expression], right_keys: List[Expression],
+                 how: str = "inner", condition: Optional[Expression] = None):
+        super().__init__([left, right])
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.how = how
+        self.condition = condition
+
+    @property
+    def schema(self):
+        l, r = self.children[0].schema, self.children[1].schema
+        if self.how in ("semi", "anti"):
+            return l
+        lf = list(l.fields)
+        rf = list(r.fields)
+        if self.how in ("left", "full"):
+            rf = [T.Field(f.name, f.dtype, True) for f in rf]
+        if self.how in ("right", "full"):
+            lf = [T.Field(f.name, f.dtype, True) for f in lf]
+        return T.Schema(lf + rf)
+
+    def describe(self):
+        return f"Join[{self.how}]"
+
+
 class Sort(LogicalPlan):
     def __init__(self, child: LogicalPlan, keys: List[F.SortKey],
                  global_sort: bool = True):
@@ -125,6 +154,25 @@ class Sort(LogicalPlan):
 
     def describe(self):
         return f"Sort[global={self.global_sort}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, n: int):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Limit[{self.n}]"
+
+
+_JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",
+                 "full_outer": "full", "leftsemi": "semi",
+                 "left_semi": "semi", "leftanti": "anti",
+                 "left_anti": "anti"}
 
 
 def _to_expr(c) -> Expression:
@@ -192,6 +240,30 @@ class DataFrame:
         sort_keys = [k if isinstance(k, F.SortKey)
                      else F.SortKey(_to_expr(k)) for k in keys]
         return DataFrame(self.session, Sort(self.plan, sort_keys, True))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Equi-join on ``on``: a column name, a list of names present on
+        both sides, or ``([left keys], [right keys])``.  ``how``: inner,
+        left, right, full, semi or anti (and their Spark aliases)."""
+        how = _JOIN_ALIASES.get(how, how)
+        if on is None:
+            raise ValueError("join requires 'on'")
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, (list, tuple)) and on and isinstance(on[0], str):
+            lk = [UnresolvedAttribute(k) for k in on]
+            rk = [UnresolvedAttribute(k) for k in on]
+        else:
+            lk, rk = on
+            lk = [_to_expr(k) for k in lk]
+            rk = [_to_expr(k) for k in rk]
+        cond = _to_expr(condition) if condition is not None else None
+        return DataFrame(self.session,
+                         Join(self.plan, other.plan, lk, rk, how, cond))
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, Limit(self.plan, n))
 
     def _result_batch(self) -> HostBatch:
         return self.session.execute(self.plan)

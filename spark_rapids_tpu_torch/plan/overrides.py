@@ -265,7 +265,7 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
 
 
 def _register_exec_rules(reg: RuleRegistry) -> None:
-    from ..exec import aggregate, basic, exchange, sort
+    from ..exec import aggregate, basic, exchange, joins, sort
 
-    for mod in (basic, aggregate, exchange, sort):
+    for mod in (basic, aggregate, exchange, joins, sort):
         mod.register(reg.register_exec)

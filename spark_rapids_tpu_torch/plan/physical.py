@@ -169,6 +169,64 @@ class FilterExec(PhysicalPlan):
         return f"Filter[{self.condition.sql()}]"
 
 
+class LocalLimitExec(PhysicalPlan):
+    def __init__(self, child: PhysicalPlan, n: int):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"LocalLimit[{self.n}]"
+
+
+class GlobalLimitExec(LocalLimitExec):
+    """Expects a single-partition child (the planner inserts the
+    exchange)."""
+
+    def describe(self):
+        return f"GlobalLimit[{self.n}]"
+
+
+class HashJoinExec(PhysicalPlan):
+    """Equi-join, build = right side; inner/left/right/full/semi/anti with
+    an optional residual condition (the device join takes none yet).
+    ``broadcast`` selects the broadcast form over the shuffled one."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 left_keys, right_keys, how: str,
+                 condition: Optional[Expression], broadcast: bool = False):
+        super().__init__([left, right])
+        self.left_keys = [bind_references(k, left.schema)
+                          for k in left_keys]
+        self.right_keys = [bind_references(k, right.schema)
+                           for k in right_keys]
+        self.how = how
+        self.broadcast = broadcast
+        lf = list(left.schema.fields)
+        rf = list(right.schema.fields)
+        if how in ("semi", "anti"):
+            self._schema = T.Schema(lf)
+        else:
+            if how in ("left", "full"):
+                rf = [T.Field(f.name, f.dtype, True) for f in rf]
+            if how in ("right", "full"):
+                lf = [T.Field(f.name, f.dtype, True) for f in lf]
+            self._schema = T.Schema(lf + rf)
+        self.condition = bind_references(condition, self._schema) \
+            if condition is not None else None
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def describe(self):
+        kind = "broadcast" if self.broadcast else "shuffled"
+        return f"HashJoin[{self.how}, {kind}]"
+
+
 class SortExec(PhysicalPlan):
     """Per-partition sort."""
 

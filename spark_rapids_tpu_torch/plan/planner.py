@@ -1,16 +1,22 @@
 """Planner: logical plan -> physical plan.
 
-Counterpart of ``spark_rapids_tpu/plan/planner.py`` for the slice's
-nodes.  An aggregate becomes partial -> exchange -> final
-(``planner.py:115-149``); a global sort over more than one partition
-needs a range exchange, which comes with the multi-partition slice, so
-it raises here.
+Counterpart of ``spark_rapids_tpu/plan/planner.py`` for the nodes
+ported so far.  An aggregate becomes partial -> exchange -> final
+(``planner.py:115-149``); a limit becomes local limit -> single-partition
+exchange -> global limit (``:58``); a join becomes a broadcast hash join
+when the build side's static size estimate is under
+``broadcastSizeThreshold`` and the join type allows it, else a shuffled
+hash join over hash exchanges on the keys (``:151-170``), decided from
+the same estimate as the reference's (``:186-240``).  A global sort over
+more than one partition needs a range exchange, which comes with the
+multi-partition slice, so it raises here.
 """
 from __future__ import annotations
 
 import copy
-from typing import List
+from typing import List, Optional
 
+from .. import types as T
 from ..config import SHUFFLE_PARTITIONS
 from ..ops.aggregates import AggregateExpression
 from ..ops.expression import Alias, bind_references, output_name
@@ -24,6 +30,7 @@ class Planner:
     def __init__(self, conf):
         self.conf = conf
         self.shuffle_partitions = conf.get(SHUFFLE_PARTITIONS)
+        self.broadcast_threshold = conf.broadcast_threshold
 
     def plan(self, node: L.LogicalPlan) -> P.PhysicalPlan:
         fn = getattr(self, f"_plan_{type(node).__name__}", None)
@@ -40,6 +47,33 @@ class Planner:
 
     def _plan_Filter(self, node: L.Filter):
         return P.FilterExec(self.plan(node.children[0]), node.condition)
+
+    def _plan_Limit(self, node: L.Limit):
+        child = self.plan(node.children[0])
+        local = P.LocalLimitExec(child, node.n)
+        exchange = P.ShuffleExchangeExec(local, SinglePartitioning())
+        return P.GlobalLimitExec(exchange, node.n)
+
+    def _plan_Join(self, node: L.Join):
+        left = self.plan(node.children[0])
+        right = self.plan(node.children[1])
+        est = self._estimate_bytes(node.children[1])
+        can_broadcast = (est is not None
+                         and self.broadcast_threshold > 0
+                         and est <= self.broadcast_threshold
+                         and node.how in ("inner", "left", "semi", "anti"))
+        if can_broadcast:
+            return P.HashJoinExec(left, right, node.left_keys,
+                                  node.right_keys, node.how,
+                                  node.condition, broadcast=True)
+        n = min(self.shuffle_partitions,
+                max(self._n_partitions(left), self._n_partitions(right), 1))
+        lex = P.ShuffleExchangeExec(
+            left, HashPartitioning(node.left_keys, n).bind(left.schema))
+        rex = P.ShuffleExchangeExec(
+            right, HashPartitioning(node.right_keys, n).bind(right.schema))
+        return P.HashJoinExec(lex, rex, node.left_keys, node.right_keys,
+                              node.how, node.condition, broadcast=False)
 
     def _plan_Sort(self, node: L.Sort):
         child = self.plan(node.children[0])
@@ -89,4 +123,33 @@ class Planner:
             return p.n_out
         if p.children:
             return max(Planner._n_partitions(c) for c in p.children)
-        return 1
+        return getattr(p, "n_partitions", 1)
+
+    @staticmethod
+    def _estimate_bytes(node: L.LogicalPlan) -> Optional[int]:
+        """Static size estimate for the broadcast decision: a local
+        relation's ``estimate_bytes``, narrowed by projections in the
+        ratio of nominal row widths, passed through filters and limits;
+        None (no broadcast) for anything else."""
+        if isinstance(node, L.LocalRelation):
+            return sum(b.estimate_bytes() for b in node.batches)
+        if isinstance(node, L.Project):
+            est = Planner._estimate_bytes(node.children[0])
+            if est is None:
+                return None
+            child_w = Planner._schema_row_width(node.children[0].schema)
+            proj_w = Planner._schema_row_width(node.schema)
+            return int(est * proj_w / child_w)
+        if isinstance(node, (L.Filter, L.Limit)):
+            return Planner._estimate_bytes(node.children[0])
+        return None
+
+    @staticmethod
+    def _schema_row_width(schema: T.Schema) -> int:
+        """Nominal bytes a row: the item size of fixed-width columns, 16
+        for a string."""
+        width = 0
+        for f in schema:
+            width += 16 if f.dtype.is_string else \
+                int(getattr(f.dtype.np_dtype, "itemsize", 8))
+        return max(width, 1)

@@ -2,10 +2,12 @@
 
 Counterpart of ``spark_rapids_tpu/plan/transitions.py``: cancel adjacent
 host<->device transitions, insert ``TpuCoalesceBatchesExec`` per each
-exec's child coalesce goals and merge adjacent coalesces, put the final
-``DeviceToHostExec`` on top, and in test mode fail when an operator is
-not converted.  The fusion pass that the reference runs here comes with
-a later slice (nothing in Q1/Q6 fuses).
+exec's child coalesce goals (RequireSingleBatch dominating in a merge)
+and merge adjacent coalesces, put the final ``DeviceToHostExec`` on top,
+and in test mode fail when an operator is not converted.  The fusion
+pass that the reference runs here comes with a later slice: Q3's
+customer Filter -> Project, which the reference fuses, runs as two execs
+here, and the port registers no fusion conf key until it can act on it.
 """
 from __future__ import annotations
 

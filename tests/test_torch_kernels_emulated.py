@@ -1,7 +1,7 @@
-"""The CUDA kernels K1–K4 of spark_rapids_tpu_torch, built for the CPU
+"""The CUDA kernels K1–K8 of spark_rapids_tpu_torch, built for the CPU
 and held against their plain PyTorch versions on the same inputs (2,100
-rows: two 2,048-row tiles, so the cross-tile scans and carries run).
-Exact, except float sums (rel 1e-12).
+rows: two 2,048-row tiles, so the cross-tile scans and carries run; the
+join's two sides together).  Exact, except float sums (rel 1e-12).
 
 ``_build_emulated`` compiles every ``csrc/*.cu`` with the host C++
 compiler against ``csrc/emulator/cuda_runtime.h`` (one thread per
@@ -24,8 +24,11 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.data.column import DeviceBatch, DeviceColumn
 from spark_rapids_tpu_torch.ops.kernels import _build as B
+from spark_rapids_tpu_torch.data.column import bucket_rows
 from spark_rapids_tpu_torch.ops.kernels import gather as G
+from spark_rapids_tpu_torch.ops.kernels import join as J
 from spark_rapids_tpu_torch.ops.kernels import segment as S
+from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
 
 N = 2100
 N_REAL = 2063
@@ -205,3 +208,105 @@ def test_k4_compact_and_gather_match_plain(emu, mask):
     _same(got_g.data, want_g.data)
     _same(got_g.validity, want_g.validity)
     _same(got_g.lengths, want_g.lengths)
+
+
+def _join_side(rng, n, n_real, w):
+    """An int64 key, a string key of width ``w`` and a double payload,
+    with nulls; and the side's row mask."""
+    words = [b"", b"a", b"ab", b"abc", b"abd", b"\xc3\xa9"]
+    bm = np.zeros((n, w), dtype=np.uint8)
+    ln = np.zeros(n, dtype=np.int32)
+    for i, k in enumerate(rng.integers(0, len(words), n)):
+        b = words[k][:w]
+        bm[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        ln[i] = len(b)
+    cols = [
+        DeviceColumn(T.INT64, torch.from_numpy(rng.integers(0, 40, n)),
+                     torch.from_numpy(rng.random(n) > 0.1)),
+        DeviceColumn(T.STRING, torch.from_numpy(bm),
+                     torch.from_numpy(rng.random(n) > 0.1),
+                     torch.from_numpy(ln)),
+        DeviceColumn(T.FLOAT64, torch.from_numpy(rng.uniform(-9, 9, n)),
+                     torch.from_numpy(rng.random(n) > 0.1)),
+    ]
+    return cols, torch.arange(n) < n_real
+
+
+@pytest.mark.parametrize("how", ["inner", "full"])
+def test_k5_k6_k7_match_plain(emu, how):
+    rng = np.random.default_rng(21)
+    lcols, l_rm = _join_side(rng, 900, 850, 3)
+    rcols, r_rm = _join_side(rng, 1200, 1111, 2)
+    want = J.probe(lcols[:2], rcols[:2], l_rm, r_rm)
+    J.JOIN_PROBE_LAUNCHES.reset()
+    got = J.probe(lcols[:2], rcols[:2], l_rm, r_rm, kernels=emu)
+    # ok per key, concat (int64; string bytes + lengths), scatter ids,
+    # search, has_r (zero, mark, test)
+    assert J.JOIN_PROBE_LAUNCHES.count == 2 + 3 + 1 + 1 + 3
+    for name in J.Probe._fields:
+        _same(getattr(got, name), getattr(want, name))
+    assert int(want.cnt.max()) > 1
+    e_want = J.emit_counts(want, how, l_rm, r_rm)
+    J.JOIN_EXPAND_LAUNCHES.reset()
+    e_got = J.emit_counts(got, how, l_rm, r_rm, kernels=emu)
+    assert J.JOIN_EXPAND_LAUNCHES.count == 1 + 3
+    for name in ("emit", "total", "offs"):
+        _same(getattr(e_got, name), getattr(e_want, name))
+    if how == "full":
+        _same(e_got.r_extra, e_want.r_extra)
+        _same(e_got.unmatched_order, e_want.unmatched_order)
+        assert bool(e_want.r_extra.any())
+    else:
+        assert e_got.r_extra is None and e_want.r_extra is None
+    c_out = bucket_rows(int(e_want.total))
+    pairs_want = J.expand_pairs(want, e_want, c_out)
+    pairs_got = J.expand_pairs(got, e_got, c_out, kernels=emu)
+    for g, w in zip(pairs_got, pairs_want):
+        _same(g, w)
+    J.GATHER_SIDE_LAUNCHES.reset()
+    for cols, gi, wi in ((lcols, pairs_got[0], pairs_want[0]),
+                         (rcols, pairs_got[1], pairs_want[1])):
+        g_cols = J.gather_side(cols, gi, pairs_got[2], kernels=emu)
+        w_cols = J.gather_side(cols, wi, pairs_want[2])
+        for g, w in zip(g_cols, w_cols):
+            _same(g.data, w.data)
+            _same(g.validity, w.validity)
+            if w.lengths is not None:
+                _same(g.lengths, w.lengths)
+    assert J.GATHER_SIDE_LAUNCHES.count == 6  # one a column
+
+
+def test_k5_k6_without_has_r_match_plain(emu):
+    """An inner join's probe skips the has_r launches, and its emit
+    counts build no unmatched-right mask."""
+    rng = np.random.default_rng(22)
+    lcols, l_rm = _join_side(rng, 700, 650, 3)
+    rcols, r_rm = _join_side(rng, 800, 777, 2)
+    want = J.probe(lcols[:2], rcols[:2], l_rm, r_rm, with_has_r=False)
+    J.JOIN_PROBE_LAUNCHES.reset()
+    got = J.probe(lcols[:2], rcols[:2], l_rm, r_rm, with_has_r=False,
+                  kernels=emu)
+    assert J.JOIN_PROBE_LAUNCHES.count == 2 + 3 + 1 + 1
+    assert got.has_r is None
+    for name in J.Probe._fields[:-1]:
+        _same(getattr(got, name), getattr(want, name))
+    e_want = J.emit_counts(want, "inner", l_rm, r_rm)
+    e_got = J.emit_counts(got, "inner", l_rm, r_rm, kernels=emu)
+    for name in ("emit", "total", "offs"):
+        _same(getattr(e_got, name), getattr(e_want, name))
+    assert e_got.r_extra is None
+
+
+def test_k8_matches_plain(emu):
+    rng = np.random.default_rng(5)
+    (l,), _ = _join_side(rng, N, N, 10)[0][1:2], None
+    (r,), _ = _join_side(rng, N, N, 8)[0][1:2], None
+    lit = torch.tensor([[ord(c) for c in "ab"]], dtype=torch.uint8)
+    lit_len = torch.tensor([2], dtype=torch.int32)
+    SK.STRING_COMPARE_LAUNCHES.reset()
+    for args in ((l.data, l.lengths, r.data, r.lengths),
+                 (l.data, l.lengths, lit.expand(N, -1), lit_len.expand(N)),
+                 (lit, lit_len, r.data, r.lengths)):
+        _same(SK.equals(*args, kernels=emu), SK.equals_plain(*args))
+        _same(SK.compare(*args, kernels=emu), SK.compare_plain(*args))
+    assert SK.STRING_COMPARE_LAUNCHES.count == 6
