@@ -6,20 +6,32 @@
    nvcc per source, in parallel) and prints the build time;
 2. runs TPC-H Q1 and Q6 over lineitem, and Q3 and Q4 over customer,
    orders and lineitem, at SF1 (150,000 customers, 1,500,000 orders,
-   6,000,000 lines; each table with the columns its query reads; one
-   partition) through ``Session()`` on ``cuda``, each query with every
+   6,000,000 lines; each table with the columns its query reads; first
+   one partition) through ``Session()`` on ``cuda``, each query with every
    kernel launch count set to 0 just before it and read just after it;
    checks the rows against an independent numpy computation (floats to
    rel 1e-9; Q3's top 10 in order), that each aggregate and each join
    side received one batch, that Q3 plans two shuffled hash joins, and
    that each query launched the kernels of its plan (Q1: K1–K4, Q6: K3
    and K4, Q3: K1, K2 and K4–K8, Q4: K4 and K5); prints the table sizes
-   after each filter and join, and times cold and warm runs;
+   after each filter and join, and times cold and warm runs.
+   Then runs the same four queries over the reference's default of two
+   partitions (``tpch_datagen.dataframes``, ``create_dataframe``'s
+   default): shuffled joins over 2-way Murmur3 hash exchanges, keyed
+   aggregates over 2-way hash exchanges, global sorts over 2-way range
+   exchanges.  Each is checked against the same numpy answer, each
+   exchange's per-partition row counts are logged and must add up to the
+   rows written, K9, K10 and K11 must each launch in Q1, Q3 and Q4 (and
+   none of them in Q6), and cold, warm and profiled walls are printed
+   beside the one-partition ones;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
    and full joins; K8: the 150,000-row c_mktsegment matrix against
-   'BUILDING') and holds it against its plain PyTorch version on the same
+   'BUILDING'; K9: Q3's lineitem join key, Q3's aggregate keys and Q4's
+   priority key; K10: a 2-way build and slice of Q3's filtered lineitem
+   batch; K11: Q3's final sort keys — K9–K11 as the two-partition runs
+   gave them) and holds it against its plain PyTorch version on the same
    card tensors — exact, or rel 1e-9 for float sums — timing kernel,
    plain version and one PyTorch library call with CUDA events (median
    of runs after warm-up);
@@ -271,6 +283,9 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops.kernels import join as J
     from spark_rapids_tpu_torch.ops.kernels import segment as S
     from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
+    from spark_rapids_tpu_torch.exec import exchange as EX
+    from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
+    from spark_rapids_tpu_torch.utils import hashing as H
 
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -305,7 +320,10 @@ def main() -> int:
                 "K5": [J.JOIN_PROBE_LAUNCHES],
                 "K6": [J.JOIN_EXPAND_LAUNCHES],
                 "K7": [J.GATHER_SIDE_LAUNCHES],
-                "K8": [SK.STRING_COMPARE_LAUNCHES]}
+                "K8": [SK.STRING_COMPARE_LAUNCHES],
+                "K9": [H.HASH_LAUNCHES],
+                "K10": [DS.BUILD_LAUNCHES, DS.SLICE_LAUNCHES],
+                "K11": [EX.RANGE_PID_LAUNCHES]}
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -407,6 +425,124 @@ def main() -> int:
     for q in queries:
         profile_query(q, lambda: run(q))
 
+    # ---- 2b. the reference's default: two partitions ----------------------
+    t0 = time.perf_counter()
+    tables2 = {q: tpch_datagen.dataframes(sess, sf=SF, seed=SEED, query=q)
+               for q in (1, 3, 4)}
+    tables2[6] = tables2[1]
+    require(all(df.plan.n_partitions == 2 for ts in tables2.values()
+                for df in ts.values()),
+            "the two-partition tables are not split over two partitions")
+    log(f"two-partition tables generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    exchange_kernels = [H.HASH_LAUNCHES, DS.BUILD_LAUNCHES,
+                        DS.SLICE_LAUNCHES, EX.RANGE_PID_LAUNCHES]
+
+    def run2(q):
+        return tpch.QUERIES[q](tables2[q]).collect()
+
+    cold2 = {}
+    launches2 = {}
+    for q in queries:
+        torch.cuda.synchronize()
+        for c in all_counters:
+            c.reset()
+        DS.GLOBAL.reset()
+        t0 = time.perf_counter()
+        rows = run2(q)
+        cold2[q] = time.perf_counter() - t0
+        log(f"Q{q} two partitions: packed exchange blocks "
+            f"{DS.GLOBAL.counters()['deviceBytes']} bytes")
+        launches2[q] = {k: sum(c.count for c in cs)
+                        for k, cs in counters.items()}
+        by_wrapper = {c.name: c.count for c in all_counters}
+        log(f"Q{q} two partitions launches: {launches2[q]} {by_wrapper}")
+        for c in exchange_kernels:
+            if q == 6:
+                require(c.count == 0, f"Q6 at two partitions launched "
+                        f"{c.name}: its only exchange is a single one")
+            else:
+                require(c.count > 0, f"Q{q} at two partitions: wrapper "
+                        f"{c.name} launched no kernel")
+        for c in must_launch[q]:
+            require(c.count > 0, f"Q{q} at two partitions: wrapper "
+                    f"{c.name} launched no kernel")
+        m = sess.last_metrics
+        require(m.get("TpuHashAggregateExec[partial].numInputBatches") == 2,
+                f"Q{q} at two partitions: each partition's partial "
+                f"aggregate did not receive one batch: {m}")
+        if q in (3, 4):
+            pairs = m.get("TpuHashJoinExec.numJoinedPairs")
+            require(pairs == 2 * (2 if q == 3 else 1) and
+                    m.get("TpuHashJoinExec.numLeftBatches") == pairs and
+                    m.get("TpuHashJoinExec.numRightBatches") == pairs,
+                    f"Q{q} at two partitions: a join side did not arrive "
+                    f"as one batch a partition: {m}")
+        for pl in sess.last_placements:
+            log(f"Q{q} placement {pl['exchange']}: rows written "
+                f"{pl['rows_written']}, per partition "
+                f"{pl['partition_rows']}")
+            require(sum(pl["partition_rows"]) == pl["rows_written"],
+                    f"Q{q}: {pl['exchange']} lost or duplicated rows")
+        require(len(sess.last_placements) == {1: 2, 6: 0, 3: 6, 4: 4}[q],
+                f"Q{q} at two partitions planned "
+                f"{len(sess.last_placements)} multi-partition exchanges")
+        check_rows(rows, want[q], f"Q{q} two partitions")
+        log(f"Q{q} two partitions rows match numpy: {rows}")
+    plan3 = str(sess.physical_plan(tpch.q3(tables2[3]).plan))
+    require(plan3.count("TpuShuffledHashJoin[inner]") == 2 and
+            plan3.count("HashPartitioning(") == 5 and
+            "RangePartitioning(2)" in plan3,
+            f"Q3 at two partitions does not plan two shuffled joins over "
+            f"hash exchanges, a hash-partitioned aggregate and a range "
+            f"exchange under the sort:\n{plan3}")
+    log(f"Q3 two-partition device plan:\n{plan3}")
+
+    # one more run of Q3 and Q4, keeping K9's, K10's and K11's inputs
+    recorded = {"hash": [], "build": [], "range": []}
+    hash_impl, build_impl = H.hash_pids, DS.packed_build
+    range_impl = EX.range_pids_from_bounds
+    current = {}
+
+    def rec_hash(cols, n_out, kernels=None):
+        recorded["hash"].append((current["q"], cols, n_out))
+        return hash_impl(cols, n_out, kernels)
+
+    def rec_build(batch, pids, n_out, kernels=None):
+        recorded["build"].append((current["q"], batch, pids, n_out))
+        return build_impl(batch, pids, n_out, kernels)
+
+    def rec_range(passes, bounds, kernels=None):
+        recorded["range"].append((current["q"], passes, bounds))
+        return range_impl(passes, bounds, kernels)
+
+    H.hash_pids, DS.packed_build = rec_hash, rec_build
+    EX.range_pids_from_bounds = rec_range
+    try:
+        for q in (3, 4):
+            current["q"] = q
+            run2(q)
+    finally:
+        H.hash_pids, DS.packed_build = hash_impl, build_impl
+        EX.range_pids_from_bounds = range_impl
+
+    warm2 = {}
+    for q in queries:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run2(q)
+            runs.append(time.perf_counter() - t0)
+        warm2[q] = statistics.median(runs)
+        log(f"Q{q} SF{SF:g} two partitions wall: cold "
+            f"{cold2[q] * 1e3:.1f} ms, warm {warm2[q] * 1e3:.1f} ms (median "
+            f"of 3); one partition: cold {cold[q] * 1e3:.1f} ms, warm "
+            f"{warm[q] * 1e3:.1f} ms; on {card}")
+
+    for q in queries:
+        profile_query(f"{q} (two partitions)", lambda: run2(q))
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -430,17 +566,21 @@ def main() -> int:
     def entry(name, source, replaces, kernel_ms, plain_ms, lib_ms,
               moved_bytes, ops, ops_per_s, err, **extra):
         b, by = bound(moved_bytes, ops, ops_per_s)
-        k = name[:2]
+        k = name.split()[0]
+        # the exchange kernels' main path is the two-partition runs
+        main = launches2 if k in ("K9", "K10", "K11") else launches
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              # summed over the cold runs of the four queries
-             "launches": sum(launches[q][k] for q in queries),
+             "launches": sum(main[q][k] for q in queries),
              "launches_by_query": {f"q{q}": launches[q][k]
                                    for q in queries},
+             "launches_by_query_two_partitions": {
+                 f"q{q}": launches2[q][k] for q in queries},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(
-                 f"Q{q}" for q in queries if launches[q][k]),
+                 f"Q{q}" for q in queries if main[q][k]),
              **extra}
         entries.append(e)
         log(f"{name}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -677,11 +817,135 @@ def main() -> int:
                  lit.lengths[:1], got_eq),
           cb.padded_rows * w, FP32_PER_S, 0.0)
 
+    # K9: Murmur3 partition ids at the two-partition main path's inputs:
+    # Q3's lineitem join key, Q3's aggregate keys, Q4's priority key
+    def largest(calls):
+        return max(calls, key=lambda c: c[1][0].data.shape[0])
+
+    k9_inputs = {
+        "Q3 l_orderkey": largest([
+            r for r in recorded["hash"] if r[0] == 3 and len(r[1]) == 1
+            and r[1][0].data.dtype == torch.int64]),
+        "Q3 aggregate keys": largest([
+            r for r in recorded["hash"] if r[0] == 3 and len(r[1]) == 3]),
+        "Q4 o_orderpriority": largest([
+            r for r in recorded["hash"] if r[0] == 4 and len(r[1]) == 1
+            and r[1][0].dtype.is_string]),
+    }
+    k9 = {}
+    for what, (_q, kcols, n_out) in k9_inputs.items():
+        n = kcols[0].data.shape[0]
+        require(torch.equal(H.hash_pids(kcols, n_out),
+                            H.pmod(H.hash_batch_plain(kcols), n_out)),
+                f"K9 pids differ from the plain version at {what}")
+        require(torch.equal(H.hash_device_batch(kcols),
+                            H.hash_batch_plain(kcols)),
+                f"K9 hashes differ from the plain version at {what}")
+        words = sum(-(-c.data.shape[1] // 4) + 1 if c.dtype.is_string
+                    else c.data.element_size() // 4 or 1 for c in kcols)
+        k9[what] = dict(
+            ms=cuda_ms(lambda: H.hash_pids(kcols, n_out)),
+            plain=cuda_ms(lambda: H.pmod(H.hash_batch_plain(kcols), n_out)),
+            bytes=sum(nbytes(c.data, c.validity, c.lengths) for c in kcols)
+            + 4 * n, ops=12 * words * n, rows=n,
+            dtypes=[str(c.dtype) for c in kcols])
+        log(f"K9 at {what}: {n} padded rows, {k9[what]['dtypes']}, "
+            f"kernel {k9[what]['ms']:.3f} ms, plain {k9[what]['plain']:.3f} "
+            f"ms")
+    first = k9["Q3 l_orderkey"]
+    entry("K9 murmur3", "spark_rapids_tpu_torch/csrc/hashing.cu",
+          "spark_rapids_tpu/utils/hashing.py:269",
+          first["ms"], first["plain"], None, first["bytes"], first["ops"],
+          FP32_PER_S, 0.0,
+          ms_by_input={w: v["ms"] for w, v in k9.items()},
+          plain_ms_by_input={w: v["plain"] for w, v in k9.items()},
+          bound_ms_by_input={w: bound(v["bytes"], v["ops"], FP32_PER_S)[0]
+                             for w, v in k9.items()},
+          rows_by_input={w: v["rows"] for w, v in k9.items()})
+
+    # K10: the 2-way build and slices of Q3's filtered lineitem batch
+    _q, kb, kpids, kn = max(
+        (r for r in recorded["build"] if r[0] == 3
+         and "l_orderkey" in r[1].schema.names),
+        key=lambda r: r[1].padded_rows)
+    built = DS.partition_order(kpids, kb.num_rows, kn)
+    for g, r, f in zip(built, DS.partition_order_plain(kpids, kb.num_rows,
+                                                       kn),
+                       ("order", "counts", "starts")):
+        require(torch.equal(g, r), f"K10 build {f} differs from its plain "
+                "version")
+    block = G.gather_batch(kb, built[0], kb.num_rows)
+    counts_h, starts_h = built[1].tolist(), built[2].tolist()
+    require(sum(counts_h) == int(kb.num_rows), "K10 lost rows")
+    for p in range(kn):
+        g = DS.packed_slice(block, starts_h[p], counts_h[p])
+        r = DS.packed_slice_plain(block, starts_h[p], counts_h[p])
+        require(int(g.num_rows) == counts_h[p], "K10 slice row count")
+        for gc, rc in zip(g.columns, r.columns):
+            require(torch.equal(gc.data, rc.data) and
+                    torch.equal(gc.validity, rc.validity) and
+                    (rc.lengths is None or
+                     torch.equal(gc.lengths, rc.lengths)),
+                    f"K10 slice {p} differs in a {rc.dtype} column")
+    P2 = kb.padded_rows
+    lane2 = torch.arange(P2, dtype=torch.int32, device=dev)
+    bucket = torch.where(lane2 < kb.num_rows, kpids,
+                         torch.full_like(kpids, kn))
+
+    def k10_slices(fn):
+        return [fn(block, starts_h[p], counts_h[p]) for p in range(kn)]
+
+    k10_build_ms = cuda_ms(lambda: DS.partition_order(kpids, kb.num_rows,
+                                                      kn))
+    k10_slice_ms = cuda_ms(lambda: k10_slices(DS.packed_slice))
+    k10_build_plain = cuda_ms(lambda: DS.partition_order_plain(
+        kpids, kb.num_rows, kn))
+    k10_slice_plain = cuda_ms(lambda: k10_slices(DS.packed_slice_plain))
+    log(f"K10 at Q3's lineitem batch: {int(kb.num_rows)} rows ({P2} "
+        f"padded) into {kn} partitions {counts_h}; build {k10_build_ms:.3f}"
+        f" ms, slices {k10_slice_ms:.3f} ms")
+    entry("K10 partition_build+slice",
+          "spark_rapids_tpu_torch/csrc/shuffle.cu",
+          "spark_rapids_tpu/shuffle/device_shuffle.py:96",
+          k10_build_ms + k10_slice_ms, k10_build_plain + k10_slice_plain,
+          cuda_ms(lambda: torch.argsort(bucket, stable=True)),
+          nbytes(kpids, built[0], built[1], built[2])
+          + (1 + kn) * block.device_bytes(), 4 * P2, FP32_PER_S, 0.0,
+          ms_build=k10_build_ms, ms_slices=k10_slice_ms,
+          plain_ms_build=k10_build_plain, plain_ms_slices=k10_slice_plain,
+          library_call="torch.argsort(stable=True) of the bucket ids "
+          "(the build's order only)")
+
+    # K11: the range partition ids of Q3's final sort keys
+    _q, rpasses, rbounds = max(
+        (r for r in recorded["range"] if r[0] == 3),
+        key=lambda r: r[1].shape[1])
+    rp = EX.range_pids_from_bounds(rpasses, rbounds)
+    require(torch.equal(rp, EX.range_pids_plain(rpasses, rbounds)),
+            "K11 differs from its plain version")
+    k, n = rpasses.shape
+    first_pass = rpasses[0].contiguous()
+    first_bounds = rbounds[0].contiguous()
+    log(f"K11 at Q3's final sort: {k} passes x {n} rows, "
+        f"{rbounds.shape[1]} bound(s); pids per partition "
+        f"{torch.bincount(rp.to(torch.int64), minlength=2).tolist()}")
+    entry("K11 range_pids", "spark_rapids_tpu_torch/csrc/range_partition.cu",
+          "spark_rapids_tpu/exec/exchange.py:98",
+          cuda_ms(lambda: EX.range_pids_from_bounds(rpasses, rbounds)),
+          cuda_ms(lambda: EX.range_pids_plain(rpasses, rbounds)),
+          cuda_ms(lambda: torch.searchsorted(first_bounds, first_pass)),
+          nbytes(rpasses, rbounds, rp), n * k * rbounds.shape[1],
+          FP32_PER_S, 0.0, library_call="torch.searchsorted over the first "
+          "pass only")
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
                                             "warm_s": warm[q]}
                                   for q in queries},
+                      "queries_two_partitions": {
+                          f"q{q}": {"cold_s": cold2[q], "warm_s": warm2[q]}
+                          for q in queries},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

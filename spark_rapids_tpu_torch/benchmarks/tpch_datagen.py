@@ -19,7 +19,8 @@ customers, 1,500,000 orders, 6,000,000 lines) takes seconds.  The draws
 are this module's own: the rows are not the reference generator's rows.
 Q1's lineitem rows are drawn first, so they stay what they were before
 the join columns existed.  ``dataframes(..., query=q)`` hands a query
-only the columns it reads.
+only the columns it reads, at the reference's default of two partitions
+unless told otherwise.
 """
 from __future__ import annotations
 
@@ -164,8 +165,11 @@ def tables(query: int, sf: float = 1.0, seed: int = 42,
 
 
 def dataframes(session, sf: float = 1.0, seed: int = 42,
-               n_rows: Optional[int] = None, query: int = 1):
-    """The tables of ``query`` as DataFrames on ``session``, one
-    partition each (Q1's lineitem when no query is named)."""
-    return {t: session.create_dataframe(b, n_partitions=1)
+               n_rows: Optional[int] = None, query: int = 1,
+               n_partitions: int = 2):
+    """The tables of ``query`` as DataFrames on ``session`` (Q1's
+    lineitem when no query is named), each split over ``n_partitions``:
+    two by default, the reference's ``create_dataframe`` default, as the
+    reference's own ``tpch_datagen.dataframes`` builds its tables."""
+    return {t: session.create_dataframe(b, n_partitions=n_partitions)
             for t, b in tables(query, sf, seed, n_rows).items()}

@@ -116,6 +116,11 @@ SHUFFLE_TARGET_BATCH_ROWS = conf(
     "spark.rapids.tpu.shuffle.targetBatchRows").doc(
     "Exchange inputs coalesce sub-target batches up to this many rows"
 ).int_conf(32768)
+SHUFFLE_MODE = conf("spark.rapids.tpu.shuffle.mode").doc(
+    "Exchange data path: device (packed blocks stay on the card), host "
+    "(every block staged to host memory; needs the spill tier, not "
+    "ported yet) or auto (device while the card has headroom)"
+).string_conf("auto")
 
 
 class TpuConf:

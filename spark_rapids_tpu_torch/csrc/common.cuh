@@ -153,6 +153,43 @@ __device__ __forceinline__ long long block_excl_scan64(long long v,
   return r;
 }
 
+// ---------------------------------------------------------------------
+// Stable ranked placement of one round of BLOCK rows by a digit in
+// [0, 256) (256 marks a lane without a row), for a block of BLOCK threads
+// where thread t owns digit t.  s_base[d] holds the next free position of
+// digit d for this block and is advanced past the round's rows.  Stability
+// comes from ranks, never from atomics: a row's rank inside its warp is
+// the number of lower lanes with its digit (__match_any_sync), and the
+// warps of the round are ordered by a prefix over their per-warp digit
+// counts.  s_cnt must be zero on entry and is left zero.  Returns the
+// row's position (0 for a lane without a row).  Used by K1's digit step
+// and K10's partition scatter.
+// ---------------------------------------------------------------------
+constexpr int WARPS = BLOCK / 32;
+
+__device__ __forceinline__ unsigned ranked_position(
+    int dig, bool in, unsigned* s_base, unsigned (*s_cnt)[256],
+    unsigned (*s_off)[256]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const unsigned peers = __match_any_sync(FULL_MASK, dig);
+  const unsigned rank = (unsigned)__popc(peers & ((1u << lane) - 1u));
+  if (in && rank == 0u) s_cnt[w][dig] = (unsigned)__popc(peers);
+  __syncthreads();
+  unsigned run = s_base[tid];
+#pragma unroll
+  for (int ww = 0; ww < WARPS; ++ww) {
+    const unsigned c = s_cnt[ww][tid];
+    s_off[ww][tid] = run;
+    run += c;
+    s_cnt[ww][tid] = 0u;
+  }
+  s_base[tid] = run;
+  __syncthreads();
+  return in ? s_off[w][dig] + rank : 0u;
+}
+
 // lower_bound / upper_bound over a nondecreasing array
 template <typename T>
 __device__ __forceinline__ long long lower_bound(const T* __restrict__ a,

@@ -22,7 +22,8 @@
 //     ranked scatter.  Stability inside a tile comes from ranks, never
 //     from atomics: rows are taken in rounds of 256, ranked within their
 //     warp with __match_any_sync, and the warps of a round are ordered by
-//     a prefix over per-warp digit counts in shared memory.
+//     a prefix over per-warp digit counts in shared memory
+//     (srt::ranked_position in common.cuh, shared with K10).
 #include "common.cuh"
 
 namespace {
@@ -214,42 +215,23 @@ __global__ void scatter(const unsigned long long* __restrict__ keys_in,
                         const unsigned* __restrict__ offsets,
                         unsigned long long* __restrict__ keys_out,
                         int* __restrict__ perm_out) {
-  constexpr int WARPS = BLOCK / 32;
   __shared__ unsigned s_base[256];
-  __shared__ unsigned s_cnt[WARPS][256];
-  __shared__ unsigned s_off[WARPS][256];
+  __shared__ unsigned s_cnt[srt::WARPS][256];
+  __shared__ unsigned s_off[srt::WARPS][256];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
   s_base[tid] = offsets[(long long)tid * ntiles + blockIdx.x];
 #pragma unroll
-  for (int ww = 0; ww < WARPS; ++ww) s_cnt[ww][tid] = 0u;
+  for (int ww = 0; ww < srt::WARPS; ++ww) s_cnt[ww][tid] = 0u;
   __syncthreads();
   const long long base = (long long)blockIdx.x * TILE;
-  const unsigned lt_mask = (1u << lane) - 1u;
   for (int r = 0; r < ITEMS; ++r) {
     const long long i = base + r * BLOCK + tid;
     const bool in = i < n;
     const unsigned long long key = in ? keys_in[i] : 0ull;
     const int pv = in ? perm_in[i] : 0;
     const int dig = in ? (int)((key >> shift) & 255ull) : 256;
-    const unsigned peers = __match_any_sync(FULL_MASK, dig);
-    const unsigned rank = (unsigned)__popc(peers & lt_mask);
-    if (in && rank == 0u) s_cnt[w][dig] = (unsigned)__popc(peers);
-    __syncthreads();
-    // thread tid owns digit tid: order this round's warps
-    unsigned run = s_base[tid];
-#pragma unroll
-    for (int ww = 0; ww < WARPS; ++ww) {
-      const unsigned c = s_cnt[ww][tid];
-      s_off[ww][tid] = run;
-      run += c;
-      s_cnt[ww][tid] = 0u;
-    }
-    s_base[tid] = run;
-    __syncthreads();
+    const unsigned pos = srt::ranked_position(dig, in, s_base, s_cnt, s_off);
     if (in) {
-      const unsigned pos = s_off[w][dig] + rank;
       keys_out[pos] = key;
       perm_out[pos] = pv;
     }

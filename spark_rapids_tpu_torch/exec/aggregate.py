@@ -7,11 +7,15 @@ segment (K3) with a static segment count (the row bucket), then apply
 the finalize expressions.  Modes partial and final, as the planner
 emits them.
 
-This slice aggregates ONE batch per partition: a partition that arrives
-as several batches raises ``NotImplementedError`` (the chunked
-concat+merge path, ``_agg_chunked``, comes with the SF10 slice).  The
-number of input batches is recorded in the context's metrics as
-``TpuHashAggregateExec[<mode>].numInputBatches``.
+A final aggregate whose partition arrives as several batches (the
+slices a multi-partition exchange hands it) merges them as the
+reference's ``_agg_chunked`` (``:322-381``) does for that mode: the
+running buffers concatenated with each next batch and merged, then one
+merge that finalizes; the reference's spill parking and split-and-retry
+around it are not ported.  A partial aggregate over several input
+batches raises ``NotImplementedError`` (its per-batch update comes with
+the SF10 slice).  The number of input batches is recorded in the
+context's metrics as ``TpuHashAggregateExec[<mode>].numInputBatches``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from ..ops.expression import BoundReference, as_device_column
 from ..ops.kernels import gather as G
 from ..ops.kernels import segment as seg
 from .base import DevicePartitionedData, TargetSize, TpuExec
+from .coalesce import concat_device_batches
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -185,6 +190,17 @@ class TpuHashAggregateExec(TpuExec):
             bi += nbuf
         return DeviceBatch(self._schema, out_cols, n_real)
 
+    def _merge_chunks(self, batches: List[DeviceBatch]) -> DeviceBatch:
+        """A final aggregate over several batches of buffers: the
+        running merged buffers concatenated with each next batch and
+        merged, then one merge that finalizes (re-merging the grouped
+        result is the identity on every buffer)."""
+        running = batches[0]
+        for part in batches[1:]:
+            running = self._compute(
+                concat_device_batches([running, part]), "merge", "buffers")
+        return self._compute(running, "merge", "final")
+
     # ------------------------------------------------------------------
     def execute_columnar(self, ctx):
         child = self.children[0].execute_columnar(ctx)
@@ -203,13 +219,16 @@ class TpuHashAggregateExec(TpuExec):
                     batches = [host_to_device(
                         _empty_batch(self.children[0].schema),
                         device=ctx.device)]
-                if len(batches) > 1:
+                if len(batches) == 1:
+                    yield self.compute_batch(batches[0])
+                elif self.mode == "final":
+                    yield self._merge_chunks(batches)
+                else:
                     raise NotImplementedError(
                         f"partition {pid} reached the {self.mode} aggregate "
                         f"as {len(batches)} batches; the chunked aggregate "
                         "is not ported yet (raise spark.rapids.tpu.sql."
                         "batchSizeBytes)")
-                yield self.compute_batch(batches[0])
             return it
 
         return DevicePartitionedData(

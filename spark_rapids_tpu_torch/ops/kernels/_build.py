@@ -77,6 +77,18 @@ KERNELS: Dict[str, tuple] = {
     "strings": ("strings.cu", {
         "k8_string_compare": ([P, P, I, I, P, P, I, I, Q, I, P, P], 1),
     }),
+    "hashing": ("hashing.cu", {
+        # no launch for an empty batch
+        "k9_murmur3": ([P, I, Q, I, P, P, P], 1),
+    }),
+    "shuffle": ("shuffle.cu", {
+        "k10_build": ([P, P, Q, I, P, P, P, P, P], 3),
+        "k10_counts_wide": ([P, P, Q, I, P, P, P, P], 2),
+        "k10_slice": ([P, I, Q, Q, Q, P], 1),
+    }),
+    "range_partition": ("range_partition.cu", {
+        "k11_range_pids": ([P, I, Q, P, I, P, P], 1),
+    }),
 }
 LAUNCHES_PER_CALL = {fn: n for _src, fns in KERNELS.values()
                      for fn, (_args, n) in fns.items()}

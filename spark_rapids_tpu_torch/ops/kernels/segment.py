@@ -135,6 +135,52 @@ def lexsort_plain(key_cols: Sequence[DeviceColumn],
     return sort_permutation(passes)
 
 
+def _n_passes(key_cols: Sequence[DeviceColumn]) -> int:
+    return sum(1 + (-(-c.data.shape[1] // 8) if c.dtype.is_string else 1)
+               for c in key_cols)
+
+
+def _encode_cuda(lib, key_cols, descending, nulls_first,
+                 passes: torch.Tensor, st) -> None:
+    """K1's encoding of ``key_cols`` into the rows of ``passes``."""
+    n = passes.shape[1]
+    p = 0
+    for col, desc, nf in zip(key_cols, descending, nulls_first):
+        valid = col.validity.contiguous()
+        data = col.data.contiguous()
+        if col.dtype.is_string:
+            w = data.shape[1]
+            B.launch(SORT_LAUNCHES, lib, "k1_encode_str",
+                     B.ptr(data), B.ptr(valid), w, n, int(desc), int(nf),
+                     B.ptr(passes[p]), B.ptr(passes[p + 1]), st)
+            p += 1 + -(-w // 8)
+        else:
+            B.launch(SORT_LAUNCHES, lib, "k1_encode_num",
+                     B.ptr(data), B.ptr(valid), B.DTYPE_CODES[data.dtype], n,
+                     int(desc), int(nf), B.ptr(passes[p]),
+                     B.ptr(passes[p + 1]), st)
+            p += 2
+
+
+def key_passes_device(key_cols: Sequence[DeviceColumn],
+                      descending: Optional[List[bool]] = None,
+                      nulls_first: Optional[List[bool]] = None,
+                      kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K1's encoding alone (reference ``key_passes_device``), with no
+    sort: the signed-order passes stacked as int64[k, n], passes[0]
+    dominating."""
+    kernels = B.kernels_for(key_cols[0].data, kernels)
+    if kernels is None:
+        return torch.stack(key_passes(key_cols, descending, nulls_first))
+    descending, nulls_first = _defaults(key_cols, descending, nulls_first)
+    n = key_cols[0].data.shape[0]
+    passes = torch.empty((_n_passes(key_cols), n), dtype=torch.int64,
+                         device=key_cols[0].data.device)
+    _encode_cuda(kernels.library("sort"), key_cols, descending, nulls_first,
+                 passes, kernels.stream(passes))
+    return passes
+
+
 def lexsort_device(key_cols: Sequence[DeviceColumn],
                    descending: Optional[List[bool]] = None,
                    nulls_first: Optional[List[bool]] = None,
@@ -150,33 +196,14 @@ def lexsort_device(key_cols: Sequence[DeviceColumn],
     descending, nulls_first = _defaults(key_cols, descending, nulls_first)
     lib = kernels.library("sort")
     n = probe.shape[0]
-    dev = probe.device
     st = kernels.stream(probe)
-    k = (1 if pad_valid is not None else 0) + sum(
-        1 + (-(-c.data.shape[1] // 8) if c.dtype.is_string else 1)
-        for c in key_cols)
-    passes = torch.empty((k, n), dtype=torch.int64, device=dev)
-    p = 0
+    first = 1 if pad_valid is not None else 0
+    passes = torch.empty((first + _n_passes(key_cols), n), dtype=torch.int64,
+                         device=probe.device)
     if pad_valid is not None:
         B.launch(SORT_LAUNCHES, lib, "k1_encode_pad", B.ptr(pad_valid), n,
                  B.ptr(passes[0]), st)
-        p = 1
-    for col, desc, nf in zip(key_cols, descending, nulls_first):
-        valid = col.validity.contiguous()
-        if col.dtype.is_string:
-            data = col.data.contiguous()
-            w = data.shape[1]
-            B.launch(SORT_LAUNCHES, lib, "k1_encode_str",
-                     B.ptr(data), B.ptr(valid), w, n, int(desc), int(nf),
-                     B.ptr(passes[p]), B.ptr(passes[p + 1]), st)
-            p += 1 + -(-w // 8)
-        else:
-            data = col.data.contiguous()
-            B.launch(SORT_LAUNCHES, lib, "k1_encode_num",
-                     B.ptr(data), B.ptr(valid), B.DTYPE_CODES[data.dtype], n,
-                     int(desc), int(nf), B.ptr(passes[p]),
-                     B.ptr(passes[p + 1]), st)
-            p += 2
+    _encode_cuda(lib, key_cols, descending, nulls_first, passes[first:], st)
     return _sort_passes_cuda(lib, passes, st)
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
 ported so far: ``LocalRelation``, ``Filter``, ``Project``,
-``Aggregate``, ``Join``, ``Sort`` and ``Limit``, and a ``DataFrame``
-with ``filter``, ``with_column``, ``select``, ``group_by().agg``,
-``agg``, ``join``, ``sort``, ``limit``, ``collect`` and ``explain``.
+``Aggregate``, ``Join``, ``Sort``, ``Limit`` and ``Repartition``, and a
+``DataFrame`` with ``filter``, ``with_column``, ``select``,
+``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
+``repartition``, ``collect`` and ``explain``.
 Unions, distinct, windows, file scans and writes come with later
 slices.
 """
@@ -169,6 +170,23 @@ class Limit(LogicalPlan):
         return f"Limit[{self.n}]"
 
 
+class Repartition(LogicalPlan):
+    """Hash partitioning on ``keys``, or round robin without keys."""
+
+    def __init__(self, child: LogicalPlan, n: int,
+                 keys: Optional[List[Expression]] = None):
+        super().__init__([child])
+        self.n = n
+        self.keys = keys
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def describe(self):
+        return f"Repartition[{self.n}]"
+
+
 _JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",
                  "full_outer": "full", "leftsemi": "semi",
                  "left_semi": "semi", "leftanti": "anti",
@@ -264,6 +282,12 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, Limit(self.plan, n))
+
+    def repartition(self, n: int, *cols) -> "DataFrame":
+        """``n`` partitions, by the Murmur3 hash of ``cols``, or round
+        robin when no column is named."""
+        keys = [_to_expr(c) for c in cols] or None
+        return DataFrame(self.session, Repartition(self.plan, n, keys))
 
     def _result_batch(self) -> HostBatch:
         return self.session.execute(self.plan)

@@ -26,13 +26,17 @@ from . import functions as F
 
 
 class ExecContext:
-    """Per-query execution context: conf, target device and a flat dict
-    of integer metrics (``<exec>.<metric>`` -> value)."""
+    """Per-query execution context: conf, target device, a flat dict of
+    integer metrics (``<exec>.<metric>`` -> value) and the row placement
+    of each multi-partition exchange (``placements``: one dict per
+    exchange with its description, the rows written and the rows each
+    output partition yielded)."""
 
     def __init__(self, conf, device):
         self.conf = conf
         self.device = device
         self.metrics: Dict[str, int] = {}
+        self.placements: List[dict] = []
 
     def add_metric(self, key: str, value: int = 1) -> None:
         self.metrics[key] = self.metrics.get(key, 0) + value

@@ -7,9 +7,10 @@ exchange -> global limit (``:58``); a join becomes a broadcast hash join
 when the build side's static size estimate is under
 ``broadcastSizeThreshold`` and the join type allows it, else a shuffled
 hash join over hash exchanges on the keys (``:151-170``), decided from
-the same estimate as the reference's (``:186-240``).  A global sort over
-more than one partition needs a range exchange, which comes with the
-multi-partition slice, so it raises here.
+the same estimate as the reference's (``:186-240``); a global sort over
+more than one partition sorts each partition of a range exchange
+(``:72-78``); a repartition is a hash exchange on its keys, or round
+robin without keys (``:64-70``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from .. import types as T
 from ..config import SHUFFLE_PARTITIONS
 from ..ops.aggregates import AggregateExpression
 from ..ops.expression import Alias, bind_references, output_name
-from ..shuffle.partitioning import HashPartitioning, SinglePartitioning
+from ..shuffle.partitioning import (HashPartitioning, RangePartitioning,
+                                    RoundRobinPartitioning,
+                                    SinglePartitioning)
 from . import functions as F
 from . import logical as L
 from . import physical as P
@@ -75,12 +78,20 @@ class Planner:
         return P.HashJoinExec(lex, rex, node.left_keys, node.right_keys,
                               node.how, node.condition, broadcast=False)
 
+    def _plan_Repartition(self, node: L.Repartition):
+        child = self.plan(node.children[0])
+        if node.keys:
+            part = HashPartitioning(node.keys, node.n).bind(child.schema)
+        else:
+            part = RoundRobinPartitioning(node.n)
+        return P.ShuffleExchangeExec(child, part)
+
     def _plan_Sort(self, node: L.Sort):
         child = self.plan(node.children[0])
         if node.global_sort and self._n_partitions(child) > 1:
-            raise NotImplementedError(
-                "a global sort over several partitions needs the range "
-                "exchange, which is not ported yet")
+            part = RangePartitioning(
+                node.keys, self._n_partitions(child)).bind(child.schema)
+            child = P.ShuffleExchangeExec(child, part)
         return P.SortExec(child, node.keys)
 
     def _plan_Aggregate(self, node: L.Aggregate):

@@ -14,7 +14,7 @@ layers are not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -43,12 +43,14 @@ class Session:
         self.device = resolve_device(device)
         #: metrics of the last execution (ExecContext.metrics)
         self.last_metrics: Dict[str, int] = {}
+        #: row placement of its exchanges (ExecContext.placements)
+        self.last_placements: List[dict] = []
 
     def create_dataframe(self, data, schema=None,
-                         n_partitions: int = 1) -> DataFrame:
+                         n_partitions: int = 2) -> DataFrame:
         """From a HostBatch, or a dict of name -> values (with an optional
-        Schema).  The default is one partition: the exchanges this slice
-        ports take a single output partition."""
+        Schema), split over ``n_partitions`` (two by default, as in the
+        reference's ``create_dataframe``)."""
         if isinstance(data, HostBatch):
             batch = data
         elif isinstance(data, dict):
@@ -75,6 +77,7 @@ class Session:
         ctx = ExecContext(self.conf, self.device)
         out = collect_batches(phys.execute(ctx), phys.schema)
         self.last_metrics = dict(ctx.metrics)
+        self.last_placements = list(ctx.placements)
         return out
 
     def explain(self, plan: L.LogicalPlan, mode: str = "ALL") -> str:

@@ -133,7 +133,7 @@ def test_dataframe_join_matches_reference(how, mode, keys):
     pl, pr = frames(
         lambda fs: PT.Schema([PT.Field(n, PT.from_name(t)) for n, t in fs]),
         Session(conf, device="cpu"),
-        lambda s, d, sch: s.create_dataframe(d, sch))
+        lambda s, d, sch: s.create_dataframe(d, sch, n_partitions=1))
     on = ([keys[0]], [keys[1]])
     want = jl.join(jr, on=on, how=how).collect()
     got = pl.join(pr, on=on, how=how).collect()

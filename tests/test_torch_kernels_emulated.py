@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K8 of spark_rapids_tpu_torch, built for the CPU
+"""The CUDA kernels K1–K11 of spark_rapids_tpu_torch, built for the CPU
 and held against their plain PyTorch versions on the same inputs (2,100
 rows: two 2,048-row tiles, so the cross-tile scans and carries run; the
 join's two sides together).  Exact, except float sums (rel 1e-12).
@@ -29,6 +29,9 @@ from spark_rapids_tpu_torch.ops.kernels import gather as G
 from spark_rapids_tpu_torch.ops.kernels import join as J
 from spark_rapids_tpu_torch.ops.kernels import segment as S
 from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
+from spark_rapids_tpu_torch.exec import exchange as EX
+from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
+from spark_rapids_tpu_torch.utils import hashing as H
 
 N = 2100
 N_REAL = 2063
@@ -310,3 +313,90 @@ def test_k8_matches_plain(emu):
         _same(SK.equals(*args, kernels=emu), SK.equals_plain(*args))
         _same(SK.compare(*args, kernels=emu), SK.compare_plain(*args))
     assert SK.STRING_COMPARE_LAUNCHES.count == 6
+
+
+def _hash_cols(rng):
+    """Every hashable type with nulls: -0.0 and NaN among the floats,
+    strings of 0-9 bytes (0-3 tail bytes) with bytes >= 0x80."""
+    def valid():
+        return torch.from_numpy(rng.random(N) > 0.15)
+
+    w = 9
+    bm = rng.integers(0, 256, (N, w)).astype(np.uint8)
+    ln = rng.integers(0, w + 1, N).astype(np.int32)
+    bm[np.arange(w)[None, :] >= ln[:, None]] = 0
+    f64 = rng.choice([0.0, -0.0, np.nan, 1.5, -2.25, 1e300], N)
+    return [
+        DeviceColumn(T.INT32, torch.from_numpy(
+            rng.integers(-2 ** 31, 2 ** 31, N).astype(np.int32)), valid()),
+        DeviceColumn(T.INT64, torch.from_numpy(
+            rng.integers(-2 ** 63, 2 ** 63, N, dtype=np.int64)), valid()),
+        DeviceColumn(T.FLOAT64, torch.from_numpy(f64), valid()),
+        DeviceColumn(T.FLOAT32, torch.from_numpy(np.where(
+            np.abs(f64) > 1e30, 3.5, f64).astype(np.float32)), valid()),
+        DeviceColumn(T.STRING, torch.from_numpy(bm), valid(),
+                     torch.from_numpy(ln)),
+        DeviceColumn(T.INT8, torch.from_numpy(
+            rng.integers(-128, 128, N).astype(np.int8)), valid()),
+        DeviceColumn(T.INT16, torch.from_numpy(
+            rng.integers(-2 ** 15, 2 ** 15, N).astype(np.int16)), valid()),
+        DeviceColumn(T.BOOL, torch.from_numpy(rng.random(N) > 0.5), valid()),
+        DeviceColumn(T.DATE32, torch.from_numpy(
+            rng.integers(-9000, 20000, N).astype(np.int32)), valid()),
+    ]
+
+
+def test_k9_matches_plain(emu):
+    cols = _hash_cols(np.random.default_rng(31))
+    H.HASH_LAUNCHES.reset()
+    _same(H.hash_device_batch(cols, kernels=emu), H.hash_batch_plain(cols))
+    for n_out in (2, 3, 8):
+        _same(H.hash_pids(cols[:2] + cols[4:5], n_out, kernels=emu),
+              H.pmod(H.hash_batch_plain(cols[:2] + cols[4:5]), n_out))
+    assert H.HASH_LAUNCHES.count == 4  # one a call, every column in it
+
+
+@pytest.mark.parametrize("n_out", [3, 300], ids=["shared", "wide"])
+def test_k10_build_and_slice_match_plain(emu, n_out):
+    rng = np.random.default_rng(41)
+    pids = torch.from_numpy(rng.integers(0, n_out, N).astype(np.int32))
+    num_rows = torch.tensor(N_REAL, dtype=torch.int32)
+    want = DS.partition_order_plain(pids, num_rows, n_out)
+    DS.BUILD_LAUNCHES.reset()
+    got = DS.partition_order(pids, num_rows, n_out, kernels=emu)
+    for g, w in zip(got, want):
+        _same(g, w)
+    # histogram, scan, scatter; or global histogram and scan (+ K1)
+    assert DS.BUILD_LAUNCHES.count == (3 if n_out == 3 else 2)
+    cols = _keys(rng) + [DeviceColumn(
+        T.FLOAT64, torch.from_numpy(rng.uniform(-5, 5, N)),
+        torch.from_numpy(rng.random(N) > 0.2))]
+    block = DeviceBatch(T.Schema([T.Field("s", T.STRING),
+                                  T.Field("i", T.INT32),
+                                  T.Field("d", T.FLOAT64)]), cols, num_rows)
+    counts, starts = want[1].tolist(), want[2].tolist()
+    DS.SLICE_LAUNCHES.reset()
+    for p in (0, n_out // 2, n_out - 1):
+        g = DS.packed_slice(block, starts[p], counts[p], kernels=emu)
+        w = DS.packed_slice_plain(block, starts[p], counts[p])
+        _same(g.num_rows, w.num_rows)
+        for gc, wc in zip(g.columns, w.columns):
+            _same(gc.data, wc.data)
+            _same(gc.validity, wc.validity)
+            if wc.lengths is not None:
+                _same(gc.lengths, wc.lengths)
+    assert DS.SLICE_LAUNCHES.count == 3  # one a slice, every column in it
+
+
+def test_k11_matches_plain(emu):
+    rng = np.random.default_rng(51)
+    # few distinct values, so rows tie with bounds on leading passes
+    passes = torch.from_numpy(rng.integers(-3, 3, (3, N)).astype(np.int64))
+    passes[0, :7] = torch.tensor([-2 ** 63, 2 ** 63 - 1, 0, 0, 0, 1, 2])
+    bounds = torch.sort(torch.from_numpy(
+        rng.integers(-3, 3, (3, 4)).astype(np.int64)), dim=1).values
+    EX.RANGE_PID_LAUNCHES.reset()
+    got = EX.range_pids_from_bounds(passes, bounds, kernels=emu)
+    _same(got, EX.range_pids_plain(passes, bounds))
+    assert EX.RANGE_PID_LAUNCHES.count == 1
+    assert len(torch.unique(got)) > 2
