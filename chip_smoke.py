@@ -3,27 +3,37 @@
     python3 chip_smoke.py
 
 1. builds the hand-written kernels (spark_rapids_tpu_torch/csrc/*.cu, one
-   nvcc per source, in parallel) and prints the build time;
-2. runs TPC-H Q1 and Q6 over lineitem, and Q3 and Q4 over customer,
-   orders and lineitem, at SF1 (150,000 customers, 1,500,000 orders,
-   6,000,000 lines; each table with the columns its query reads; first
-   one partition) through ``Session()`` on ``cuda``, each query with every
-   kernel launch count set to 0 just before it and read just after it;
-   checks the rows against an independent numpy computation (floats to
-   rel 1e-9; Q3's top 10 in order), that each aggregate and each join
-   side received one batch, that Q3 plans two shuffled hash joins, and
-   that each query launched the kernels of its plan (Q1: K1–K4, Q6: K3
-   and K4, Q3: K1, K2 and K4–K8, Q4: K4 and K5); prints the table sizes
-   after each filter and join, and times cold and warm runs.
-   Then runs the same four queries over the reference's default of two
-   partitions (``tpch_datagen.dataframes``, ``create_dataframe``'s
-   default): shuffled joins over 2-way Murmur3 hash exchanges, keyed
-   aggregates over 2-way hash exchanges, global sorts over 2-way range
-   exchanges.  Each is checked against the same numpy answer, each
-   exchange's per-partition row counts are logged and must add up to the
-   rows written, K9, K10 and K11 must each launch in Q1, Q3 and Q4 (and
-   none of them in Q6), and cold, warm and profiled walls are printed
-   beside the one-partition ones;
+   nvcc per source, in parallel) and prints the build time; then
+   generates the fused segments' kernels (K12) of the plans of Q3, Q12,
+   Q13 and Q14 at one and two partitions (four distinct sources), builds
+   them in parallel and prints that build's seconds on a line of its own;
+2. runs TPC-H Q1 and Q6 over lineitem, and Q3, Q4, Q12, Q13 and Q14 over
+   customer, orders, lineitem and part, at SF1 (150,000 customers,
+   1,500,000 orders, 6,000,000 lines, 200,000 parts; each table with the
+   columns its query reads; first one partition) through ``Session()`` on
+   ``cuda``, each query with every kernel launch count set to 0 just
+   before it and read just after it; checks the rows against an
+   independent numpy computation (keys and counts exact, floats to rel
+   1e-9; Q3's top 10 and Q13's sort in order), that each aggregate and
+   join side received one batch and each fused segment ran once a reader
+   batch, that Q3 plans two shuffled
+   hash joins and the reference's fused customer segment, and that each
+   query launched the kernels of its plan and no others of K8, K12 and
+   K13 (Q1: K1–K4, Q6: K3 and K4, Q3: K1–K7 and K12, Q4: K4 and K5, Q12:
+   K1–K8 and K12, Q13: K1–K7 and K12, Q14: K1–K7, K12 and K13; K12 in
+   none of Q1, Q4 and Q6); runs Q3 once with fusion off (its filter on K8
+   again); prints the table sizes after each filter and join, and times
+   cold and warm runs.
+   Then runs the seven queries over the reference's default of two
+   partitions (``create_dataframe``'s default): shuffled joins over 2-way
+   Murmur3 hash exchanges, keyed aggregates over 2-way hash exchanges,
+   global sorts over 2-way range exchanges.  Each is checked against the
+   same numpy answer, each exchange's per-partition row counts are logged
+   and must add up to the rows written, K9, K10 and K11 must launch in
+   every query but Q6 (a single exchange) and Q14 (a broadcast join and
+   no sort, as the reference plans it at SF1),
+   and cold, warm and profiled walls are printed beside the one-partition
+   ones;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -31,7 +41,10 @@
    'BUILDING'; K9: Q3's lineitem join key, Q3's aggregate keys and Q4's
    priority key; K10: a 2-way build and slice of Q3's filtered lineitem
    batch; K11: Q3's final sort keys — K9–K11 as the two-partition runs
-   gave them) and holds it against its plain PyTorch version on the same
+   gave them; K12: Q12's lineitem segment over a 2,097,152-row reader
+   batch and Q13's orders segment over 1,500,000 orders; K13: Q14's
+   startswith over p_type and contains, endswith and locate_from over
+   o_comment) and holds it against its plain PyTorch version on the same
    card tensors — exact, or rel 1e-9 for float sums — timing kernel,
    plain version and one PyTorch library call with CUDA events (median
    of runs after warm-up);
@@ -62,6 +75,8 @@ FP32_PER_S = 67e12
 SF = 1.0
 SEED = 42
 READER_ROWS = 1 << 21      # spark.rapids.tpu.sql.reader.batchSizeRows
+JOINED = (3, 4, 12, 13, 14)  # the queries over several tables
+FUSED = (3, 12, 13, 14)      # the queries the reference fuses a segment in
 
 
 def log(*a):
@@ -115,6 +130,12 @@ def log_ptxas_summary(build_log: str) -> None:
             print(f"ptxas {name}: {line.split(':', 1)[1].strip()}; "
                   f"{spills}", file=sys.stderr)
             name = None
+
+
+def walk_plan(plan):
+    yield plan
+    for c in plan.children:
+        yield from walk_plan(c)
 
 
 def profile_query(q, run) -> None:
@@ -251,6 +272,66 @@ def numpy_q4(tables, sizes):
     return [(str(k), int(n)) for k, n in zip(keys, counts)]
 
 
+def _text(c):
+    """A string column's rows as numpy fixed-width bytes (trailing NUL
+    bytes dropped, as past the length every byte is 0)."""
+    return np.ascontiguousarray(c.data).view(f"S{c.data.shape[1]}")[:, 0]
+
+
+def numpy_q12(tables, sizes):
+    c = _cols(tables)
+    mode = _text(c["l_shipmode"])
+    sd, cd, rd = (c[n].data for n in ("l_shipdate", "l_commitdate",
+                                      "l_receiptdate"))
+    keep = (np.isin(mode, [b"MAIL", b"SHIP"]) & (cd < rd) & (sd < cd)
+            & (rd >= _days(1994, 1, 1)) & (rd < _days(1995, 1, 1)))
+    okey = c["o_orderkey"].data
+    order = np.argsort(okey)
+    lkey = c["l_orderkey"].data[keep]
+    at = order[np.searchsorted(okey, lkey, sorter=order)]
+    require(bool((okey[at] == lkey).all()), "Q12 numpy: an order is missing")
+    high = np.isin(_text(c["o_orderpriority"])[at], [b"1-URGENT", b"2-HIGH"])
+    sizes.update({"lineitem filtered": int(keep.sum()),
+                  "join": len(lkey)})
+    rows = []
+    for m in sorted(set(mode[keep].tolist())):
+        g = mode[keep] == m
+        rows.append((m.decode(), int((high & g).sum()),
+                     int((~high & g).sum())))
+    return rows
+
+
+def numpy_q13(tables, sizes):
+    c = _cols(tables)
+    comment = _text(c["o_comment"])
+    special = (np.char.find(comment, b"special") >= 0) & \
+        (np.char.find(comment, b"requests") >= 0)
+    custs = c["c_custkey"].data
+    per_cust = np.bincount(c["o_custkey"].data[~special],
+                           minlength=int(custs.max()) + 1)[custs]
+    counts, dist = np.unique(per_cust, return_counts=True)
+    sizes.update({"orders kept": int((~special).sum()),
+                  "customers": len(custs), "groups": len(counts)})
+    order = np.lexsort((-counts, -dist))
+    return [(int(counts[i]), int(dist[i])) for i in order]
+
+
+def numpy_q14(tables, sizes):
+    c = _cols(tables)
+    sd = c["l_shipdate"].data
+    keep = (sd >= _days(1995, 9, 1)) & (sd < _days(1995, 10, 1))
+    pkey = c["p_partkey"].data
+    require(bool((pkey == np.arange(1, len(pkey) + 1)).all()),
+            "Q14 numpy: part keys are not 1..n")
+    promo = np.char.startswith(_text(c["p_type"]), b"PROMO")
+    rev = (c["l_extendedprice"].data * (1.0 - c["l_discount"].data))[keep]
+    is_promo = promo[c["l_partkey"].data[keep] - 1]
+    sizes.update({"lineitem in 1995-09": int(keep.sum()),
+                  "promo lines": int(is_promo.sum())})
+    return [(100.0 * float(np.sum(np.where(is_promo, rev, 0.0)))
+             / float(np.sum(rev)),)]
+
+
 def check_rows(got, want, what):
     require(len(got) == len(want), f"{what}: {len(got)} rows, want "
             f"{len(want)}")
@@ -278,7 +359,9 @@ def main() -> int:
     from spark_rapids_tpu_torch.exec.joins import TpuHashJoinExec
     from spark_rapids_tpu_torch.ops.expression import (Literal,
                                                        as_device_column)
+    from spark_rapids_tpu_torch.exec.fused import TpuFusedSegmentExec
     from spark_rapids_tpu_torch.ops.kernels import _build
+    from spark_rapids_tpu_torch.ops.kernels import fused as FK
     from spark_rapids_tpu_torch.ops.kernels import gather as G
     from spark_rapids_tpu_torch.ops.kernels import join as J
     from spark_rapids_tpu_torch.ops.kernels import segment as S
@@ -301,7 +384,7 @@ def main() -> int:
     # ---- 2. main paths ----------------------------------------------------
     t0 = time.perf_counter()
     hb = tpch_datagen.lineitem(sf=SF, seed=SEED)
-    host = {q: tpch_datagen.tables(q, sf=SF, seed=SEED) for q in (3, 4)}
+    host = {q: tpch_datagen.tables(q, sf=SF, seed=SEED) for q in JOINED}
     log(f"tables SF{SF:g} generated in {time.perf_counter() - t0:.1f} s: "
         f"Q1/Q6 lineitem {hb.num_rows} rows x {len(hb.schema)} columns; "
         + "; ".join(f"Q{q} " + ", ".join(
@@ -311,9 +394,34 @@ def main() -> int:
     torch.zeros(1, device=sess.device)  # CUDA context outside the timings
     tables = {1: {"lineitem": sess.create_dataframe(hb, n_partitions=1)}}
     tables[6] = tables[1]
-    for q in (3, 4):
+    for q in JOINED:
         tables[q] = {t: sess.create_dataframe(b, n_partitions=1)
                      for t, b in host[q].items()}
+
+    # every fused segment's generated kernel, built in parallel before any
+    # query runs (the plans are made on CPU tensors, which build nothing)
+    planner = Session(device="cpu")
+    segments = {}
+    for q in FUSED:
+        for n_part in (1, 2):
+            cpu_tables = {t: planner.create_dataframe(b, n_partitions=n_part)
+                          for t, b in host[q].items()}
+            for p in walk_plan(planner.physical_plan(
+                    tpch.QUERIES[q](cpu_tables).plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    segments.setdefault(p.program.key, (q, p.program))
+    require(sorted(q for q, _p in segments.values()) == sorted(FUSED),
+            f"expected one segment source per fused query, got "
+            f"{[(k, q) for k, (q, _p) in segments.items()]}")
+    t0 = time.perf_counter()
+    _build.CUDA.prepare({k: p.source for k, (_q, p) in segments.items()})
+    log(f"K12 codegen build: {len(segments)} generated sources, "
+        f"{time.perf_counter() - t0:.1f} s ({len(segments)} nvcc in "
+        f"parallel)")
+    for key, (q, p) in segments.items():
+        log_ptxas_summary((_build.BUILD_ROOT / f"k12-{key}" /
+                           "build.log").read_text())
+        log(f"K12 segment of Q{q} ({key}): {p.describe()}")
     counters = {"K1": [S.SORT_LAUNCHES], "K2": [S.SEGMENT_IDS_LAUNCHES],
                 "K3": [S.SEGMENT_REDUCE_LAUNCHES],
                 "K4": [G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES],
@@ -323,29 +431,67 @@ def main() -> int:
                 "K8": [SK.STRING_COMPARE_LAUNCHES],
                 "K9": [H.HASH_LAUNCHES],
                 "K10": [DS.BUILD_LAUNCHES, DS.SLICE_LAUNCHES],
-                "K11": [EX.RANGE_PID_LAUNCHES]}
+                "K11": [EX.RANGE_PID_LAUNCHES],
+                "K12": [FK.FUSED_LAUNCHES],
+                "K13": [SK.STRING_SEARCH_LAUNCHES]}
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
-    # join compacts the left side instead of expanding pairs
+    # join compacts the left side instead of expanding pairs; Q3's
+    # customer filter runs inside its fused segment (K12), so K8 launches
+    # in Q12 alone (its aggregate's isin); K13 runs Q14's like
+    join_kernels = [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES,
+                    G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES,
+                    J.JOIN_PROBE_LAUNCHES, J.JOIN_EXPAND_LAUNCHES,
+                    J.GATHER_SIDE_LAUNCHES, S.SEGMENT_REDUCE_LAUNCHES]
     must_launch = {
         1: [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES,
             S.SEGMENT_REDUCE_LAUNCHES, G.GATHER_LAUNCHES,
             G.COMPACT_LAUNCHES],
         6: [S.SEGMENT_REDUCE_LAUNCHES, G.COMPACT_LAUNCHES],
-        3: [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES, G.GATHER_LAUNCHES,
-            G.COMPACT_LAUNCHES, J.JOIN_PROBE_LAUNCHES,
-            J.JOIN_EXPAND_LAUNCHES, J.GATHER_SIDE_LAUNCHES,
-            SK.STRING_COMPARE_LAUNCHES],
+        3: join_kernels + [FK.FUSED_LAUNCHES],
         4: [G.COMPACT_LAUNCHES, J.JOIN_PROBE_LAUNCHES],
+        12: join_kernels + [FK.FUSED_LAUNCHES, SK.STRING_COMPARE_LAUNCHES],
+        13: join_kernels + [FK.FUSED_LAUNCHES],
+        14: join_kernels + [FK.FUSED_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
     }
-    sizes = {3: {}, 4: {}}
-    want = {1: numpy_q1(hb), 6: numpy_q6(hb),
-            3: numpy_q3(host[3], sizes[3]), 4: numpy_q4(host[4], sizes[4])}
-    for q in (3, 4):
+    must_not_launch = {
+        1: [FK.FUSED_LAUNCHES], 6: [FK.FUSED_LAUNCHES],
+        4: [FK.FUSED_LAUNCHES],
+        3: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
+        12: [SK.STRING_SEARCH_LAUNCHES],
+        13: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
+        14: [SK.STRING_COMPARE_LAUNCHES],
+    }
+    # partial aggregates a query runs (Q13 two: per customer, per count)
+    # and join pairs
+    n_partial = {13: 2}
+    n_pairs = {3: 2, 4: 1, 12: 1, 13: 1, 14: 1}
+    sizes = {q: {} for q in JOINED}
+    numpy_ref = {3: numpy_q3, 4: numpy_q4, 12: numpy_q12, 13: numpy_q13,
+                 14: numpy_q14}
+    want = {1: numpy_q1(hb), 6: numpy_q6(hb)}
+    for q in JOINED:
+        want[q] = numpy_ref[q](host[q], sizes[q])
         log(f"Q{q} table sizes after each filter and join (numpy): "
             f"{sizes[q]}")
-    queries = (1, 6, 3, 4)
+    queries = (1, 6, 3, 4, 12, 13, 14)
+
+    def segment_batches(q, n_part):
+        """Reader batches of the table under Q{q}'s fused segment: each
+        partition's rows in pieces of at most READER_ROWS."""
+        table = {3: "customer", 12: "lineitem", 13: "orders",
+                 14: "lineitem"}[q]
+        part_rows = -(-host[q][table].num_rows // n_part)
+        return n_part * -(-part_rows // READER_ROWS)
+
+    def check_launches(q, what):
+        for c in must_launch[q]:
+            require(c.count > 0, f"Q{q}{what}: wrapper {c.name} launched "
+                    "no kernel")
+        for c in must_not_launch[q]:
+            require(c.count == 0, f"Q{q}{what}: wrapper {c.name} "
+                    f"launched {c.count} kernels, none expected")
 
     def run(q):
         return tpch.QUERIES[q](tables[q]).collect()
@@ -364,16 +510,20 @@ def main() -> int:
                        for k, cs in counters.items()}
         by_wrapper = {c.name: c.count for c in all_counters}
         log(f"Q{q} launches: {launches[q]} {by_wrapper}")
-        for c in must_launch[q]:
-            require(c.count > 0, f"Q{q}: wrapper {c.name} launched no "
-                    "kernel")
+        check_launches(q, "")
         m = sess.last_metrics
-        require(m.get("TpuHashAggregateExec[partial].numInputBatches") == 1,
-                f"Q{q}: the partial aggregate did not receive exactly one "
+        require(m.get("TpuHashAggregateExec[partial].numInputBatches") ==
+                n_partial.get(q, 1),
+                f"Q{q}: a partial aggregate did not receive exactly one "
                 f"batch: {m}")
-        if q in (3, 4):
+        if q in FUSED:
+            require(m.get("TpuFusedSegmentExec.numInputBatches") ==
+                    segment_batches(q, 1),
+                    f"Q{q}: the fused segment did not run once a reader "
+                    f"batch: {m}")
+        if q in JOINED:
             pairs = m.get("TpuHashJoinExec.numJoinedPairs")
-            require(pairs == (2 if q == 3 else 1) and
+            require(pairs == n_pairs[q] and
                     m.get("TpuHashJoinExec.numLeftBatches") == pairs and
                     m.get("TpuHashJoinExec.numRightBatches") == pairs,
                     f"Q{q}: a join side did not arrive as one batch: {m}")
@@ -381,9 +531,32 @@ def main() -> int:
         check_rows(results[q], want[q], f"Q{q}")
         log(f"Q{q} rows match numpy: {results[q]}")
     plan3 = str(sess.physical_plan(tpch.q3(tables[3]).plan))
-    require(plan3.count("TpuShuffledHashJoin[inner]") == 2,
-            f"Q3 does not plan two shuffled hash joins:\n{plan3}")
+    require(plan3.count("TpuShuffledHashJoin[inner]") == 2 and
+            plan3.count("TpuFusedSegment[2: TpuFilter[(c_mktsegment == "
+                        "'BUILDING')] -> TpuProject[c_custkey]]") == 1,
+            f"Q3 does not plan two shuffled hash joins and the reference's "
+            f"fused customer segment:\n{plan3}")
     log(f"Q3 device plan:\n{plan3}")
+
+    # the unfused route: Q3 once with fusion off (its customer filter
+    # then runs on K8 and K4, its project as torch copies)
+    unfused = Session({"spark.rapids.tpu.sql.fusion.enabled": False})
+    tables_unfused = {t: unfused.create_dataframe(b, n_partitions=1)
+                      for t, b in host[3].items()}
+    torch.cuda.synchronize()
+    for c in all_counters:
+        c.reset()
+    t0 = time.perf_counter()
+    rows = tpch.q3(tables_unfused).collect()
+    unfused_s = time.perf_counter() - t0
+    check_rows(rows, want[3], "Q3 fusion off")
+    require(SK.STRING_COMPARE_LAUNCHES.count > 0 and
+            FK.FUSED_LAUNCHES.count == 0,
+            "Q3 with fusion off did not run its filter through K8 alone")
+    unfused_launches = {k: sum(c.count for c in cs)
+                        for k, cs in counters.items()}
+    log(f"Q3 fusion off rows match numpy (cold {unfused_s * 1e3:.1f} ms; "
+        f"launches {unfused_launches})")
 
     # one more run of each join query, recording every join's input and
     # output row counts and keeping Q3's second join's inputs for phase 3
@@ -427,8 +600,9 @@ def main() -> int:
 
     # ---- 2b. the reference's default: two partitions ----------------------
     t0 = time.perf_counter()
-    tables2 = {q: tpch_datagen.dataframes(sess, sf=SF, seed=SEED, query=q)
-               for q in (1, 3, 4)}
+    tables2 = {q: {t: sess.create_dataframe(b) for t, b in host[q].items()}
+               for q in JOINED}
+    tables2[1] = tpch_datagen.dataframes(sess, sf=SF, seed=SEED, query=1)
     tables2[6] = tables2[1]
     require(all(df.plan.n_partitions == 2 for ts in tables2.values()
                 for df in ts.values()),
@@ -458,22 +632,26 @@ def main() -> int:
         by_wrapper = {c.name: c.count for c in all_counters}
         log(f"Q{q} two partitions launches: {launches2[q]} {by_wrapper}")
         for c in exchange_kernels:
-            if q == 6:
-                require(c.count == 0, f"Q6 at two partitions launched "
-                        f"{c.name}: its only exchange is a single one")
-            else:
-                require(c.count > 0, f"Q{q} at two partitions: wrapper "
-                        f"{c.name} launched no kernel")
-        for c in must_launch[q]:
-            require(c.count > 0, f"Q{q} at two partitions: wrapper "
-                    f"{c.name} launched no kernel")
+            # Q6's only exchange is a single one; Q14 broadcasts part (its
+            # 6.6 MB estimate is under broadcastSizeThreshold, as in the
+            # reference's plan) and sorts nothing
+            live = q not in (6, 14)
+            require((c.count > 0) == live, f"Q{q} at two partitions: "
+                    f"wrapper {c.name} launched {c.count} kernels")
+        check_launches(q, " at two partitions")
         m = sess.last_metrics
-        require(m.get("TpuHashAggregateExec[partial].numInputBatches") == 2,
+        require(m.get("TpuHashAggregateExec[partial].numInputBatches") ==
+                2 * n_partial.get(q, 1),
                 f"Q{q} at two partitions: each partition's partial "
                 f"aggregate did not receive one batch: {m}")
-        if q in (3, 4):
+        if q in FUSED:
+            require(m.get("TpuFusedSegmentExec.numInputBatches") ==
+                    segment_batches(q, 2),
+                    f"Q{q} at two partitions: the fused segment did not "
+                    f"run once a reader batch: {m}")
+        if q in JOINED:
             pairs = m.get("TpuHashJoinExec.numJoinedPairs")
-            require(pairs == 2 * (2 if q == 3 else 1) and
+            require(pairs == 2 * n_pairs[q] and
                     m.get("TpuHashJoinExec.numLeftBatches") == pairs and
                     m.get("TpuHashJoinExec.numRightBatches") == pairs,
                     f"Q{q} at two partitions: a join side did not arrive "
@@ -484,7 +662,8 @@ def main() -> int:
                 f"{pl['partition_rows']}")
             require(sum(pl["partition_rows"]) == pl["rows_written"],
                     f"Q{q}: {pl['exchange']} lost or duplicated rows")
-        require(len(sess.last_placements) == {1: 2, 6: 0, 3: 6, 4: 4}[q],
+        require(len(sess.last_placements) ==
+                {1: 2, 6: 0, 3: 6, 4: 4, 12: 4, 13: 5, 14: 0}[q],
                 f"Q{q} at two partitions planned "
                 f"{len(sess.last_placements)} multi-partition exchanges")
         check_rows(rows, want[q], f"Q{q} two partitions")
@@ -571,7 +750,7 @@ def main() -> int:
         main = launches2 if k in ("K9", "K10", "K11") else launches
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
-             # summed over the cold runs of the four queries
+             # summed over the cold runs of the queries
              "launches": sum(main[q][k] for q in queries),
              "launches_by_query": {f"q{q}": launches[q][k]
                                    for q in queries},
@@ -937,6 +1116,102 @@ def main() -> int:
           nbytes(rpasses, rbounds, rp), n * k * rbounds.shape[1],
           FP32_PER_S, 0.0, library_call="torch.searchsorted over the first "
           "pass only")
+
+    # K12: Q12's lineitem segment over its first 2,097,152-row reader
+    # batch, and Q13's orders segment (1,500,000 orders, one batch)
+    seg_of = {q: prog for _k, (q, prog) in segments.items()}
+    k12 = {}
+    for q, table in ((12, "lineitem"), (13, "orders")):
+        prog = seg_of[q]
+        hbt = host[q][table]
+        kb = host_to_device(hbt.slice(0, min(hbt.num_rows, READER_ROWS)),
+                            128, dev)
+        got, gkeep = FK.run_segment(prog, kb)
+        ref, rkeep = FK.segment_plain(prog, kb)
+        require(torch.equal(gkeep, rkeep),
+                f"K12 Q{q} keep mask differs from the plain composition")
+        for g, r in zip(got.columns, ref.columns):
+            require(torch.equal(g.validity, r.validity) and
+                    torch.equal(g.data.contiguous(), r.data.contiguous()) and
+                    (r.lengths is None or torch.equal(
+                        g.lengths.contiguous(), r.lengths.contiguous())),
+                    f"K12 Q{q} differs from the plain composition in a "
+                    f"{r.dtype} column")
+        k12[q] = dict(
+            ms=cuda_ms(lambda: FK.run_segment(prog, kb)),
+            plain=cuda_ms(lambda: FK.segment_plain(prog, kb)),
+            bytes=prog.bytes_moved(kb), rows=kb.padded_rows,
+            kept=int(gkeep.sum()))
+        log(f"K12 Q{q} {table} segment: {int(kb.num_rows)} rows "
+            f"({kb.padded_rows} padded), {k12[q]['kept']} kept, "
+            f"{k12[q]['bytes']} bytes moved; kernel {k12[q]['ms']:.3f} ms, "
+            f"plain {k12[q]['plain']:.3f} ms")
+    first = k12[12]
+    entry("K12 fused_segment", "spark_rapids_tpu_torch/ops/kernels/fused.py",
+          "spark_rapids_tpu/exec/fused.py:113",
+          first["ms"], first["plain"], None, first["bytes"], first["rows"],
+          FP32_PER_S, 0.0,
+          generated_sources=len(segments),
+          ms_by_segment={f"q{q}": v["ms"] for q, v in k12.items()},
+          plain_ms_by_segment={f"q{q}": v["plain"] for q, v in k12.items()},
+          bound_ms_by_segment={f"q{q}": bound(v["bytes"], v["rows"],
+                                              FP32_PER_S)[0]
+                               for q, v in k12.items()},
+          rows_by_segment={f"q{q}": v["rows"] for q, v in k12.items()})
+
+    # K13: Q14's like (startswith 'PROMO' over p_type, 200,000 parts), and
+    # contains / endswith / locate_from over Q13's o_comment (1,500,000)
+    pb = host_to_device(host[14]["part"], 128, dev)
+    ptype = pb.columns[pb.schema.index_of("p_type")]
+    ob = host_to_device(host[13]["orders"], 128, dev)
+    comment = ob.columns[ob.schema.index_of("o_comment")]
+    start = (torch.arange(ob.padded_rows, device=dev) % 9).to(torch.int32)
+    k13_cases = {
+        "startswith": (ptype, b"PROMO", ()),
+        "contains": (comment, b"special", ()),
+        "endswith": (comment, b"requests", ()),
+        "locate_from": (comment, b"requests", (start,)),
+    }
+    k13 = {}
+    for fn, (c, needle, extra) in k13_cases.items():
+        kernel = getattr(SK, fn)
+        plain = getattr(SK, f"{fn}_plain")
+        got = kernel(c.data, c.lengths, needle, *extra)
+        require(torch.equal(got, plain(c.data, c.lengths, needle, *extra)),
+                f"K13 {fn} differs from its plain version")
+        rows = c.data.shape[0]
+        k13[fn] = dict(
+            ms=cuda_ms(lambda: kernel(c.data, c.lengths, needle, *extra)),
+            plain=cuda_ms(lambda: plain(c.data, c.lengths, needle, *extra)),
+            bytes=nbytes(c.data, c.lengths, got, *extra), rows=rows,
+            ops=rows * c.data.shape[1], hits=int((got != 0).sum()))
+        log(f"K13 {fn} {needle!r}: {rows} rows x {c.data.shape[1]} bytes, "
+            f"{k13[fn]['hits']} hits; kernel {k13[fn]['ms']:.3f} ms, plain "
+            f"{k13[fn]['plain']:.3f} ms")
+    promo = np.char.startswith(_text(host[14]["part"].column("p_type")),
+                               b"PROMO")
+    require(k13["startswith"]["hits"] == int(promo.sum()),
+            "K13 startswith count differs from numpy")
+    needle_t = torch.tensor(list(b"PROMO"), dtype=torch.uint8, device=dev)
+    lib = (ptype.data[:, :5] == needle_t).all(1)
+    require(torch.equal(lib, SK.startswith(ptype.data, ptype.lengths,
+                                           b"PROMO")),
+            "the library form of startswith disagrees on p_type")
+    sw = k13["startswith"]
+    entry("K13 string_search",
+          "spark_rapids_tpu_torch/csrc/string_search.cu",
+          "spark_rapids_tpu/ops/kernels/stringkernels.py:160",
+          sw["ms"], sw["plain"],
+          cuda_ms(lambda: (ptype.data[:, :5] == needle_t).all(1)),
+          sw["bytes"], sw["ops"], FP32_PER_S, 0.0,
+          library_call="(p_type[:, :5] == b'PROMO').all(1), startswith "
+          "only; contains, endswith and locate_from have none",
+          ms_by_function={f: v["ms"] for f, v in k13.items()},
+          plain_ms_by_function={f: v["plain"] for f, v in k13.items()},
+          bound_ms_by_function={f: bound(v["bytes"], v["ops"],
+                                         FP32_PER_S)[0]
+                                for f, v in k13.items()},
+          rows_by_function={f: v["rows"] for f, v in k13.items()})
 
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")

@@ -1,10 +1,10 @@
-"""TPC-H Q1, Q3, Q4 and Q6 as DataFrame code.
+"""TPC-H Q1, Q3, Q4, Q6, Q12, Q13 and Q14 as DataFrame code.
 
 Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py:q1`` (45), ``q3``
-(90), ``q4`` (105) and ``q6`` (141), written against this engine's
-DataFrame API.  The other eighteen queries need more joins, string
-functions, distinct, unions or the multi-partition exchange, which come
-with later slices.
+(90), ``q4`` (105), ``q6`` (141), ``q12`` (283), ``q13`` (303) and
+``q14`` (317), written against this engine's DataFrame API.  The other
+fifteen queries need more joins, other string functions, distinct,
+unions or subquery forms, which come with later slices.
 """
 from __future__ import annotations
 
@@ -73,4 +73,52 @@ def q6(t):
                   .alias("revenue"))
 
 
-QUERIES = {1: q1, 3: q3, 4: q4, 6: q6}
+def q12(t):
+    li = t["lineitem"].filter(
+        col("l_shipmode").isin("MAIL", "SHIP")
+        & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate"))
+        & (col("l_receiptdate") >= _d(1994, 1, 1))
+        & (col("l_receiptdate") < _d(1995, 1, 1)))
+    j = li.select("l_orderkey", "l_shipmode").join(
+        t["orders"].select("o_orderkey", "o_orderpriority"),
+        on=(["l_orderkey"], ["o_orderkey"]), how="inner")
+    high = F.if_(col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                 lit(1), lit(0))
+    low = F.if_(col("o_orderpriority").isin("1-URGENT", "2-HIGH"),
+                lit(0), lit(1))
+    return (j.group_by("l_shipmode")
+            .agg(F.sum(high).alias("high_line_count"),
+                 F.sum(low).alias("low_line_count"))
+            .sort("l_shipmode"))
+
+
+def q13(t):
+    orders = t["orders"].filter(
+        ~(col("o_comment").contains("special")
+          & col("o_comment").contains("requests")))
+    j = t["customer"].select("c_custkey").join(
+        orders.select("o_orderkey", "o_custkey"),
+        on=(["c_custkey"], ["o_custkey"]), how="left")
+    per_cust = (j.group_by("c_custkey")
+                .agg(F.count("o_orderkey").alias("c_count")))
+    return (per_cust.group_by("c_count")
+            .agg(F.count("*").alias("custdist"))
+            .sort(col("custdist").desc(), col("c_count").desc()))
+
+
+def q14(t):
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= _d(1995, 9, 1))
+        & (col("l_shipdate") < _d(1995, 10, 1)))
+    j = li.select("l_partkey", "l_extendedprice", "l_discount").join(
+        t["part"].select("p_partkey", "p_type"),
+        on=(["l_partkey"], ["p_partkey"]), how="inner")
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    promo = F.if_(col("p_type").like("PROMO%"), rev, lit(0.0))
+    return (j.agg(F.sum(promo).alias("num"), F.sum(rev).alias("den"))
+            .select((lit(100.0) * col("num") / col("den"))
+                    .alias("promo_revenue")))
+
+
+QUERIES = {1: q1, 3: q3, 4: q4, 6: q6, 12: q12, 13: q13, 14: q14}

@@ -3,7 +3,9 @@
 Counterpart of ``spark_rapids_tpu/config.py``, cut to the keys this
 engine reads.  The key names are the reference's, so one conf dict
 drives both packages.  Unlike the reference, values come only from the
-dict handed to the session (no environment lookup).
+dict handed to the session (no environment lookup).  The reference's
+``kernelCache.donation`` key has no counterpart: PyTorch has no buffer
+donation, so a fused segment never consumes its input's buffers.
 """
 from __future__ import annotations
 
@@ -90,6 +92,18 @@ BUCKET_MIN_ROWS = conf("spark.rapids.tpu.sql.bucketMinRows").doc(
 # --- feature gates --------------------------------------------------------
 SQL_ENABLED = conf("spark.rapids.tpu.sql.enabled").doc(
     "Master enable for the plan-rewrite engine").boolean_conf(True)
+
+# --- whole-stage fusion (plan/fusion.py, exec/fused.py) -----------------
+FUSION_ENABLED = conf("spark.rapids.tpu.sql.fusion.enabled").doc(
+    "Collapse maximal chains of row-local device execs (Project, "
+    "Filter) into one fused segment whose one generated CUDA kernel "
+    "composes the members' expressions and defers every filter's "
+    "compaction to one at segment exit; results are bit-identical to the "
+    "unfused plan").boolean_conf(True)
+FUSION_MAX_SEGMENT_EXECS = conf(
+    "spark.rapids.tpu.sql.fusion.maxSegmentExecs").doc(
+    "Upper bound on member execs per fused segment; a longer row-local "
+    "chain is split into several segments").int_conf(16)
 
 # --- test hooks -----------------------------------------------------------
 TEST_ENABLED = conf("spark.rapids.tpu.sql.test.enabled").doc(

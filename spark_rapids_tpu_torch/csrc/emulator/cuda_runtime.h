@@ -21,6 +21,8 @@
 #define __device__
 #define __host__
 #define __shared__ static
+#define __constant__
+#define __grid_constant__
 #define __forceinline__ inline
 #define __restrict__
 
@@ -33,6 +35,7 @@ inline dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+#define __launch_bounds__(...)
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 

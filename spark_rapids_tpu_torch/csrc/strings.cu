@@ -16,17 +16,12 @@
 // one thread per row, a byte loop over the row (rows are at most tens of
 // bytes wide on this path), loads through the read-only cache, no shared
 // memory.  A warp-per-row variant for wide matrices is left for later.
-#include "common.cuh"
+// The row functions are strings.cuh's, shared with K12 and K13.
+#include "strings.cuh"
 
 namespace {
 
 using srt::BLOCK;
-
-__device__ __forceinline__ int byte_at(const uint8_t* __restrict__ bm,
-                                       long long row_off, int w, int len,
-                                       int pos) {
-  return (pos < w && pos < len) ? (int)bm[row_off + pos] : 0;
-}
 
 // mode 0: equals -> bool out; mode 1: compare -> int32 out
 __global__ void str_cmp(const uint8_t* __restrict__ lbm,
@@ -38,36 +33,12 @@ __global__ void str_cmp(const uint8_t* __restrict__ lbm,
   if (i >= n) return;
   const long long lrow = lstride ? i : 0;
   const long long rrow = rstride ? i : 0;
-  const int ln = llen[lrow];
-  const int rn = rlen[rrow];
-  const long long lo = lrow * (long long)lw;
-  const long long ro = rrow * (long long)rw;
-  const int w = lw > rw ? lw : rw;
-  if (mode == 0) {
-    bool eq = ln == rn;
-    for (int p = 0; eq && p < w; ++p)
-      eq = byte_at(lbm, lo, lw, ln, p) == byte_at(rbm, ro, rw, rn, p);
-    ((bool*)out)[i] = eq;
-    return;
-  }
-  const int both = ln < rn ? ln : rn;
-  int d = 0;
-  int first = w;
-  for (int p = 0; p < w && p < both; ++p) {
-    d = byte_at(lbm, lo, lw, ln, p) - byte_at(rbm, ro, rw, rn, p);
-    if (d != 0) { first = p; break; }
-  }
-  int r;
-  if (first < both) {
-    r = d < 0 ? -1 : 1;
-  } else if (w < both) {
-    // lengths past the matrix width: the reference reads the (zero)
-    // difference at the last column, so the result is 0
-    r = 0;
-  } else {
-    r = ln < rn ? -1 : (ln > rn ? 1 : 0);
-  }
-  ((int*)out)[i] = r;
+  const uint8_t* l = lbm + lrow * (long long)lw;
+  const uint8_t* r = rbm + rrow * (long long)rw;
+  if (mode == 0)
+    ((bool*)out)[i] = srt::str_equals(l, lw, llen[lrow], r, rw, rlen[rrow]);
+  else
+    ((int*)out)[i] = srt::str_compare(l, lw, llen[lrow], r, rw, rlen[rrow]);
 }
 
 }  // namespace

@@ -84,6 +84,12 @@ class TpuExec(PhysicalPlan):
     def children_coalesce_goal(self) -> List[Optional[CoalesceGoal]]:
         return [None] * len(self.children)
 
+    @property
+    def coalesce_after(self) -> bool:
+        """True if output batches may be small and benefit from
+        coalescing above (the reference's ``coalesce_after``)."""
+        return False
+
     def execute_columnar(self, ctx: ExecContext) -> DevicePartitionedData:
         raise NotImplementedError(f"{self.name}.execute_columnar")
 

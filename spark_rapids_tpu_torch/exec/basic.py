@@ -70,7 +70,14 @@ class TpuFilterExec(TpuExec):
     def schema(self):
         return self.children[0].schema
 
+    @property
+    def coalesce_after(self):
+        return True
+
     def _keep(self, batch: DeviceBatch):
+        """The keep mask of ``condition`` over ``batch`` — shared with
+        the fused segment, which threads the mask through the segment
+        instead of compacting per filter."""
         c = as_device_column(self.condition.eval_tpu(batch),
                              batch.padded_rows, batch.device)
         return c.data & c.validity

@@ -81,6 +81,12 @@ class Expression:
     def name(self) -> str:
         return type(self).__name__
 
+    @property
+    def deterministic(self) -> bool:
+        """False for an expression whose value depends on more than its
+        row (the fusion pass stops at it)."""
+        return all(c.deterministic for c in self.children)
+
     def with_children(self, children: List["Expression"]) -> "Expression":
         node = copy.copy(self)
         node.children = list(children)

@@ -7,6 +7,14 @@ into ``csrc/build/<hash of the sources and flags>/`` (listed in
 ``.gitignore``), so an edited kernel rebuilds.  The sources compile in
 parallel, one ``nvcc`` process each.
 
+Generated sources (K12's fused segments, ``ops/kernels/fused.py``) take
+a second route: ``build_generated`` compiles each into
+``csrc/build/k12-<hash of the source, the flags and the headers>/``,
+all missing ones in parallel, and skips one whose library is there
+already, so a library built by one process serves the next.  Every
+build uses ``-fmad=false``: no multiply-add contraction, so float
+expressions round as their plain versions do.
+
 Nothing here runs at import time: the CPU tests import every module, on
 machines that may have neither ``nvcc`` nor a card.
 """
@@ -25,7 +33,10 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+#: headers a generated source includes (their text is part of its key)
+GENERATED_HEADERS = ("common.cuh", "strings.cuh")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -76,6 +87,9 @@ KERNELS: Dict[str, tuple] = {
     }),
     "strings": ("strings.cu", {
         "k8_string_compare": ([P, P, I, I, P, P, I, I, Q, I, P, P], 1),
+    }),
+    "string_search": ("string_search.cu", {
+        "k13_search": ([P, P, I, Q, P, I, I, P, P, P], 1),
     }),
     "hashing": ("hashing.cu", {
         # no launch for an empty batch
@@ -181,6 +195,58 @@ def build_all() -> Path:
     return out
 
 
+def generated_key(source: str) -> str:
+    """The build key of a generated source: a hash of it, the flags and
+    the headers it includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in GENERATED_HEADERS:
+        h.update((CSRC / name).read_bytes())
+    h.update(source.encode())
+    return h.hexdigest()[:16]
+
+
+def build_generated(sources: Dict[str, str]) -> Dict[str, Path]:
+    """Compile generated sources (key -> source text; each exports
+    ``k12_segment``) whose library is not built yet, all at once, each
+    into ``csrc/build/k12-<key>/libk12.so``; returns key -> library."""
+    out = {key: BUILD_ROOT / f"k12-{key}" / "libk12.so" for key in sources}
+    todo = [key for key in sources if not out[key].exists()]
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    procs = []
+    for key in todo:
+        d = out[key].parent
+        d.mkdir(parents=True, exist_ok=True)
+        src = d / f"k12.{os.getpid()}.cu"
+        src.write_text(sources[key])
+        tmp = d / f"libk12.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        procs.append((key, src, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for key, src, tmp, proc in procs:
+        text, _ = proc.communicate()
+        (src.parent / "build.log").write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"== {key} (rc {proc.returncode})\n{text}")
+        else:
+            os.replace(src, src.parent / "k12.cu")
+            os.replace(tmp, out[key])
+    if failed:
+        raise RuntimeError("nvcc failed for generated sources:\n"
+                           + "\n".join(failed))
+    return out
+
+
+def load_generated(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.k12_segment.argtypes = [P, P, P]
+    lib.k12_segment.restype = ctypes.c_int
+    return lib
+
+
 def load_libraries(out: Path) -> Dict[str, ctypes.CDLL]:
     """Load ``lib<name>.so`` of every kernel library in ``out`` and
     declare its functions' argument types."""
@@ -198,21 +264,38 @@ def load_libraries(out: Path) -> Dict[str, ctypes.CDLL]:
 class Kernels:
     """The kernel libraries that the wrappers launch and the stream they
     launch on.  ``CUDA`` is the package's one instance: it builds with
-    ``build_all`` at first use and launches on the tensor's current CUDA
-    stream.  A wrapper's ``kernels=`` argument takes another instance
-    (libraries built elsewhere from the same sources) for tensors of any
-    device."""
+    ``build_all`` (generated sources with ``build_generated``) at first
+    use and launches on the tensor's current CUDA stream.  A wrapper's
+    ``kernels=`` argument takes another instance (libraries built
+    elsewhere from the same sources) for tensors of any device."""
 
     def __init__(self, build: Callable[[], Path],
-                 stream: Callable[[torch.Tensor], Optional[int]]):
+                 stream: Callable[[torch.Tensor], Optional[int]],
+                 build_generated: Callable[[Dict[str, str]],
+                                           Dict[str, Path]] = build_generated):
         self._build = build
         self._stream = stream
+        self._build_generated = build_generated
         self.libs: Dict[str, ctypes.CDLL] = {}
+        self.generated_libs: Dict[str, ctypes.CDLL] = {}
 
     def library(self, name: str) -> ctypes.CDLL:
         if not self.libs:
             self.libs = load_libraries(self._build())
         return self.libs[name]
+
+    def prepare(self, sources: Dict[str, str]) -> None:
+        """Build (in parallel) and load the generated sources (key ->
+        text) that are not loaded yet."""
+        todo = {k: s for k, s in sources.items()
+                if k not in self.generated_libs}
+        if todo:
+            for key, path in self._build_generated(todo).items():
+                self.generated_libs[key] = load_generated(path)
+
+    def generated(self, key: str, source: str) -> ctypes.CDLL:
+        self.prepare({key: source})
+        return self.generated_libs[key]
 
     def stream(self, t: torch.Tensor) -> Optional[int]:
         return self._stream(t)

@@ -1,0 +1,686 @@
+"""K12 — the fused row-local segment, as CUDA C++ generated per segment.
+
+Counterpart of the ``jit_kernel`` composition of
+``spark_rapids_tpu/exec/fused.py:93-121`` (``TpuFusedSegmentExec._compute``
+and ``_apply_member``), for Project and Filter members: Project members
+evaluate their expressions, Filter members do not compact but AND their
+keep mask (``data & validity``) into the segment's mask, and one
+compaction (K4) at segment exit gives the unfused plan's rows, order and
+padded bucket.
+
+``SegmentProgram`` turns a chain of members into one CUDA C++ kernel:
+one thread per row (grid-stride) reads the row's referenced input
+columns, evaluates every member in order with values and validity in
+registers, and writes the computed output columns and the keep mask.  A
+column a segment passes through keeps its input tensors: a projected one
+gets only a new validity (ANDed with the row mask, as a Project does), an
+unprojected one is the input column itself.  Padding rows get keep =
+false and invalid outputs.  The source depends on the members'
+expressions and the input's types only (string widths and the row count
+are launch arguments), so one fingerprint serves every batch and every
+partition.  Doubles and floats appear as their bit patterns and integers
+as two's-complement hex, so literals keep their exact bits; string
+needles, ``Like`` segments and ``InSet`` members are ``__constant__``
+byte arrays; the string functions are ``csrc/strings.cuh``'s, the same
+code K8 and K13 run.  The build (``_build.build_generated``, nvcc
+``-fmad=false`` for sm_90a, keyed by a hash of source, flags and
+headers) happens when a plan is built, for all of its segments at once.
+
+The code generator covers every expression the engine registers
+(``plan/overrides.py``): BoundReference, Literal, Alias, Add, Subtract,
+Multiply, Divide, the five comparisons on numbers, dates and strings,
+Not, And, Or, IsNull, IsNotNull, If, InSet, Contains, StartsWith,
+EndsWith and Like, each with its torch body's semantics (integer
+arithmetic wraps, a zero divisor gives null, Kleene AND/OR, a null
+condition takes If's false branch, IEEE comparisons).
+
+``segment_plain`` is the plain composition: the members' own torch
+bodies with the compaction deferred, the structure of
+``exec/fused.py:113-121``.  The wrapper takes it only for CPU tensors.
+
+Bound on this card: bytes.  A segment reads each referenced input column
+once and writes each computed column, each new validity and the keep
+mask once (Q12's lineitem segment over a 2,097,152-row batch: three
+dates, a 7-byte mode matrix, lengths and validities in, two validities
+and the mask out, ~65 MB, ~19 us at 3.35 TB/s; ``chip_smoke.py`` counts
+each segment's bytes at its shapes).  Design: one pass over the rows,
+every member fused, no intermediate column written; a thread reads its
+own string row (strided loads, like K13).
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import struct
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ... import types as T
+from ...data import strings as dstrings
+from ...data.column import DeviceBatch, DeviceColumn
+from .. import arithmetic as ar
+from .. import conditional as cond
+from .. import predicates as pr
+from .. import stringexprs as st
+from ..expression import Alias, BoundReference, Expression, Literal
+from . import _build as B
+
+#: CUDA kernels launched by K12
+FUSED_LAUNCHES = B.LaunchCounter("fused_segment")
+
+#: blocks of a launch at most (the kernel strides over the rest)
+MAX_BLOCKS = 16384
+
+_CTYPE = {
+    T.TypeId.BOOL: "bool", T.TypeId.INT8: "int8_t",
+    T.TypeId.INT16: "int16_t", T.TypeId.INT32: "int32_t",
+    T.TypeId.INT64: "int64_t", T.TypeId.FLOAT32: "float",
+    T.TypeId.FLOAT64: "double", T.TypeId.DATE32: "int32_t",
+    T.TypeId.TIMESTAMP: "int64_t", T.TypeId.NULL: "bool",
+}
+_UNSIGNED = {"int8_t": "uint8_t", "int16_t": "uint16_t",
+             "int32_t": "uint32_t", "int64_t": "uint64_t"}
+# unsigned type the wrapping arithmetic of each integer type runs in
+_WRAP = {"int8_t": "unsigned", "int16_t": "unsigned",
+         "int32_t": "unsigned", "int64_t": "unsigned long long"}
+
+
+def ctype(dt: T.DType) -> str:
+    if dt.is_string:
+        raise TypeError("strings have no scalar C type")
+    return _CTYPE[dt.id]
+
+
+def c_literal(value, dt: T.DType) -> str:
+    """A C expression of type ``ctype(dt)`` with ``value``'s exact bits
+    (0 for a null)."""
+    ct = ctype(dt)
+    if value is None:
+        value = 0
+    if ct == "bool":
+        return "true" if value else "false"
+    if ct == "double":
+        bits = struct.unpack("<Q", struct.pack("<d", float(value)))[0]
+        return f"__longlong_as_double((long long)0x{bits:016x}ULL)"
+    if ct == "float":
+        bits = struct.unpack("<I", struct.pack("<f", float(value)))[0]
+        return f"__int_as_float((int)0x{bits:08x}U)"
+    v = int(np.asarray(value).astype(dt.np_dtype))
+    bits = v & ((1 << (8 * dt.np_dtype.itemsize)) - 1)
+    return f"(({ct})({_UNSIGNED[ct]})0x{bits:x}ULL)"
+
+
+@dataclass
+class _Val:
+    """A value of the generated code: data (``d``) or a string row
+    (``p``, width ``w``, length ``l``), and its validity ``v``; ``wspec``
+    gives a string's width at launch: ("in", i), ("const", w) or
+    ("max", a, b)."""
+
+    dtype: T.DType
+    v: str
+    d: str = ""
+    p: str = ""
+    w: str = ""
+    l: str = ""
+    wspec: tuple = ()
+
+
+@dataclass
+class _Sym:
+    """A column of the batch between two members: its value, and the
+    input ordinal it passes through (None for a computed column)."""
+
+    val: _Val
+    src: Optional[int]
+    projected: bool
+
+
+@dataclass
+class Output:
+    """One output column: ``kind`` "raw" (the input column as it is),
+    "valid" (the input's data, a new validity), "num" or "str"
+    (computed)."""
+
+    kind: str
+    dtype: T.DType
+    src: Optional[int] = None
+    wspec: tuple = ()
+
+
+def _decl_type(line: str) -> str:
+    """The type of a ``const <type> <name> = ...;`` line."""
+    return line[len("const "):].rsplit(" = ", 1)[0].rsplit(" ", 1)[0]
+
+
+def _unalias(e: Expression) -> Expression:
+    while isinstance(e, Alias):
+        e = e.child
+    return e
+
+
+def _is_filter(m) -> bool:
+    return hasattr(m, "condition")
+
+
+class _Codegen:
+    def __init__(self, schema: T.Schema):
+        self.schema = schema
+        self.body: List[str] = []
+        self.consts: Dict[bytes, str] = {}
+        self.loaded: Dict[int, _Val] = {}
+        self.ptr_fields: List[Tuple[str, str, tuple]] = []  # decl, name, bind
+        self.int_fields: List[Tuple[str, tuple]] = []       # name, bind
+        self.n = 0
+
+    # ---- helpers ---------------------------------------------------------
+    def tmp(self) -> str:
+        self.n += 1
+        return f"t{self.n}"
+
+    def let(self, ct: str, expr: str) -> str:
+        name = self.tmp()
+        self.body.append(f"const {ct} {name} = {expr};")
+        return name
+
+    def const_bytes(self, b: bytes) -> str:
+        name = self.consts.get(b)
+        if name is None:
+            name = f"K{len(self.consts)}"
+            self.consts[b] = name
+        return name
+
+    def string_literal(self, value: Optional[str]) -> _Val:
+        bm, ln = dstrings.encode([value])
+        name = self.const_bytes(bytes(bm[0]))
+        return _Val(T.STRING, "false" if value is None else "true",
+                    p=name, w=str(bm.shape[1]), l=str(int(ln[0])),
+                    wspec=("const", bm.shape[1]))
+
+    def load(self, i: int) -> _Val:
+        if i in self.loaded:
+            return self.loaded[i]
+        dt = self.schema[i].dtype
+        v = self.tmp()
+        self.ptr_fields.append((f"const bool* v{i}", f"v{i}",
+                                ("in_valid", i)))
+        if dt.is_string:
+            self.ptr_fields.append((f"const uint8_t* d{i}", f"d{i}",
+                                    ("in_data", i)))
+            self.ptr_fields.append((f"const int* l{i}", f"l{i}",
+                                    ("in_len", i)))
+            self.int_fields.append((f"w{i}", ("in_width", i)))
+            p = self.let("uint8_t*", f"a.d{i} + row * (long long)a.w{i}")
+            ln = self.let("int", f"a.l{i}[row]")
+            val = _Val(dt, v, p=p, w=f"a.w{i}", l=ln, wspec=("in", i))
+        else:
+            ct = ctype(dt)
+            self.ptr_fields.append((f"const {ct}* d{i}", f"d{i}",
+                                    ("in_data", i)))
+            d = self.let(ct, f"a.d{i}[row]")
+            val = _Val(dt, v, d=d)
+        self.body.append(f"const bool {v} = a.v{i}[row];")
+        self.loaded[i] = val
+        return val
+
+    def prune_loads(self) -> None:
+        """Drop the loads of input data and lengths nothing reads (a
+        passed-through column needs only its validity), and their
+        arguments."""
+        text = "\n".join(self.body)
+        for i, val in self.loaded.items():
+            for var, field, kind in ((val.d, f"d{i}", "in_data"),
+                                     (val.l, f"l{i}", "in_len"),
+                                     (val.p, f"d{i}", "in_data")):
+                if not var or len(re.findall(rf"\b{var}\b", text)) > 1:
+                    continue
+                self.body = [ln for ln in self.body
+                             if not ln.startswith(f"const {_decl_type(ln)} "
+                                                  f"{var} =")]
+                text = "\n".join(self.body)
+                if not re.search(rf"\ba\.{field}\b", text):
+                    self.ptr_fields = [f for f in self.ptr_fields
+                                       if f[2] != (kind, i)]
+
+    def cast(self, val: _Val, dt: T.DType) -> str:
+        if val.dtype == dt:
+            return val.d
+        return f"(({ctype(dt)}){val.d})"
+
+    def needle_call(self, fn: str, c: _Val, needle: bytes,
+                    *extra: str) -> str:
+        args = [c.p, c.w, c.l, self.const_bytes(needle), str(len(needle)),
+                *extra]
+        return f"srt::{fn}({', '.join(args)})"
+
+    # ---- expressions -----------------------------------------------------
+    def gen(self, e: Expression, syms: List[_Sym]) -> _Val:
+        if isinstance(e, Alias):
+            return self.gen(e.child, syms)
+        if isinstance(e, BoundReference):
+            s = syms[e.ordinal]
+            if s.val is None:  # an input column, loaded at first use
+                s.val = self.load(s.src)
+            return s.val
+        if isinstance(e, Literal):
+            if e.dtype.is_string:
+                return self.string_literal(e.value)
+            return _Val(e.dtype, "false" if e.value is None else "true",
+                        d=c_literal(e.value, e.dtype))
+        if isinstance(e, ar.Divide):
+            l, r = self.gen(e.left, syms), self.gen(e.right, syms)
+            a = self.cast(l, T.FLOAT64)
+            b = self.cast(r, T.FLOAT64)
+            z = self.let("bool", f"{b} == 0.0")
+            d = self.let("double", f"{a} / ({z} ? 1.0 : {b})")
+            return _Val(T.FLOAT64, self.let("bool", f"{l.v} && {r.v} && "
+                                            f"!{z}"), d=d)
+        if isinstance(e, (ar.Add, ar.Subtract, ar.Multiply)):
+            op = {ar.Add: "+", ar.Subtract: "-", ar.Multiply: "*"}[type(e)]
+            out = e.dtype
+            ct = ctype(out)
+            l, r = self.gen(e.left, syms), self.gen(e.right, syms)
+            a, b = self.cast(l, out), self.cast(r, out)
+            if out.is_floating:
+                expr = f"{a} {op} {b}"
+            else:  # wraps, as torch's integer arithmetic does
+                ut = _WRAP[ct]
+                expr = f"({ct})(({ut}){a} {op} ({ut}){b})"
+            return _Val(out, self.let("bool", f"{l.v} && {r.v}"),
+                        d=self.let(ct, expr))
+        if isinstance(e, pr._Comparison):
+            return self.comparison(e, syms)
+        if isinstance(e, pr.Not):
+            c = self.gen(e.child, syms)
+            return _Val(T.BOOL, c.v, d=self.let("bool", f"!{c.d}"))
+        if isinstance(e, (pr.And, pr.Or)):
+            l, r = self.gen(e.children[0], syms), self.gen(e.children[1],
+                                                           syms)
+            ld = self.let("bool", f"{l.d} && {l.v}")
+            rd = self.let("bool", f"{r.d} && {r.v}")
+            if isinstance(e, pr.And):
+                d = self.let("bool", f"{ld} && {rd}")
+                v = f"({l.v} && !{ld}) || ({r.v} && !{rd}) || " \
+                    f"({l.v} && {r.v})"
+            else:
+                d = self.let("bool", f"{ld} || {rd}")
+                v = f"{ld} || {rd} || ({l.v} && {r.v})"
+            return _Val(T.BOOL, self.let("bool", v), d=d)
+        if isinstance(e, pr.IsNull):
+            c = self.gen(e.children[0], syms)
+            return _Val(T.BOOL, "true", d=self.let("bool", f"!{c.v}"))
+        if isinstance(e, pr.IsNotNull):
+            c = self.gen(e.children[0], syms)
+            return _Val(T.BOOL, "true", d=self.let("bool", c.v))
+        if isinstance(e, cond.If):
+            return self.if_(e, syms)
+        if isinstance(e, pr.InSet):
+            return self.inset(e, syms)
+        if isinstance(e, st._NeedlePredicate):
+            fn = {st.Contains: "str_contains", st.StartsWith:
+                  "str_startswith", st.EndsWith: "str_endswith"}[type(e)]
+            c = self.gen(e.children[0], syms)
+            return _Val(T.BOOL, c.v, d=self.let(
+                "bool", self.needle_call(fn, c, e.needle())))
+        if isinstance(e, st.Like):
+            return self.like(e, syms)
+        raise NotImplementedError(
+            f"the fused-segment code generator has no rule for "
+            f"{type(e).__name__}")
+
+    def comparison(self, e, syms) -> _Val:
+        l, r = self.gen(e.left, syms), self.gen(e.right, syms)
+        v = self.let("bool", f"{l.v} && {r.v}")
+        if e.left.dtype.is_string or e.right.dtype.is_string:
+            args = f"{l.p}, {l.w}, {l.l}, {r.p}, {r.w}, {r.l}"
+            if e.op == "==":
+                return _Val(T.BOOL, v, d=self.let(
+                    "bool", f"srt::str_equals({args})"))
+            c = self.let("int", f"srt::str_compare({args})")
+            return _Val(T.BOOL, v, d=self.let("bool", f"{c} {e.op} 0"))
+        lt, rt = e.left.dtype, e.right.dtype
+        if lt.is_numeric and rt.is_numeric and lt != rt:
+            p = T.promote(lt, rt)
+            a, b = self.cast(l, p), self.cast(r, p)
+        else:
+            a, b = l.d, r.d
+        return _Val(T.BOOL, v, d=self.let("bool", f"{a} {e.op} {b}"))
+
+    def if_(self, e, syms) -> _Val:
+        p = self.gen(e.children[0], syms)
+        c = self.let("bool", f"{p.d} && {p.v}")
+        out = e.dtype
+        branches = []
+        for b in e.children[1:]:
+            if b.dtype.id is T.TypeId.NULL:  # an untyped null: out's null
+                branches.append(self.string_literal(None) if out.is_string
+                                else _Val(out, "false",
+                                          d=c_literal(None, out)))
+            else:
+                branches.append(self.gen(b, syms))
+        t, f = branches
+        v = self.let("bool", f"{c} ? {t.v} : {f.v}")
+        if out.is_string:
+            return _Val(out, v,
+                        p=self.let("uint8_t*", f"{c} ? {t.p} : {f.p}"),
+                        w=self.let("int", f"{c} ? {t.w} : {f.w}"),
+                        l=self.let("int", f"{c} ? {t.l} : {f.l}"),
+                        wspec=("max", t.wspec, f.wspec))
+        ct = ctype(out)
+        return _Val(out, v, d=self.let(
+            ct, f"{c} ? {self.cast(t, out)} : {self.cast(f, out)}"))
+
+    def inset(self, e, syms) -> _Val:
+        c = self.gen(e.children[0], syms)
+        terms = []
+        if c.dtype.is_string:
+            for value in e.values:
+                m = self.string_literal(value)
+                terms.append(f"srt::str_equals({c.p}, {c.w}, {c.l}, "
+                             f"{m.p}, {m.w}, {m.l})")
+        else:
+            for x in e.member_array().tolist():
+                terms.append(f"({c.d} == {c_literal(x, c.dtype)})")
+        d = self.let("bool", " || ".join(terms) or "false")
+        v = self.let("bool", f"{c.v} && {d}") if e.has_null_value else c.v
+        return _Val(T.BOOL, v, d=d)
+
+    def like(self, e, syms) -> _Val:
+        segs = e.segments
+        if segs is None:
+            raise NotImplementedError(e.unsupported_reason())
+        c = self.gen(e.children[0], syms)
+        if len(segs) == 1:
+            d = self.let("bool", self.needle_call("str_startswith", c,
+                                                  segs[0])
+                         + f" && {c.l} == {len(segs[0])}")
+            return _Val(T.BOOL, c.v, d=d)
+        first, last, mids = segs[0], segs[-1], segs[1:-1]
+        ok = self.tmp()
+        cur = self.tmp()
+        self.body.append(f"bool {ok} = " + (self.needle_call(
+            "str_startswith", c, first) if first else "true") + ";")
+        self.body.append(f"int {cur} = {len(first)};")
+        for seg in mids:
+            if not seg:
+                continue
+            pos = self.let("int", self.needle_call("str_locate_from", c,
+                                                   seg, cur))
+            self.body.append(f"{ok} = {ok} && {pos} > 0;")
+            self.body.append(f"{cur} = {pos} > 0 ? {pos} - 1 + {len(seg)} "
+                             f": {cur};")
+        if last:
+            self.body.append(
+                f"{ok} = {ok} && "
+                + self.needle_call("str_endswith", c, last)
+                + f" && {c.l} - {len(last)} >= {cur};")
+        else:
+            self.body.append(f"{ok} = {ok} && {c.l} >= {cur};")
+        return _Val(T.BOOL, c.v, d=self.let("bool", ok))
+
+
+class SegmentProgram:
+    """The generated kernel of one segment and how to bind a batch to
+    it.  ``members`` are the segment's Project and Filter execs in
+    execution order, over an input of ``input_schema``."""
+
+    def __init__(self, input_schema: T.Schema, members: List):
+        self.input_schema = input_schema
+        self.members = list(members)
+        self.schema = members[-1].schema
+        self.has_filter = any(_is_filter(m) for m in members)
+        g = _Codegen(input_schema)
+        # only the input columns a member references are loaded
+        syms = [_Sym(None, i, False) for i in range(len(input_schema))]
+        for m in self.members:
+            if _is_filter(m):
+                c = g.gen(m.condition, syms)
+                if "bool keep = rm;" not in g.body:
+                    g.body.append("bool keep = rm;")
+                g.body.append(f"keep = keep && ({c.d} && {c.v});")
+                continue
+            new = []
+            for e in m.exprs:
+                val = g.gen(e, syms)
+                pv = _Val(**{**val.__dict__,
+                             "v": g.let("bool", f"{val.v} && rm")})
+                inner = _unalias(e)
+                src = syms[inner.ordinal].src \
+                    if isinstance(inner, BoundReference) else None
+                new.append(_Sym(pv, src, True))
+            syms = new
+        self.outputs: List[Output] = []
+        for j, s in enumerate(syms):
+            dt = self.schema[j].dtype
+            if s.src is not None and not s.projected:
+                self.outputs.append(Output("raw", dt, s.src))
+                continue
+            g.ptr_fields.append((f"bool* ov{j}", f"ov{j}", ("out_valid", j)))
+            g.body.append(f"a.ov{j}[row] = {s.val.v};")
+            if s.src is not None:
+                self.outputs.append(Output("valid", dt, s.src))
+            elif dt.is_string:
+                g.ptr_fields.append((f"uint8_t* o{j}", f"o{j}",
+                                     ("out_data", j)))
+                g.ptr_fields.append((f"int* ol{j}", f"ol{j}",
+                                     ("out_len", j)))
+                g.int_fields.append((f"ow{j}", ("out_width", j)))
+                g.body.append(
+                    f"{{ uint8_t* dst = a.o{j} + row * (long long)a.ow{j}; "
+                    f"for (int q = 0; q < a.ow{j}; ++q) dst[q] = q < "
+                    f"{s.val.w} ? {s.val.p}[q] : 0; }}")
+                g.body.append(f"a.ol{j}[row] = {s.val.l};")
+                self.outputs.append(Output("str", dt, None, s.val.wspec))
+            else:
+                g.ptr_fields.append((f"{ctype(dt)}* o{j}", f"o{j}",
+                                     ("out_data", j)))
+                g.body.append(f"a.o{j}[row] = {s.val.d};")
+                self.outputs.append(Output("num", dt))
+        if self.has_filter:
+            g.ptr_fields.append(("bool* keep", "keep", ("keep",)))
+            g.body.append("a.keep[row] = keep;")
+        g.prune_loads()
+        self._ptr_binds = [("num_rows",)] + [b for _d, _n, b in
+                                             g.ptr_fields]
+        self._int_binds = [("n",)] + [b for _n, b in g.int_fields]
+        self.source = _render(g, self.describe())
+        self.key = B.generated_key(self.source)
+
+    def describe(self) -> str:
+        return " -> ".join(m.describe() for m in self.members)
+
+    # ---- launch ----------------------------------------------------------
+    def _width(self, spec, batch: DeviceBatch) -> int:
+        if spec[0] == "in":
+            return int(batch.columns[spec[1]].data.shape[1])
+        if spec[0] == "const":
+            return spec[1]
+        return max(self._width(spec[1], batch), self._width(spec[2], batch))
+
+    def bytes_moved(self, batch: DeviceBatch) -> int:
+        """The bytes the segment must move over ``batch``: each input
+        array it reads and each array it writes, once (its bound)."""
+        n = batch.padded_rows
+        total = 4  # the row count
+        for b in self._ptr_binds[1:]:
+            kind = b[0]
+            if kind.startswith("in_"):
+                c = batch.columns[b[1]]
+                t = {"in_valid": c.validity, "in_data": c.data,
+                     "in_len": c.lengths}[kind]
+                total += t.numel() * t.element_size()
+            elif kind == "out_data":
+                o = self.outputs[b[1]]
+                total += n * (self._width(o.wspec, batch) if o.kind == "str"
+                              else torch.empty(0, dtype=o.dtype.torch_dtype
+                                               ).element_size())
+            elif kind == "out_len":
+                total += 4 * n
+            else:  # a validity or the keep mask
+                total += n
+        return total
+
+    def launch(self, batch: DeviceBatch, kernels: B.Kernels
+               ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
+        n, dev = batch.padded_rows, batch.device
+        ins = batch.columns
+        cols: List[DeviceColumn] = []
+        for o in self.outputs:
+            if o.kind == "raw":
+                cols.append(ins[o.src])
+                continue
+            validity = torch.empty(n, dtype=torch.bool, device=dev)
+            if o.kind == "valid":
+                src = ins[o.src]
+                cols.append(DeviceColumn(o.dtype, src.data, validity,
+                                         src.lengths))
+            elif o.kind == "str":
+                w = self._width(o.wspec, batch)
+                cols.append(DeviceColumn(
+                    o.dtype, torch.empty((n, w), dtype=torch.uint8,
+                                         device=dev),
+                    validity, torch.empty(n, dtype=torch.int32,
+                                          device=dev)))
+            else:
+                cols.append(DeviceColumn(o.dtype, torch.empty(
+                    n, dtype=o.dtype.torch_dtype, device=dev), validity))
+        keep = torch.empty(n, dtype=torch.bool, device=dev) \
+            if self.has_filter else None
+        num_rows = batch.num_rows.to(torch.int32).contiguous()
+        keepalive = []
+
+        def arg(t):
+            t = t.contiguous()
+            keepalive.append(t)
+            return t.data_ptr()
+
+        ptrs = []
+        for b in self._ptr_binds:
+            kind = b[0]
+            if kind == "num_rows":
+                ptrs.append(num_rows.data_ptr())
+            elif kind == "in_valid":
+                ptrs.append(arg(ins[b[1]].validity))
+            elif kind == "in_data":
+                t = ins[b[1]].data
+                want = self.input_schema[b[1]].dtype.torch_dtype
+                if t.dtype != want or t.shape[0] != n:
+                    raise TypeError(f"K12 input {b[1]} is {t.dtype} "
+                                    f"{tuple(t.shape)}, the segment was "
+                                    f"generated for {want} of {n} rows")
+                ptrs.append(arg(t))
+            elif kind == "in_len":
+                ptrs.append(arg(ins[b[1]].lengths.to(torch.int32)))
+            elif kind == "out_valid":
+                ptrs.append(cols[b[1]].validity.data_ptr())
+            elif kind == "out_data":
+                ptrs.append(cols[b[1]].data.data_ptr())
+            elif kind == "out_len":
+                ptrs.append(cols[b[1]].lengths.data_ptr())
+            else:  # keep
+                ptrs.append(keep.data_ptr())
+        ints = []
+        for b in self._int_binds:
+            if b[0] == "n":
+                ints.append(n)
+            elif b[0] == "in_width":
+                ints.append(int(ins[b[1]].data.shape[1]))
+            else:  # out_width
+                ints.append(int(cols[b[1]].data.shape[1]))
+        lib = kernels.generated(self.key, self.source)
+        B.launch(FUSED_LAUNCHES, lib, "k12_segment",
+                 (ctypes.c_void_p * len(ptrs))(*ptrs),
+                 (ctypes.c_longlong * len(ints))(*ints),
+                 kernels.stream(batch.num_rows), launched=1)
+        return DeviceBatch(self.schema, cols, batch.num_rows), keep
+
+
+def _render(g: _Codegen, what: str) -> str:
+    consts = [f"__constant__ uint8_t {name}[{max(1, len(b))}] = "
+              f"{{{', '.join(str(x) for x in b) or '0'}}};"
+              for b, name in g.consts.items()]
+    fields = [decl for decl, _n, _b in g.ptr_fields]
+    ptr_sets = [f"  a.num_rows = (const int*)ptrs[0];"] + [
+        f"  a.{name} = ({decl.rsplit(' ', 1)[0]})ptrs[{i + 1}];"
+        for i, (decl, name, _b) in enumerate(g.ptr_fields)]
+    int_sets = ["  a.n = ints[0];"] + [
+        f"  a.{name} = (int)ints[{i + 1}];"
+        for i, (name, _b) in enumerate(g.int_fields)]
+    body = "\n".join(f"    {line}" for line in g.body)
+    comment = what.replace("\\", "/")
+    return f"""// K12 — a fused row-local segment, generated by
+// spark_rapids_tpu_torch/ops/kernels/fused.py:
+//   {comment}
+#include "strings.cuh"
+
+namespace {{
+
+{chr(10).join(consts)}
+
+struct K12Args {{
+  const int* num_rows;
+{chr(10).join(f"  {f};" for f in fields)}
+  long long n;
+{chr(10).join(f"  int {name};" for name, _b in g.int_fields)}
+}};
+
+__global__ void __launch_bounds__(srt::BLOCK) k12_kernel(const K12Args a) {{
+  const long long nrows = (long long)*a.num_rows;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       row < a.n; row += stride) {{
+    const bool rm = row < nrows;
+{body}
+  }}
+}}
+
+}}  // namespace
+
+SRT_API int k12_segment(void* const* ptrs, const long long* ints,
+                        void* stream) {{
+  K12Args a;
+{chr(10).join(ptr_sets)}
+{chr(10).join(int_sets)}
+  long long blocks = (a.n + srt::BLOCK - 1) / srt::BLOCK;
+  if (blocks < 1) blocks = 1;
+  if (blocks > {MAX_BLOCKS}) blocks = {MAX_BLOCKS};
+  const unsigned grid = (unsigned)blocks;
+  k12_kernel<<<grid, srt::BLOCK, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}}
+"""
+
+
+# ---------------------------------------------------------------------------
+# wrapper and plain composition
+# ---------------------------------------------------------------------------
+def segment_plain(program: SegmentProgram, batch: DeviceBatch
+                  ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
+    """The members' torch bodies in order, each filter's keep mask ANDed
+    into the segment's instead of compacting (``exec/fused.py:113-121``);
+    the mask is ANDed with the row mask at exit."""
+    keep = None
+    b = batch
+    for m in program.members:
+        if _is_filter(m):
+            k = m._keep(b)
+            keep = k if keep is None else keep & k
+        else:
+            b = m._compute(b)
+    if keep is not None:
+        keep = keep & batch.row_mask()
+    return DeviceBatch(program.schema, b.columns, b.num_rows), keep
+
+
+def run_segment(program: SegmentProgram, batch: DeviceBatch,
+                kernels: Optional[B.Kernels] = None
+                ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
+    """K12: the segment's output columns before compaction and its keep
+    mask (None when no member filters)."""
+    kernels = B.kernels_for(batch.num_rows, kernels)
+    if kernels is None:
+        return segment_plain(program, batch)
+    return program.launch(batch, kernels)

@@ -1,27 +1,38 @@
-"""K8 — string comparison over the fixed-width byte-matrix encoding.
+"""K8 — string comparison, and K13 — string search, over the
+fixed-width byte-matrix encoding.
 
-Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py:equals``
-(58) and ``compare`` (36), with the padding rule of ``_pad_to`` (18) and
-``_masked`` (28).  A string is ``(uint8[n, w] bytes, int32[n] lengths)``;
-either side may hold one row (a literal), which is read with a row
-stride of 0 instead of being copied ``n`` times.  The wrappers launch
-``csrc/strings.cu`` for CUDA tensors and take the plain PyTorch version
-only for CPU tensors, unless ``kernels=`` names the libraries to launch.
+Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py``:
+``equals`` (58) and ``compare`` (36) with the padding rule of ``_pad_to``
+(18) and ``_masked`` (28) as K8 (``csrc/strings.cu``); ``_find`` (134),
+``contains`` (156), ``startswith`` (160), ``endswith`` (174) and
+``locate_from`` (190) as K13 (``csrc/string_search.cu``), with the needle
+in the launch's parameters (at most ``MAX_NEEDLE_BYTES``).  A string is
+``(uint8[n, w] bytes, int32[n] lengths)``; either side of K8 may hold one
+row (a literal), which is read with a row stride of 0 instead of being
+copied ``n`` times.  The wrappers launch the kernels for CUDA tensors and
+take the plain PyTorch version only for CPU tensors, unless ``kernels=``
+names the libraries to launch.
 
 Left out, for later slices: ``upper``, ``lower``, ``length``,
-``substring``, ``concat``, ``contains``/``startswith``/``endswith``,
-``locate``, ``substring_index``, ``replace`` and ``trim``.
+``substring``, ``concat``, ``locate`` (with a scalar start),
+``substring_index``, ``replace`` and ``trim``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build as B
 
-#: CUDA kernels launched by K8
+#: CUDA kernels launched by K8 and K13
 STRING_COMPARE_LAUNCHES = B.LaunchCounter("string_compare")
+STRING_SEARCH_LAUNCHES = B.LaunchCounter("string_search")
+
+#: the longest needle K13 takes in its launch parameters
+#: (``csrc/string_search.cu:NEEDLE_MAX``)
+MAX_NEEDLE_BYTES = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -112,3 +123,138 @@ def compare(lbm, llen, rbm, rlen,
     if kernels is None:
         return compare_plain(lbm, llen, rbm, rlen)
     return _launch(lbm, llen, rbm, rlen, 1, kernels)
+
+
+# ---------------------------------------------------------------------------
+# K13: search — plain versions
+# ---------------------------------------------------------------------------
+def _masked(bm: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    pos = torch.arange(bm.shape[1], dtype=torch.int32,
+                       device=bm.device)[None, :]
+    return torch.where(pos < lengths[:, None], bm, torch.zeros_like(bm))
+
+
+def find_plain(bm, lengths, needle: bytes) -> torch.Tensor:
+    """bool[n, w]: the needle matches at each byte position."""
+    n, w = bm.shape
+    k = len(needle)
+    if k == 0:
+        return torch.ones((n, w), dtype=torch.bool, device=bm.device)
+    if k > w:
+        return torch.zeros((n, w), dtype=torch.bool, device=bm.device)
+    m = _masked(bm, lengths)
+    match = torch.ones((n, w), dtype=torch.bool, device=bm.device)
+    for j, byte in enumerate(needle):
+        # m shifted left by j, zeros past the width
+        shifted = torch.nn.functional.pad(m[:, j:], (0, j))
+        match &= shifted == byte
+    pos = torch.arange(w, dtype=torch.int32, device=bm.device)[None, :]
+    return match & (pos + k <= lengths[:, None])
+
+
+def contains_plain(bm, lengths, needle: bytes) -> torch.Tensor:
+    return find_plain(bm, lengths, needle).any(dim=1)
+
+
+def startswith_plain(bm, lengths, needle: bytes) -> torch.Tensor:
+    n, w = bm.shape
+    k = len(needle)
+    if k == 0:
+        return torch.ones(n, dtype=torch.bool, device=bm.device)
+    if k > w:
+        return torch.zeros(n, dtype=torch.bool, device=bm.device)
+    m = _masked(bm, lengths)
+    ok = lengths >= k
+    for j, byte in enumerate(needle):
+        ok = ok & (m[:, j] == byte)
+    return ok
+
+
+def endswith_plain(bm, lengths, needle: bytes) -> torch.Tensor:
+    n, w = bm.shape
+    k = len(needle)
+    if k == 0:
+        return torch.ones(n, dtype=torch.bool, device=bm.device)
+    if k > w:
+        return torch.zeros(n, dtype=torch.bool, device=bm.device)
+    m = _masked(bm, lengths)
+    ok = lengths >= k
+    for j, byte in enumerate(needle):
+        idx = torch.clamp(lengths.to(torch.int64) - k + j, 0, w - 1)
+        ok = ok & (torch.gather(m, 1, idx[:, None])[:, 0] == byte)
+    return ok
+
+
+def locate_from_plain(bm, lengths, needle: bytes,
+                      start: torch.Tensor) -> torch.Tensor:
+    w = bm.shape[1]
+    match = find_plain(bm, lengths, needle)
+    pos = torch.arange(w, dtype=torch.int32, device=bm.device)[None, :]
+    match = match & (pos >= start[:, None])
+    first = match.to(torch.int8).argmax(dim=1).to(torch.int32)
+    return torch.where(match.any(dim=1), first + 1,
+                       torch.zeros_like(first))
+
+
+# ---------------------------------------------------------------------------
+# K13: search — kernel
+# ---------------------------------------------------------------------------
+_SEARCH_MODES = {"contains": 0, "startswith": 1, "endswith": 2,
+                 "locate_from": 3}
+
+
+def _search(bm, lengths, needle: bytes, mode: str,
+            kernels: B.Kernels, start=None) -> torch.Tensor:
+    if len(needle) > MAX_NEEDLE_BYTES:
+        raise ValueError(f"K13 takes needles of at most {MAX_NEEDLE_BYTES} "
+                         f"bytes, not {len(needle)}")
+    n, w = bm.shape
+    bm = bm.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty(n, dtype=torch.int32 if mode == "locate_from"
+                      else torch.bool, device=bm.device)
+    if start is not None:
+        start = start.to(torch.int32).contiguous()
+    buf = ctypes.create_string_buffer(needle, max(1, len(needle)))
+    B.launch(STRING_SEARCH_LAUNCHES, kernels.library("string_search"),
+             "k13_search", B.ptr(bm), B.ptr(lengths), w, n, buf,
+             len(needle), _SEARCH_MODES[mode], B.ptr(start), B.ptr(out),
+             kernels.stream(bm))
+    return out
+
+
+def contains(bm, lengths, needle: bytes,
+             kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K13: bool[n], the needle occurs in the row."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return contains_plain(bm, lengths, needle)
+    return _search(bm, lengths, needle, "contains", kernels)
+
+
+def startswith(bm, lengths, needle: bytes,
+               kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K13: bool[n], the row starts with the needle."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return startswith_plain(bm, lengths, needle)
+    return _search(bm, lengths, needle, "startswith", kernels)
+
+
+def endswith(bm, lengths, needle: bytes,
+             kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K13: bool[n], the row ends with the needle."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return endswith_plain(bm, lengths, needle)
+    return _search(bm, lengths, needle, "endswith", kernels)
+
+
+def locate_from(bm, lengths, needle: bytes, start: torch.Tensor,
+                kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K13: int32[n], the 1-based position of the needle's first match at
+    a 0-based offset >= ``start`` (int32[n]); 0 if absent."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return locate_from_plain(bm, lengths, needle, start)
+    return _search(bm, lengths, needle, "locate_from", kernels, start)

@@ -2,16 +2,22 @@
 
 Counterpart of ``spark_rapids_tpu/ops/predicates.py`` for the slice:
 the five comparisons (numbers, dates, and strings through K8,
-``ops/kernels/stringkernels.py``), And/Or with Kleene logic, Not, IsNull
-and IsNotNull.  EqualNullSafe, IsNaN and In/InSet come with a later
+``ops/kernels/stringkernels.py``), And/Or with Kleene logic, Not, IsNull,
+IsNotNull and InSet (literal members; strings through K8).
+EqualNullSafe, IsNaN and In (non-literal members) come with a later
 slice.
 """
 from __future__ import annotations
 
+import datetime as _dt
+from typing import List
+
+import numpy as np
 import torch
 
 from .. import types as T
 from ..data.column import DeviceColumn
+from ..data import strings as dstrings
 from .expression import (BinaryExpression, Expression, UnaryExpression,
                          and_validity, as_device_column)
 from .kernels import stringkernels as sk
@@ -180,3 +186,44 @@ class IsNotNull(Expression):
 
     def sql(self):
         return f"({self.children[0].sql()} IS NOT NULL)"
+
+
+class InSet(Expression):
+    """``child IN (v1, v2, ...)`` with literal members, Spark's
+    three-valued result: null when the child is null, and a miss becomes
+    null when a member is null (``predicates.py:468``)."""
+
+    def __init__(self, child: Expression, values: List):
+        super().__init__([child])
+        self.values = [v for v in values if v is not None]
+        self.has_null_value = any(v is None for v in values)
+
+    @property
+    def dtype(self):
+        return T.BOOL
+
+    def member_array(self) -> np.ndarray:
+        """The non-null members in the child's numpy type (dates as
+        days since the epoch)."""
+        dt = self.children[0].dtype
+        vals = [(v - _dt.date(1970, 1, 1)).days
+                if isinstance(v, _dt.date) else v for v in self.values]
+        return np.asarray(vals, dtype=dt.np_dtype)
+
+    def eval_tpu(self, batch):
+        n, dev = batch.padded_rows, batch.device
+        c = as_device_column(self.children[0].eval_tpu(batch), n, dev)
+        data = torch.zeros(n, dtype=torch.bool, device=dev)
+        if c.dtype.is_string:
+            for v in self.values:
+                bm, ln = dstrings.encode([v])
+                data = data | sk.equals(c.data, c.lengths,
+                                        torch.from_numpy(bm).to(dev),
+                                        torch.from_numpy(ln).to(dev))
+        elif self.values:
+            vals = torch.from_numpy(self.member_array()).to(dev)
+            data = (c.data[:, None] == vals[None, :]).any(dim=1)
+        validity = c.validity
+        if self.has_null_value:
+            validity = validity & data
+        return DeviceColumn(T.BOOL, data, validity)

@@ -1,10 +1,12 @@
 """User-facing column expression API.
 
 Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
-``col``, ``lit``, the aggregates ``sum``/``count``/``avg``/``min``/
-``max``, and ``Column`` with arithmetic, comparison, boolean, alias,
-null-test and sort-order operators.  String, math, date and conditional
-functions come with later slices.
+``col``, ``lit``, ``if_``, the aggregates ``sum``/``count``/``avg``/
+``min``/``max``, and ``Column`` with arithmetic, comparison, boolean,
+alias, null-test and sort-order operators, ``isin`` with literal members
+and the string predicates ``contains``/``startswith``/``endswith``/
+``like``.  ``isin`` with column members, ``when``/``otherwise``, and the
+other string, math and date functions come with later slices.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ from typing import Any, Optional
 
 from ..ops import aggregates as agg
 from ..ops import arithmetic as ar
+from ..ops import conditional as cond
 from ..ops import predicates as pred
+from ..ops import stringexprs as st
 from ..ops.expression import (Alias, Expression, Literal,
                               UnresolvedAttribute)
 
@@ -83,6 +87,27 @@ class Column:
     def is_not_null(self) -> "Column":
         return Column(pred.IsNotNull(self.expr))
 
+    def isin(self, *values) -> "Column":
+        vals = list(values[0]) if len(values) == 1 and isinstance(
+            values[0], (list, tuple, set)) else list(values)
+        if any(isinstance(v, (Column, Expression)) for v in vals):
+            raise NotImplementedError(
+                "isin with column members (the reference's In) is not "
+                "ported yet; pass literal members")
+        return Column(pred.InSet(self.expr, vals))
+
+    def startswith(self, prefix: str) -> "Column":
+        return Column(st.StartsWith(self.expr, prefix))
+
+    def endswith(self, suffix: str) -> "Column":
+        return Column(st.EndsWith(self.expr, suffix))
+
+    def contains(self, needle: str) -> "Column":
+        return Column(st.Contains(self.expr, needle))
+
+    def like(self, pattern: str) -> "Column":
+        return Column(st.Like(self.expr, pattern))
+
     def asc(self) -> "SortKey":
         return SortKey(self.expr, ascending=True)
 
@@ -126,6 +151,10 @@ def col(name: str) -> Column:
 
 def lit(v: Any, dtype=None) -> Column:
     return Column(Literal(v, dtype))
+
+
+def if_(c, t, f) -> Column:
+    return Column(cond.If(_e(c), _e(t), _e(f)))
 
 
 class AggColumn(Column):

@@ -117,7 +117,9 @@ class ExprMeta(BaseMeta):
             self.will_not_work_on_tpu(
                 f"expression {name} disabled by {rule.conf_entry.key}")
         if not e.tpu_supported:
+            reason = getattr(e, "unsupported_reason", None)
             self.will_not_work_on_tpu(
+                reason() if reason is not None else
                 f"expression {name} has no device implementation "
                 "for these inputs")
         for c in self.children:
@@ -250,8 +252,10 @@ class TpuOverrides:
 # ==========================================================================
 def _register_expression_rules(reg: RuleRegistry) -> None:
     from ..ops import arithmetic as ar
+    from ..ops import conditional as cond
     from ..ops import expression as ex
     from ..ops import predicates as pr
+    from ..ops import stringexprs as st
 
     for cls in (ex.Literal, ex.BoundReference, ex.Alias,
                 ex.UnresolvedAttribute):
@@ -260,7 +264,10 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
         reg.register_expr(cls)
     for cls in (pr.EqualTo, pr.LessThan, pr.LessThanOrEqual,
                 pr.GreaterThan, pr.GreaterThanOrEqual, pr.Not, pr.And,
-                pr.Or, pr.IsNull, pr.IsNotNull):
+                pr.Or, pr.IsNull, pr.IsNotNull, pr.InSet):
+        reg.register_expr(cls)
+    reg.register_expr(cond.If)
+    for cls in (st.Contains, st.StartsWith, st.EndsWith, st.Like):
         reg.register_expr(cls)
 
 

@@ -5,9 +5,8 @@ host<->device transitions, insert ``TpuCoalesceBatchesExec`` per each
 exec's child coalesce goals (RequireSingleBatch dominating in a merge)
 and merge adjacent coalesces, put the final ``DeviceToHostExec`` on top,
 and in test mode fail when an operator is not converted.  The fusion
-pass that the reference runs here comes with a later slice: Q3's
-customer Filter -> Project, which the reference fuses, runs as two execs
-here, and the port registers no fusion conf key until it can act on it.
+pass (``plan/fusion.py``) runs between transition cancellation and
+coalesce insertion, as the reference's does (``transitions.py:27-32``).
 """
 from __future__ import annotations
 
@@ -24,6 +23,12 @@ class TpuTransitionOverrides:
 
     def apply(self, plan: P.PhysicalPlan) -> P.PhysicalPlan:
         plan = self._optimize_transitions(plan)
+        # fusion runs after transition cancellation (a cancelled
+        # D2H/H2D pair can join two row-local chains) and before
+        # coalesce insertion (goals then apply to whole segments)
+        from .fusion import TpuFusionPass
+
+        plan = TpuFusionPass(self.conf).apply(plan)
         plan = self._insert_coalesce(plan, goal=None)
         plan = self._optimize_coalesce(plan)
         if isinstance(plan, TpuExec):

@@ -6,9 +6,11 @@ Counterpart of ``spark_rapids_tpu/session.py``:
       -> TpuOverrides (tag/convert) -> TpuTransitionOverrides -> execute
 
 ``Session()`` runs on ``cuda``; a machine without CUDA raises instead of
-falling back to the CPU.  ``Session(device="cpu")`` runs the same device
-path on CPU tensors, where every kernel wrapper takes its plain PyTorch
-version — the tests' mode.  The reference's optimizer (it prunes file
+falling back to the CPU.  On ``cuda``, making a plan also builds the
+generated kernels of its fused segments (all at once, in parallel), so
+no build lands inside a query's execution.  ``Session(device="cpu")``
+runs the same device path on CPU tensors, where every kernel wrapper
+takes its plain PyTorch version — the tests' mode.  The reference's optimizer (it prunes file
 scans only), scheduler, recovery, serving, streaming and telemetry
 layers are not ported.
 """
@@ -35,6 +37,25 @@ def resolve_device(device=None) -> torch.device:
                 "device; pass device='cpu' to run the plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _build_fused_segments(plan: PhysicalPlan) -> None:
+    """Build every fused segment's kernel of ``plan`` now, in parallel,
+    so no build lands inside a query's execution."""
+    from .exec.fused import TpuFusedSegmentExec
+    from .ops.kernels import _build
+
+    sources = {}
+
+    def walk(p):
+        if isinstance(p, TpuFusedSegmentExec):
+            sources[p.program.key] = p.program.source
+        for c in p.children:
+            walk(c)
+
+    walk(plan)
+    if sources:
+        _build.CUDA.prepare(sources)
 
 
 class Session:
@@ -70,7 +91,10 @@ class Session:
         from .plan.transitions import TpuTransitionOverrides
 
         phys = TpuOverrides(self.conf).apply(phys)
-        return TpuTransitionOverrides(self.conf).apply(phys)
+        phys = TpuTransitionOverrides(self.conf).apply(phys)
+        if self.device.type == "cuda":
+            _build_fused_segments(phys)
+        return phys
 
     def execute(self, plan: L.LogicalPlan) -> HostBatch:
         phys = self.physical_plan(plan)

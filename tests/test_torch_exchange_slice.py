@@ -46,8 +46,7 @@ from spark_rapids_tpu_torch.shuffle import partitioning as PPart
 
 SF = 0.002
 SHUFFLED = {"spark.rapids.tpu.sql.broadcastSizeThreshold": 0}
-STATIC = {"spark.rapids.tpu.sql.adaptive.enabled": False,
-          "spark.rapids.tpu.sql.fusion.enabled": False}
+STATIC = {"spark.rapids.tpu.sql.adaptive.enabled": False}
 
 
 def _assert_rows_close(got, want):

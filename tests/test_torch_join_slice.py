@@ -6,11 +6,12 @@ at sf 0.002 (3,000 orders, 12,000 lines, 300 customers), one partition.
 Both run with the default conf (broadcast joins at this size) and with
 ``broadcastSizeThreshold=0`` (shuffled joins).  Keys and counts are
 equal, ``revenue`` agrees to rel 1e-9, rows come in the same order, the
-explain reports carry the same marks and exec names (fusion off on the
-reference: the port does not fuse yet), the converted plans name the
-same execs, and each join saw one batch per side.  One DataFrame-level
-join of each other type (left, right, full, anti) is held against the
-reference as well."""
+explain reports carry the same marks and exec names, the converted plans
+name the same execs (Q3's customer Filter -> Project fused into one
+segment in both, as the reference's default conf plans it; with fusion
+off in both, the unfused plan), and each join saw one batch per side.
+One DataFrame-level join of each other type (left, right, full, anti) is
+held against the reference as well."""
 import re
 
 import numpy as np
@@ -35,7 +36,7 @@ NO_FUSION = {"spark.rapids.tpu.sql.fusion.enabled": False}
 
 def _frames(conf, q):
     ref_tables = to_reference_tables(tpch_datagen.tables(q, sf=SF, seed=3))
-    jsess = jsrt.Session({**conf, **NO_FUSION})
+    jsess = jsrt.Session(conf)
     jt = {}
     for name, (fields, arrays) in ref_tables.items():
         schema = JT.Schema([JT.Field(n, JT.from_name(t)) for n, t in fields])
@@ -89,19 +90,27 @@ def test_query_matches_reference(frames, q):
     assert m["TpuHashJoinExec.numRightBatches"] == pairs
 
 
+@pytest.mark.parametrize("fusion", ["default", "off"])
 @pytest.mark.parametrize("q", [3, 4])
-def test_explain_and_plan_match_reference(frames, q):
+def test_explain_and_plan_match_reference(frames, q, fusion):
     mode, by_q = frames
     sess, pt, jt = by_q[q]
     df = tpch.QUERIES[q](pt)
     jdf = getattr(jtpch, f"q{q}")(jt)
     assert _marks(df.explain()) == _marks(jdf.explain())
+    if fusion == "off":  # the unfused route, planned by both
+        conf = {**CONFS[mode], **NO_FUSION}
+        sess, jsess = Session(conf, device="cpu"), jsrt.Session(conf)
+    else:
+        jsess = jdf.session
     got = str(sess.physical_plan(df.plan))
-    want = str(jdf.session.physical_plan(jdf.plan))
+    want = str(jsess.physical_plan(jdf.plan))
     assert _names(got) == _names(want)
     join = "TpuBroadcastHashJoin" if mode == "broadcast" \
         else "TpuShuffledHashJoin"
     assert _names(got).count(join) == (2 if q == 3 else 1)
+    fused = 1 if fusion == "default" and q == 3 else 0
+    assert _names(got).count("TpuFusedSegment") == fused
 
 
 _L = {"k": [1, 2, 2, None, 5, 7, 2], "a": [1.0, 2.0, None, 4.0, 5.0, 6.0,

@@ -1,7 +1,10 @@
-"""The CUDA kernels K1–K11 of spark_rapids_tpu_torch, built for the CPU
+"""The CUDA kernels K1–K13 of spark_rapids_tpu_torch, built for the CPU
 and held against their plain PyTorch versions on the same inputs (2,100
 rows: two 2,048-row tiles, so the cross-tile scans and carries run; the
 join's two sides together).  Exact, except float sums (rel 1e-12).
+K12's generated sources (Q12's lineitem segment, Q13's orders segment
+and one segment over every expression the code generator covers) are
+built once each for the module.
 
 ``_build_emulated`` compiles every ``csrc/*.cu`` with the host C++
 compiler against ``csrc/emulator/cuda_runtime.h`` (one thread per
@@ -80,11 +83,55 @@ def _build_emulated() -> pathlib.Path:
     return out
 
 
+def _build_generated_emulated(sources):
+    """The emulated form of ``_build.build_generated``: each generated
+    source (key -> text) compiled with the host compiler against the
+    emulator, into ``csrc/build/emulated-k12-<key>-<header hash>/``."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    header = hashlib.sha256(
+        (EMULATOR_INCLUDE / "cuda_runtime.h").read_bytes()).hexdigest()[:8]
+    out = {k: B.BUILD_ROOT / f"emulated-k12-{k}-{header}" / "libk12.so"
+           for k in sources}
+    procs = []
+    for key, text in sources.items():
+        if out[key].exists():
+            continue
+        d = out[key].parent
+        d.mkdir(parents=True, exist_ok=True)
+        for h in B.GENERATED_HEADERS:
+            (d / h).write_text(_LAUNCH.sub(
+                lambda m: f"srt_launch(srt_cfg({m.group(2)}), "
+                f"{m.group(1)}, ", (B.CSRC / h).read_text()))
+        src = d / "k12.cu"
+        src.write_text(_LAUNCH.sub(
+            lambda m: f"srt_launch(srt_cfg({m.group(2)}), {m.group(1)}, ",
+            text))
+        tmp = d / f"libk12.so.{os.getpid()}.tmp"
+        cmd = [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+               "-fPIC", "-pthread", "-Wno-unknown-pragmas", "-x", "c++",
+               "-I", str(EMULATOR_INCLUDE), "-I", str(d), "-o", str(tmp),
+               str(src)]
+        procs.append((key, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for key, tmp, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{key}:\n{text}")
+        else:
+            os.replace(tmp, out[key])
+    assert not failed, "emulated build failed:\n" + "\n".join(failed)
+    return out
+
+
 @pytest.fixture(scope="module")
 def emu():
-    """The emulated libraries as the wrappers' ``kernels=`` (no stream)."""
+    """The emulated libraries as the wrappers' ``kernels=`` (no stream);
+    generated sources build at first use and stay loaded for the
+    module."""
     out = _build_emulated()
-    return B.Kernels(lambda: out, lambda t: None)
+    return B.Kernels(lambda: out, lambda t: None, _build_generated_emulated)
 
 
 def _keys(rng):
@@ -400,3 +447,104 @@ def test_k11_matches_plain(emu):
     _same(got, EX.range_pids_plain(passes, bounds))
     assert EX.RANGE_PID_LAUNCHES.count == 1
     assert len(torch.unique(got)) > 2
+
+
+# --------------------------------------------------------------------------
+# K13: string search
+# --------------------------------------------------------------------------
+NEEDLES = [b"", b"a", b"ab", b"abc", b"\xc3\xa9", b"special", b"x" * 9,
+           b"x" * 10]
+
+
+def test_k13_matches_plain(emu):
+    rng = np.random.default_rng(61)
+    w = 9
+    words = [b"", b"a", b"ab", b"abc", b"cab", b"babab", b"\xc3\xa9ab",
+             b"special", b"x" * 9, b"aspecial"]
+    bm = np.zeros((N, w), dtype=np.uint8)
+    ln = np.zeros(N, dtype=np.int32)
+    for i, k in enumerate(rng.integers(0, len(words), N)):
+        bm[i, :len(words[k])] = np.frombuffer(words[k], dtype=np.uint8)
+        ln[i] = len(words[k])
+    bm, ln = torch.from_numpy(bm), torch.from_numpy(ln)
+    start = torch.from_numpy(rng.integers(-2, w + 2, N).astype(np.int32))
+    SK.STRING_SEARCH_LAUNCHES.reset()
+    for needle in NEEDLES:
+        for fn in (SK.contains, SK.startswith, SK.endswith):
+            _same(fn(bm, ln, needle, kernels=emu), fn(bm, ln, needle))
+        got = SK.locate_from(bm, ln, needle, start, kernels=emu)
+        _same(got, SK.locate_from(bm, ln, needle, start))
+    assert SK.STRING_SEARCH_LAUNCHES.count == 4 * len(NEEDLES)
+    assert bool(SK.contains(bm, ln, b"ab").any())
+
+
+# --------------------------------------------------------------------------
+# K12: generated fused segments
+# --------------------------------------------------------------------------
+def _segment(sess, df):
+    """The first fused segment of ``df``'s device plan."""
+    from spark_rapids_tpu_torch.exec.fused import TpuFusedSegmentExec
+
+    found = []
+
+    def walk(p):
+        if isinstance(p, TpuFusedSegmentExec):
+            found.append(p)
+        for c in p.children:
+            walk(c)
+
+    walk(sess.physical_plan(df.plan))
+    assert found, "the plan has no fused segment"
+    return found[0]
+
+
+def _check_segment(emu, seg, batch):
+    from spark_rapids_tpu_torch.ops.kernels import fused as FK
+
+    want, want_keep = FK.segment_plain(seg.program, batch)
+    FK.FUSED_LAUNCHES.reset()
+    got, got_keep = FK.run_segment(seg.program, batch, kernels=emu)
+    assert FK.FUSED_LAUNCHES.count == 1
+    assert (got_keep is None) == (want_keep is None)
+    if want_keep is not None:
+        _same(got_keep, want_keep)
+    _same(got.num_rows, want.num_rows)
+    for g, w in zip(got.columns, want.columns):
+        assert g.dtype == w.dtype
+        _same(g.validity, w.validity)
+        # data and lengths in full, padding and invalid rows included
+        _same(g.data.contiguous(), w.data.contiguous())
+        if w.lengths is not None:
+            _same(g.lengths.contiguous(), w.lengths.contiguous())
+    return want_keep
+
+
+@pytest.mark.parametrize("q", [12, 13])
+def test_k12_tpch_segment_matches_plain(emu, q):
+    """Q12's lineitem segment (InSet on a string, date column compares)
+    and Q13's orders segment (two contains under a NOT) on 2,000 lines
+    (500 orders) of the generator's data."""
+    from spark_rapids_tpu_torch import Session
+    from spark_rapids_tpu_torch.benchmarks import tpch, tpch_datagen
+    from spark_rapids_tpu_torch.data.column import host_to_device
+
+    sess = Session(device="cpu")
+    host = tpch_datagen.tables(q, seed=5, n_rows=2000)
+    frames = {t: sess.create_dataframe(b, n_partitions=1)
+              for t, b in host.items()}
+    seg = _segment(sess, tpch.QUERIES[q](frames))
+    table = "lineitem" if q == 12 else "orders"
+    batch = host_to_device(host[table], 128, "cpu")
+    keep = _check_segment(emu, seg, batch)
+    assert 0 < int(keep.sum()) < int(batch.num_rows)
+
+
+def test_k12_every_expression_matches_plain(emu):
+    """One segment (filter, project, filter, project) over every
+    expression the code generator covers, with nulls, NaN, -0.0, integer
+    overflow, zero divisors and padding rows (300 rows in a 512-row
+    bucket)."""
+    from test_torch_fusion import every_expression_frame
+
+    sess, df, batch = every_expression_frame()
+    _check_segment(emu, _segment(sess, df), batch)

@@ -1,11 +1,18 @@
-"""Plain version of K8 (string equality and comparison) in
-spark_rapids_tpu_torch, held against the JAX package's
-``stringkernels.equals`` and ``compare`` on the same numpy byte matrices.
-Exact.  Widths 1, 8, 10 and 25 on either side; empty strings, equal
-prefixes of different lengths, bytes >= 0x80, and a one-row literal
-against a matrix (the form a string literal takes in a predicate).  The
-five string comparisons also run as DataFrame filters against the
-reference session."""
+"""Plain versions of K8 (string equality and comparison) and K13 (string
+search) in spark_rapids_tpu_torch, held against the JAX package's
+``stringkernels`` on the same numpy byte matrices.  Exact.
+
+K8: ``equals`` and ``compare`` at widths 1, 8, 10 and 25 on either side;
+empty strings, equal prefixes of different lengths, bytes >= 0x80, and a
+one-row literal against a matrix (the form a string literal takes in a
+predicate).  The five string comparisons also run as DataFrame filters
+against the reference session.
+
+K13: ``contains``, ``startswith``, ``endswith`` and ``locate_from`` at
+widths 1, 7 and 12, for empty needles, needles as wide as the matrix and
+wider, and multi-byte characters; and ``Like`` for prefix, suffix,
+``%a%b%``, exact and empty patterns, the port's expression against the
+reference's ``Like.eval_tpu``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,3 +134,69 @@ def test_string_predicates_match_reference(op, rhs):
     want = jdf.filter(cond(jdf, jf)).collect()
     got = pdf.filter(cond(pdf, pf)).collect()
     assert got == want and len(got) > 0
+
+
+# --------------------------------------------------------------------------
+# K13: search
+# --------------------------------------------------------------------------
+SEARCH_WORDS = [b"", b"a", b"ab", b"abc", b"cab", b"babab", b"\xc3\xa9ab",
+                b"special", b"xspecialx", b"requests", b"aaaaaaaaaaaa"]
+NEEDLES = [b"", b"a", b"ab", b"ba", b"abc", b"\xc3\xa9", b"special",
+           b"aaaaaaa", b"aaaaaaaaaaaa", b"aaaaaaaaaaaaa"]
+
+
+def _search_matrix(rng, n, w):
+    bm = np.zeros((n, w), dtype=np.uint8)
+    ln = np.zeros(n, dtype=np.int32)
+    for i, k in enumerate(rng.integers(0, len(SEARCH_WORDS), n)):
+        b = SEARCH_WORDS[k][:w]
+        bm[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        ln[i] = len(b)
+    return bm, ln
+
+
+@pytest.mark.parametrize("w", [1, 7, 12])
+@pytest.mark.parametrize("fn", ["contains", "startswith", "endswith",
+                                "locate_from"])
+def test_search_matches_reference(fn, w):
+    rng = np.random.default_rng(w)
+    bm, ln = _search_matrix(rng, N, w)
+    start = rng.integers(-1, w + 2, N).astype(np.int32)
+    hits = 0
+    for needle in NEEDLES:
+        extra = (start,) if fn == "locate_from" else ()
+        want = np.asarray(getattr(jsk, fn)(
+            jnp.asarray(bm), jnp.asarray(ln), needle,
+            *(jnp.asarray(a) for a in extra)))
+        got = getattr(psk, fn)(torch.from_numpy(bm), torch.from_numpy(ln),
+                               needle, *(torch.from_numpy(a) for a in extra))
+        assert got.dtype == (torch.int32 if fn == "locate_from"
+                             else torch.bool)
+        np.testing.assert_array_equal(got.numpy(), want)
+        hits += int((got.numpy() != 0).sum())
+    assert hits > 0
+
+
+_LIKE = {"s": ["special requests", "requests special", "", None, "abc",
+               "xaby", "PROMO BRUSHED TIN", "promo", "ab", "a", "éab",
+               "STANDARD PROMO"]}
+
+
+@pytest.mark.parametrize("pattern", ["PROMO%", "%TIN", "%a%b%", "abc", "",
+                                     "%", "%special%requests%", "a%",
+                                     "%é%"])
+def test_like_matches_reference(pattern):
+    schema = [("s", "string")]
+    jdf = jsrt.Session().create_dataframe(
+        {"s": np.array(_LIKE["s"], dtype=object)},
+        JT.Schema([JT.Field(n, JT.from_name(t)) for n, t in schema]),
+        n_partitions=1)
+    pdf = Session(device="cpu").create_dataframe(
+        _LIKE, PT.Schema([PT.Field(n, PT.from_name(t)) for n, t in schema]),
+        n_partitions=1)
+    from spark_rapids_tpu import f as jf
+    from spark_rapids_tpu_torch import f as pf
+    want = jdf.select(jf.col("s").like(pattern).alias("m")).collect()
+    got = pdf.select(pf.col("s").like(pattern).alias("m")).collect()
+    assert got == want
+    assert any(r[0] for r in got)
