@@ -34,6 +34,16 @@
    no sort, as the reference plans it at SF1),
    and cold, warm and profiled walls are printed beside the one-partition
    ones;
+2c. runs TPCx-BB q30 at SF1 (seed 99: 8,000,000 clicks, 100,000 items)
+   at one and two partitions, and the clickstream windows (row_number, a
+   5-row sum and a 5-row min per user in click order, three window nodes)
+   over the 8,000,000 clicks at two partitions, each checked against an
+   independent numpy computation (exact: all integers); logs the table
+   sizes after q30's join, distinct, self-join and filter, and each
+   exchange's per-partition rows; checks that each aggregate, join side
+   and window received one batch a partition, that K14 launched in both
+   queries and in none of the seven TPC-H queries; times cold, warm and
+   profiled runs;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -44,8 +54,11 @@
    gave them; K12: Q12's lineitem segment over a 2,097,152-row reader
    batch and Q13's orders segment over 1,500,000 orders; K13: Q14's
    startswith over p_type and contains, endswith and locate_from over
-   o_comment) and holds it against its plain PyTorch version on the same
-   card tensors — exact, or rel 1e-9 for float sums — timing kernel,
+   o_comment; K14: every window function kind over the clickstream at one
+   partition, 8,388,608 padded rows, partitioned by user and ordered by
+   click date and time) and holds it against its plain PyTorch version
+   on the same card tensors — exact, or rel 1e-9 for float sums — timing
+   kernel,
    plain version and one PyTorch library call with CUDA events (median
    of runs after warm-up);
 4. prints the card's name and power limit, a ``kernels`` JSON line and,
@@ -77,6 +90,8 @@ SEED = 42
 READER_ROWS = 1 << 21      # spark.rapids.tpu.sql.reader.batchSizeRows
 JOINED = (3, 4, 12, 13, 14)  # the queries over several tables
 FUSED = (3, 12, 13, 14)      # the queries the reference fuses a segment in
+BB_SF = 1.0                  # TPCx-BB scale of q30 and the clickstream
+BB_SEED = 99                 # the reference generator's default seed
 
 
 def log(*a):
@@ -138,7 +153,7 @@ def walk_plan(plan):
         yield from walk_plan(c)
 
 
-def profile_query(q, run) -> None:
+def profile_query(label, run) -> None:
     """Device busy time of one warm run under torch.profiler: the sum of
     device time over kernels and copies, the idle share of the wall, and
     the top entries by device time."""
@@ -159,10 +174,10 @@ def profile_query(q, run) -> None:
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not rows:
-        log(f"Q{q} profile: the profiler saw no device activity; device "
+        log(f"{label} profile: the profiler saw no device activity; device "
             "time not measured")
         return
-    log(f"Q{q} profile (one warm run, profiler on): wall "
+    log(f"{label} profile (one warm run, profiler on): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.2f} ms, idle "
         f"share {1 - busy / wall_us:.3f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
@@ -332,6 +347,72 @@ def numpy_q14(tables, sizes):
              / float(np.sum(rev)),)]
 
 
+def numpy_q30(tables, sizes):
+    """TPCx-BB q30: category pairs seen in one (user, day) session,
+    top 3 per category by count, then by the other category."""
+    c = _cols(tables)
+    isk = c["i_item_sk"].data
+    require(bool((isk == np.arange(1, len(isk) + 1)).all()),
+            "q30 numpy: item keys are not 1..n")
+    cat = c["i_category_id"].data.astype(np.int64)
+    item = c["wcs_item_sk"].data
+    joined = (item >= 1) & (item <= len(isk))
+    user = c["wcs_user_sk"].data[joined]
+    day = c["wcs_click_date_sk"].data[joined]
+    cat_of = cat[item[joined] - 1]
+    n_cat = int(cat.max()) + 1
+    session = user * (int(day.max()) + 1) + day
+    distinct = np.unique(session * n_cat + cat_of)
+    _s, s_inv = np.unique(distinct // n_cat, return_inverse=True)
+    per = np.bincount(s_inv)                  # categories per session
+    x = np.zeros((len(per), n_cat))
+    x[s_inv, distinct % n_cat] = 1.0
+    pair = np.rint(x.T @ x).astype(np.int64)  # sessions per category pair
+    np.fill_diagonal(pair, 0)
+    sizes.update({"clicks joined with item": int(joined.sum()),
+                  "distinct (user, day, category)": len(distinct),
+                  "self-join on (user, day)": int((per * per).sum()),
+                  "cat_a != cat_b": int((per * (per - 1)).sum()),
+                  "groups": int((pair > 0).sum())})
+    rows = []
+    for a in range(n_cat):
+        bs = sorted((b for b in range(n_cat) if pair[a, b] > 0),
+                    key=lambda b: (-pair[a, b], b))
+        rows += [(a, b, int(pair[a, b]), rn) for rn, b in
+                 enumerate(bs[:3], 1)]
+    return rows
+
+
+def numpy_clickstream(hb):
+    """The clickstream windows: clicks in (user, date, time) order, ties
+    in table order; row number, sum of the last five sales keys, minimum
+    time of the five clicks around.  Returns the sorted order and the
+    three results in that order."""
+    c = _cols({"t": hb})
+    user, date, ctime = (c[n].data for n in (
+        "wcs_user_sk", "wcs_click_date_sk", "wcs_click_time_sk"))
+    order = np.lexsort((ctime, date, user))   # stable: ties keep row order
+    n = len(order)
+    i = np.arange(n)
+    us = user[order]
+    first = np.ones(n, bool)
+    first[1:] = us[1:] != us[:-1]
+    start = np.maximum.accumulate(np.where(first, i, 0))
+    last = np.ones(n, bool)
+    last[:-1] = us[:-1] != us[1:]
+    end = np.minimum.accumulate(np.where(last, i + 1, n)[::-1])[::-1]
+    prefix = np.concatenate([[0], np.cumsum(c["wcs_sales_sk"].data[order])])
+    sum5 = prefix[i + 1] - prefix[np.maximum(i - 4, start)]
+    ts = ctime[order]
+    min5 = ts.copy()
+    for k in (-2, -1, 1, 2):
+        j = i + k
+        inside = (j >= start) & (j < end)
+        min5 = np.where(inside, np.minimum(min5, ts[np.clip(j, 0, n - 1)]),
+                        min5)
+    return order, (i - start + 1).astype(np.int32), sum5, min5
+
+
 def check_rows(got, want, what):
     require(len(got) == len(want), f"{what}: {len(got)} rows, want "
             f"{len(want)}")
@@ -352,7 +433,8 @@ def main() -> int:
         return 2
 
     from spark_rapids_tpu_torch import Session
-    from spark_rapids_tpu_torch.benchmarks import tpch, tpch_datagen
+    from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_datagen,
+                                                   tpcxbb, tpcxbb_datagen)
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
                                                     bucket_rows,
                                                     host_to_device)
@@ -366,6 +448,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops.kernels import join as J
     from spark_rapids_tpu_torch.ops.kernels import segment as S
     from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
+    from spark_rapids_tpu_torch.ops.kernels import window as W
     from spark_rapids_tpu_torch.exec import exchange as EX
     from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
     from spark_rapids_tpu_torch.utils import hashing as H
@@ -433,7 +516,8 @@ def main() -> int:
                 "K10": [DS.BUILD_LAUNCHES, DS.SLICE_LAUNCHES],
                 "K11": [EX.RANGE_PID_LAUNCHES],
                 "K12": [FK.FUSED_LAUNCHES],
-                "K13": [SK.STRING_SEARCH_LAUNCHES]}
+                "K13": [SK.STRING_SEARCH_LAUNCHES],
+                "K14": [W.WINDOW_LAUNCHES]}
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -455,6 +539,7 @@ def main() -> int:
         13: join_kernels + [FK.FUSED_LAUNCHES],
         14: join_kernels + [FK.FUSED_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
     }
+    # no TPC-H query runs a window (K14)
     must_not_launch = {
         1: [FK.FUSED_LAUNCHES], 6: [FK.FUSED_LAUNCHES],
         4: [FK.FUSED_LAUNCHES],
@@ -463,6 +548,8 @@ def main() -> int:
         13: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
         14: [SK.STRING_COMPARE_LAUNCHES],
     }
+    for q in must_not_launch:
+        must_not_launch[q].append(W.WINDOW_LAUNCHES)
     # partial aggregates a query runs (Q13 two: per customer, per count)
     # and join pairs
     n_partial = {13: 2}
@@ -596,7 +683,7 @@ def main() -> int:
             f"{warm[q] * 1e3:.1f} ms (median of 3) on {card}")
 
     for q in queries:
-        profile_query(q, lambda: run(q))
+        profile_query(f"Q{q}", lambda: run(q))
 
     # ---- 2b. the reference's default: two partitions ----------------------
     t0 = time.perf_counter()
@@ -720,7 +807,136 @@ def main() -> int:
             f"{warm[q] * 1e3:.1f} ms; on {card}")
 
     for q in queries:
-        profile_query(f"{q} (two partitions)", lambda: run2(q))
+        profile_query(f"Q{q} (two partitions)", lambda: run2(q))
+
+    # ---- 2c. TPCx-BB q30 and the clickstream windows ----------------------
+    t0 = time.perf_counter()
+    bb_host = tpcxbb_datagen.tables(BB_SF, BB_SEED,
+                                    names=("web_clickstreams", "item"))
+    bb_sizes = {}
+    want30 = numpy_q30(bb_host, bb_sizes)
+    clicks_host = bb_host["web_clickstreams"]
+    want_cs = numpy_clickstream(clicks_host)
+    log(f"TPCx-BB SF{BB_SF:g} (seed {BB_SEED}) generated and answered in "
+        f"numpy in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{t} {b.num_rows} x {len(b.schema)}" for t, b in bb_host.items()))
+    log(f"q30 table sizes after the join, distinct, self-join and filter "
+        f"(numpy): {bb_sizes}")
+    # q30: a broadcast join with item (planned on both sides of the
+    # self-join), the distinct twice, the self-join, the pair count, the
+    # window and its fused filter; K8 and K13 (strings) stay idle
+    q30_kernels = join_kernels + [FK.FUSED_LAUNCHES, W.WINDOW_LAUNCHES]
+    bb_tables = {}
+    bb_runs = {}
+    for n_part in (1, 2):
+        tabs = {t: sess.create_dataframe(b, n_partitions=n_part)
+                for t, b in bb_host.items()}
+        bb_tables[n_part] = tabs
+        bb_runs[n_part] = (lambda tabs=tabs:
+                           tpcxbb.q30(tabs).collect())
+        where = launches if n_part == 1 else launches2
+        torch.cuda.synchronize()
+        for c in all_counters:
+            c.reset()
+        t0 = time.perf_counter()
+        rows = bb_runs[n_part]()
+        cold[f"q30/{n_part}"] = time.perf_counter() - t0
+        where["q30"] = {k: sum(c.count for c in cs)
+                        for k, cs in counters.items()}
+        log(f"q30 {n_part} partition(s) launches: {where['q30']} "
+            f"{ {c.name: c.count for c in all_counters} }")
+        for c in q30_kernels + (exchange_kernels if n_part == 2 else []):
+            require(c.count > 0, f"q30 at {n_part} partition(s): wrapper "
+                    f"{c.name} launched no kernel")
+        for c in (SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES):
+            require(c.count == 0, f"q30: wrapper {c.name} launched")
+        m = sess.last_metrics
+        pairs = m.get("TpuHashJoinExec.numJoinedPairs")
+        require(m.get("TpuHashAggregateExec[partial].numInputBatches") ==
+                3 * n_part and pairs == 3 * n_part and
+                m.get("TpuHashJoinExec.numLeftBatches") == pairs and
+                m.get("TpuHashJoinExec.numRightBatches") == pairs and
+                m.get("TpuWindowExec.numInputBatches") == n_part,
+                f"q30 at {n_part} partition(s): an aggregate, join side or "
+                f"window did not receive one batch a partition: {m}")
+        for pl in sess.last_placements:
+            log(f"q30 placement {pl['exchange']}: rows written "
+                f"{pl['rows_written']}, per partition {pl['partition_rows']}")
+            require(sum(pl["partition_rows"]) == pl["rows_written"],
+                    f"q30: {pl['exchange']} lost or duplicated rows")
+        check_rows(rows, want30, f"q30 at {n_part} partition(s)")
+        log(f"q30 {n_part} partition(s) rows match numpy: {rows}")
+    log("q30 two-partition device plan:\n" + str(sess.physical_plan(
+        tpcxbb.q30(bb_tables[2]).plan)))
+
+    # the clickstream windows at the default two partitions
+    cs_table = {"web_clickstreams": sess.create_dataframe(clicks_host)}
+    require(cs_table["web_clickstreams"].plan.n_partitions == 2,
+            "the clickstream is not split over two partitions")
+
+    def run_cs():
+        return tpcxbb.clickstream_windows(cs_table)._result_batch()
+
+    torch.cuda.synchronize()
+    for c in all_counters:
+        c.reset()
+    t0 = time.perf_counter()
+    out_cs = run_cs()
+    cold["clickstream/2"] = time.perf_counter() - t0
+    launches2["clickstream"] = {k: sum(c.count for c in cs)
+                                for k, cs in counters.items()}
+    log(f"clickstream launches: {launches2['clickstream']} "
+        f"{ {c.name: c.count for c in all_counters} }")
+    for c in (S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES, G.GATHER_LAUNCHES,
+              W.WINDOW_LAUNCHES, H.HASH_LAUNCHES, DS.BUILD_LAUNCHES,
+              DS.SLICE_LAUNCHES):
+        require(c.count > 0, f"clickstream: wrapper {c.name} launched no "
+                "kernel")
+    require(sess.last_metrics.get("TpuWindowExec.numInputBatches") == 6,
+            f"clickstream: a window did not receive one batch a partition: "
+            f"{sess.last_metrics}")
+    require(len(sess.last_placements) == 3,
+            "clickstream: expected one hash exchange a window node")
+    for pl in sess.last_placements:
+        log(f"clickstream placement {pl['exchange']}: rows written "
+            f"{pl['rows_written']}, per partition {pl['partition_rows']}")
+        require(sum(pl["partition_rows"]) == pl["rows_written"]
+                == clicks_host.num_rows,
+                f"clickstream: {pl['exchange']} lost or duplicated rows")
+    oc = {f.name: c for f, c in zip(out_cs.schema, out_cs.columns)}
+    require(out_cs.num_rows == clicks_host.num_rows and all(
+        c.validity is None for c in out_cs.columns),
+        "clickstream: row count or a null result")
+    by_user = np.lexsort((oc["click_no"].data, oc["wcs_user_sk"].data))
+    order_cs, rn_cs, sum5_cs, min5_cs = want_cs
+    src = {f.name: c.data for f, c in zip(clicks_host.schema,
+                                          clicks_host.columns)}
+    for name, want_col in [(n, a[order_cs]) for n, a in src.items()] + [
+            ("click_no", rn_cs), ("sales_last5", sum5_cs),
+            ("min_time_5", min5_cs)]:
+        got_col = oc[name].data[by_user]
+        require(got_col.dtype == want_col.dtype and
+                np.array_equal(got_col, want_col),
+                f"clickstream column {name} differs from numpy")
+    log(f"clickstream rows match numpy: {out_cs.num_rows} rows, "
+        f"{int(rn_cs.max())} clicks in the longest history, "
+        f"{int((rn_cs == 1).sum())} users")
+
+    bb_cells = {"q30/1": bb_runs[1], "q30/2": bb_runs[2],
+                "clickstream/2": run_cs}
+    for cell, fn in bb_cells.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        log(f"{cell} partition(s) SF{BB_SF:g} wall: cold "
+            f"{cold[cell] * 1e3:.1f} ms, warm {warm[cell] * 1e3:.1f} ms "
+            f"(median of 3) on {card}")
+    for cell, fn in bb_cells.items():
+        profile_query(f"{cell} partition(s)", fn)
 
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
@@ -742,24 +958,29 @@ def main() -> int:
         return max(bound_bytes, bound_ops), \
             "bytes" if bound_bytes >= bound_ops else "operations"
 
+    def label(q):
+        return f"q{q}" if isinstance(q, int) else q
+
     def entry(name, source, replaces, kernel_ms, plain_ms, lib_ms,
               moved_bytes, ops, ops_per_s, err, **extra):
         b, by = bound(moved_bytes, ops, ops_per_s)
         k = name.split()[0]
-        # the exchange kernels' main path is the two-partition runs
-        main = launches2 if k in ("K9", "K10", "K11") else launches
+        # the exchange kernels' main path is the two-partition runs, the
+        # window kernel's q30 at both partition counts and the clickstream
+        mains = {"K9": [launches2], "K10": [launches2], "K11": [launches2],
+                 "K14": [launches, launches2]}.get(k, [launches])
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              # summed over the cold runs of the queries
-             "launches": sum(main[q][k] for q in queries),
-             "launches_by_query": {f"q{q}": launches[q][k]
-                                   for q in queries},
+             "launches": sum(m[q][k] for m in mains for q in m),
+             "launches_by_query": {label(q): launches[q][k]
+                                   for q in launches},
              "launches_by_query_two_partitions": {
-                 f"q{q}": launches2[q][k] for q in queries},
+                 label(q): launches2[q][k] for q in launches2},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-             "status": "ported; launched in " + ", ".join(
-                 f"Q{q}" for q in queries if main[q][k]),
+             "status": "ported; launched in " + ", ".join(sorted({
+                 label(q) for m in mains for q in m if m[q][k]})),
              **extra}
         entries.append(e)
         log(f"{name}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1213,6 +1434,125 @@ def main() -> int:
                                 for f, v in k13.items()},
           rows_by_function={f: v["rows"] for f, v in k13.items()})
 
+    # K14: every window function kind over the clickstream at one
+    # partition (8,388,608 padded rows), partitioned by user, ordered by
+    # click date and time (rank and dense_rank by date alone, so ties
+    # occur); first/last on wcs_sales_sk nulled where it is 0
+    wb = host_to_device(clicks_host, 128, dev)
+    wcols = {f.name: c for f, c in zip(wb.schema, wb.columns)}
+    wrm = wb.row_mask()
+    user, cdate, ctime, csales = (wcols[n] for n in (
+        "wcs_user_sk", "wcs_click_date_sk", "wcs_click_time_sk",
+        "wcs_sales_sk"))
+    NW = wb.padded_rows
+
+    def window_order(keys):
+        order = S.lexsort_device(keys, pad_valid=wrm)
+        rm_s = G.gather_array(wrm, order)
+        seg_ids = S.segment_ids_device([G.gather_column(user, order)],
+                                       pad_valid=rm_s)
+        return order, rm_s, seg_ids
+
+    korder, krm_s, kseg = window_order([user, cdate, ctime])
+    kstart, kend = W.segment_bounds(kseg)
+    dorder, drm_s, dseg = window_order([user, cdate])
+    dstart = W.segment_bounds(dseg)[0]
+    dok = S.segment_ids_device([G.gather_column(c, dorder)
+                                for c in (user, cdate)], pad_valid=drm_s)
+    dok_start = W.segment_bounds(dok)[0]
+    sales_valid = csales.validity & (csales.data != 0)
+    k14_cases = {
+        "segment_bounds": (lambda f: f(kseg), W.segment_bounds,
+                           W.segment_bounds_plain, nbytes(kseg) * 3),
+        "row_number": (lambda f: f("row_number", korder, wrm, kstart),
+                       W.rank_values, W.rank_values_plain,
+                       nbytes(korder, wrm, kstart) + 5 * NW),
+        "rank": (lambda f: f("rank", dorder, wrm, dstart, dok, dok_start),
+                 W.rank_values, W.rank_values_plain,
+                 nbytes(dorder, wrm, dstart, dok_start) + 5 * NW),
+        "dense_rank": (lambda f: f("dense_rank", dorder, wrm, dstart, dok),
+                       W.rank_values, W.rank_values_plain,
+                       nbytes(dorder, wrm, dstart, dok) + 5 * NW),
+    }
+    frames = {"rows -4..0": (-4, 0), "unbounded": (None, None),
+              "running": (None, 0), "reverse running": (0, None),
+              "rows -2..2": (-2, 2)}
+    fa_cases = [(k, "rows -4..0", csales.data, csales.validity)
+                for k in ("count", "sum", "avg")]
+    fa_cases += [(k, "unbounded", csales.data, csales.validity)
+                 for k in ("count", "sum", "avg")]
+    fa_cases += [(k, f, ctime.data, ctime.validity) for k in ("min", "max")
+                 for f in ("unbounded", "running", "reverse running",
+                           "rows -2..2")]
+    fa_cases += [(k, "rows -4..0", csales.data, sales_valid)
+                 for k in ("first", "last")]
+    for kind, fname, vals, vvalid in fa_cases:
+        lo, up = frames[fname]
+        for ignore in ((False, True) if kind in ("first", "last")
+                       else (False,)):
+            case = f"{kind} {fname}" + (" ignore_nulls" if ignore else "")
+            # read: validity, order, row mask, bounds, the values (not
+            # for count) and the ids (the min/max scans); written: an
+            # 8-byte result and its validity
+            scan = kind in ("min", "max") and fname != "rows -2..2"
+            moved = nbytes(vvalid, korder, wrm, kstart, kend) + \
+                (0 if kind == "count" else nbytes(vals)) + \
+                (nbytes(kseg) if scan else 0) + 9 * NW
+            k14_cases[case] = (
+                lambda f, kind=kind, lo=lo, up=up, ig=ignore, v=vals,
+                vv=vvalid: f(kind, lo, up, ig, v, vv, korder, wrm, kseg,
+                             kstart, kend),
+                W.frame_aggregate, W.frame_aggregate_plain, moved)
+    levels = max(1, min(5, NW).bit_length())
+    log(f"K14 sparse table of rows -2..2: {levels} levels x {NW} rows x "
+        f"{ctime.data.element_size()} B = "
+        f"{levels * NW * ctime.data.element_size()} bytes")
+    k14 = {}
+    for case, (call, kernel, plain, moved) in k14_cases.items():
+        got, want = call(kernel), call(plain)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            require(g.dtype == w.dtype and g.shape == w.shape,
+                    f"K14 {case}: dtype or shape differs")
+            if g.dtype.is_floating_point:
+                # avg: a float division of exact integer sums and counts
+                err = max(err, float((g - w).abs().max()))
+                require(torch.allclose(g, w, rtol=1e-9, atol=0),
+                        f"K14 {case} differs beyond rel 1e-9 ({err})")
+            else:
+                require(torch.equal(g, w),
+                        f"K14 {case} differs from its plain version")
+        k14[case] = dict(ms=cuda_ms(lambda: call(kernel)),
+                         plain=cuda_ms(lambda: call(plain)),
+                         bound=moved / HBM_BYTES_PER_S * 1e3, bytes=moved,
+                         err=err)
+        log(f"K14 {case}: kernel {k14[case]['ms']:.3f} ms, plain "
+            f"{k14[case]['plain']:.3f} ms, bound {k14[case]['bound']:.4f} "
+            f"ms, max_abs_err {err}")
+    sorted_sales = G.gather_array(csales.data, korder)
+    sorted_time = G.gather_array(ctime.data, korder)
+    k14_lib = {"sum rows -4..0": cuda_ms(lambda: torch.cumsum(
+                   sorted_sales, 0)),
+               "max running": cuda_ms(lambda: torch.cummax(
+                   sorted_time, 0))}
+    log(f"K14 library calls: torch.cumsum of the sorted sales keys "
+        f"{k14_lib['sum rows -4..0']:.3f} ms, torch.cummax of the sorted "
+        f"click times {k14_lib['max running']:.3f} ms")
+    head = k14["sum rows -4..0"]
+    entry("K14 window", "spark_rapids_tpu_torch/csrc/window.cu",
+          "spark_rapids_tpu/exec/window.py:179",
+          head["ms"], head["plain"], k14_lib["sum rows -4..0"],
+          head["bytes"], NW, FP32_PER_S,
+          max(v["err"] for v in k14.values()),
+          library_call="torch.cumsum over the sorted values (the "
+          "prefix-sum part of the sum); torch.cummax for the running max",
+          rows=NW,
+          ms_by_function={c: v["ms"] for c, v in k14.items()},
+          plain_ms_by_function={c: v["plain"] for c, v in k14.items()},
+          bound_ms_by_function={c: v["bound"] for c, v in k14.items()},
+          library_ms_by_function=k14_lib)
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -1221,6 +1561,9 @@ def main() -> int:
                       "queries_two_partitions": {
                           f"q{q}": {"cold_s": cold2[q], "warm_s": warm2[q]}
                           for q in queries},
+                      "tpcxbb": {cell: {"cold_s": cold[cell],
+                                        "warm_s": warm[cell]}
+                                 for cell in bb_cells},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

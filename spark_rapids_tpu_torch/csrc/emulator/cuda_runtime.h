@@ -77,6 +77,9 @@ inline unsigned __match_any_sync(unsigned, int v) {
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __clzll(long long x) {
+  return x == 0 ? 64 : __builtin_clzll((unsigned long long)x);
+}
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }

@@ -1,11 +1,12 @@
 """Declarative aggregate functions.
 
-Counterpart of ``spark_rapids_tpu/ops/aggregates.py`` (lines 75-146):
-Count, Sum, Min, Max and Average, each described by its partial-buffer
-reductions (``updates``), how partial buffers merge (``merges``), its
-buffer dtypes and a finalize expression.  The aggregate exec drives them
-through the segmented-reduction kernel (``ops/kernels/segment.py``).
-First and Last come with a later slice.
+Counterpart of ``spark_rapids_tpu/ops/aggregates.py`` (lines 75-186):
+Count, Sum, Min, Max, Average, First and Last, each described by its
+partial-buffer reductions (``updates``), how partial buffers merge
+(``merges``), its buffer dtypes and a finalize expression.  The
+aggregate exec drives them through the segmented-reduction kernel
+(``ops/kernels/segment.py``); the window exec reads the same classes as
+frame aggregates.  String inputs are not reduced on the device yet.
 """
 from __future__ import annotations
 
@@ -26,8 +27,11 @@ class AggregateFunction:
     #: ops merging each partial buffer (parallel to ``updates``)
     merges: List[str] = []
 
-    def __init__(self, child: Optional[Expression]):
+    def __init__(self, child: Optional[Expression],
+                 ignore_nulls: bool = True):
         self.child = child
+        #: read by First and Last only (Spark's ignoreNulls)
+        self.ignore_nulls = ignore_nulls
 
     @property
     def children(self):
@@ -129,6 +133,44 @@ class Average(AggregateFunction):
 
     def finalize(self, buffer_refs):
         return Divide(buffer_refs[0], buffer_refs[1])
+
+
+class First(AggregateFunction):
+    """Spark semantics: ignoreNulls=false (the default of ``F.first``)
+    returns the first row's value, null included; true returns the first
+    non-null value."""
+
+    @property
+    def updates(self):
+        return [("first" if self.ignore_nulls else "first_any", 0)]
+
+    @property
+    def merges(self):
+        return ["first" if self.ignore_nulls else "first_any"]
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def buffer_dtypes(self):
+        return [self.child.dtype]
+
+
+class Last(AggregateFunction):
+    @property
+    def updates(self):
+        return [("last" if self.ignore_nulls else "last_any", 0)]
+
+    @property
+    def merges(self):
+        return ["last" if self.ignore_nulls else "last_any"]
+
+    @property
+    def dtype(self):
+        return self.child.dtype
+
+    def buffer_dtypes(self):
+        return [self.child.dtype]
 
 
 class AggregateExpression(Expression):

@@ -103,6 +103,19 @@ KERNELS: Dict[str, tuple] = {
     "range_partition": ("range_partition.cu", {
         "k11_range_pids": ([P, I, Q, P, I, P, P], 1),
     }),
+    "window": ("window.cu", {
+        "k14_bounds": ([P, P, P, P, Q, P, P, P, P, P], 3),
+        "k14_rank": ([I, P, P, P, P, P, Q, P, P, P], 1),
+        "k14_prefix": ([P, I, P, P, P, Q, P, P, P, P], 3),
+        "k14_frame_sum": ([I, P, P, I, P, P, P, P, Q, Q, Q, I, P, P, P], 1),
+        "k14_seg_scan": ([P, I, P, P, P, P, Q, I, I, P, P, P, P], 3),
+        "k14_masked": ([P, I, P, P, P, Q, I, P, P], 1),
+        "k14_sparse_level": ([P, P, I, Q, Q, I, P], 1),
+        "k14_frame_minmax": ([I, P, I, I, I, P, P, P, P, P, Q, Q, Q, I, P,
+                              P, P], 1),
+        "k14_frame_pick": ([I, I, P, I, P, P, P, P, P, P, Q, Q, Q, I, P, P,
+                            P], 1),
+    }),
 }
 LAUNCHES_PER_CALL = {fn: n for _src, fns in KERNELS.values()
                      for fn, (_args, n) in fns.items()}

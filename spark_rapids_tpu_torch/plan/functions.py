@@ -2,11 +2,12 @@
 
 Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
 ``col``, ``lit``, ``if_``, the aggregates ``sum``/``count``/``avg``/
-``min``/``max``, and ``Column`` with arithmetic, comparison, boolean,
-alias, null-test and sort-order operators, ``isin`` with literal members
-and the string predicates ``contains``/``startswith``/``endswith``/
-``like``.  ``isin`` with column members, ``when``/``otherwise``, and the
-other string, math and date functions come with later slices.
+``min``/``max``/``first``/``last``, and ``Column`` with arithmetic,
+comparison, boolean, alias, null-test and sort-order operators, ``isin``
+with literal members and the string predicates ``contains``/
+``startswith``/``endswith``/``like``.  ``isin`` with column members,
+``when``/``otherwise``, and the other string, math and date functions
+come with later slices.
 """
 from __future__ import annotations
 
@@ -188,3 +189,11 @@ def min(c) -> AggColumn:  # noqa: A001
 
 def max(c) -> AggColumn:  # noqa: A001
     return AggColumn(agg.Max(_col_e(c)))
+
+
+def first(c, ignore_nulls: bool = False) -> AggColumn:
+    return AggColumn(agg.First(_col_e(c), ignore_nulls))
+
+
+def last(c, ignore_nulls: bool = False) -> AggColumn:
+    return AggColumn(agg.Last(_col_e(c), ignore_nulls))

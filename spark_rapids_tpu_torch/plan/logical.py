@@ -2,12 +2,11 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
 ported so far: ``LocalRelation``, ``Filter``, ``Project``,
-``Aggregate``, ``Join``, ``Sort``, ``Limit`` and ``Repartition``, and a
-``DataFrame`` with ``filter``, ``with_column``, ``select``,
-``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
-``repartition``, ``collect`` and ``explain``.
-Unions, distinct, windows, file scans and writes come with later
-slices.
+``Aggregate``, ``Join``, ``Sort``, ``Limit``, ``Repartition`` and
+``Window``, and a ``DataFrame`` with ``filter``, ``with_column``,
+``select``, ``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
+``repartition``, ``distinct``, ``with_window``, ``collect`` and
+``explain``.  Unions, file scans and writes come with later slices.
 """
 from __future__ import annotations
 
@@ -187,6 +186,27 @@ class Repartition(LogicalPlan):
         return f"Repartition[{self.n}]"
 
 
+class Window(LogicalPlan):
+    """The child's columns plus one column per window expression
+    (``ops.windowexprs.WindowExpression``), named by ``names``."""
+
+    def __init__(self, child: LogicalPlan, window_exprs, names: List[str]):
+        super().__init__([child])
+        self.window_exprs = window_exprs
+        self.names = names
+
+    @property
+    def schema(self):
+        child_schema = self.children[0].schema
+        fields = list(child_schema.fields)
+        for n, w in zip(self.names, self.window_exprs):
+            fields.append(T.Field(n, w.bind(child_schema).dtype, True))
+        return T.Schema(fields)
+
+    def describe(self):
+        return f"Window[{', '.join(w.sql() for w in self.window_exprs)}]"
+
+
 _JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",
                  "full_outer": "full", "leftsemi": "semi",
                  "left_semi": "semi", "leftanti": "anti",
@@ -282,6 +302,18 @@ class DataFrame:
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, Limit(self.plan, n))
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: a group-by on every column with no
+        aggregate."""
+        keys = [UnresolvedAttribute(n) for n in self.columns]
+        return DataFrame(self.session, Aggregate(self.plan, keys, []))
+
+    def with_window(self, name: str, window_expr) -> "DataFrame":
+        """Add column ``name`` = ``window_expr`` (``over(...)``); each
+        call is its own Window node, as in the reference."""
+        return DataFrame(self.session,
+                         Window(self.plan, [window_expr], [name]))
 
     def repartition(self, n: int, *cols) -> "DataFrame":
         """``n`` partitions, by the Murmur3 hash of ``cols``, or round

@@ -272,7 +272,7 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
 
 
 def _register_exec_rules(reg: RuleRegistry) -> None:
-    from ..exec import aggregate, basic, exchange, joins, sort
+    from ..exec import aggregate, basic, exchange, joins, sort, window
 
-    for mod in (basic, aggregate, exchange, joins, sort):
+    for mod in (basic, aggregate, exchange, joins, sort, window):
         mod.register(reg.register_exec)

@@ -10,7 +10,9 @@ hash join over hash exchanges on the keys (``:151-170``), decided from
 the same estimate as the reference's (``:186-240``); a global sort over
 more than one partition sorts each partition of a range exchange
 (``:72-78``); a repartition is a hash exchange on its keys, or round
-robin without keys (``:64-70``).
+robin without keys (``:64-70``); a window over more than one partition
+hash-exchanges by its partition keys when every spec has the same ones,
+else gathers into a single partition (``:93-112``).
 """
 from __future__ import annotations
 
@@ -93,6 +95,26 @@ class Planner:
                 node.keys, self._n_partitions(child)).bind(child.schema)
             child = P.ShuffleExchangeExec(child, part)
         return P.SortExec(child, node.keys)
+
+    def _plan_Window(self, node: L.Window):
+        from ..exec.window_cpu import WindowExec
+
+        child = self.plan(node.children[0])
+        # co-partition by the window's partition keys so that each
+        # partition computes whole windows
+        specs = [w.spec for w in node.window_exprs]
+        first_keys = specs[0].partition_by
+        same = all([k.sql() for k in s.partition_by]
+                   == [k.sql() for k in first_keys] for s in specs)
+        if first_keys and same and self._n_partitions(child) > 1:
+            child = P.ShuffleExchangeExec(
+                child, HashPartitioning(
+                    first_keys, min(self.shuffle_partitions,
+                                    self._n_partitions(child))
+                ).bind(child.schema))
+        elif self._n_partitions(child) > 1:
+            child = P.ShuffleExchangeExec(child, SinglePartitioning())
+        return WindowExec(child, node.window_exprs, node.names)
 
     def _plan_Aggregate(self, node: L.Aggregate):
         child = self.plan(node.children[0])

@@ -1,7 +1,9 @@
-"""The CUDA kernels K1–K13 of spark_rapids_tpu_torch, built for the CPU
+"""The CUDA kernels K1–K14 of spark_rapids_tpu_torch, built for the CPU
 and held against their plain PyTorch versions on the same inputs (2,100
 rows: two 2,048-row tiles, so the cross-tile scans and carries run; the
-join's two sides together).  Exact, except float sums (rel 1e-12).
+join's two sides together).  Exact, except float sums (rel 1e-12; K14's
+float window sums rel 1e-9 of max(|result|, sum of |v|), as a prefix-sum
+difference carries the prefix's rounding).
 K12's generated sources (Q12's lineitem segment, Q13's orders segment
 and one segment over every expression the code generator covers) are
 built once each for the module.
@@ -32,6 +34,7 @@ from spark_rapids_tpu_torch.ops.kernels import gather as G
 from spark_rapids_tpu_torch.ops.kernels import join as J
 from spark_rapids_tpu_torch.ops.kernels import segment as S
 from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
+from spark_rapids_tpu_torch.ops.kernels import window as W
 from spark_rapids_tpu_torch.exec import exchange as EX
 from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
 from spark_rapids_tpu_torch.utils import hashing as H
@@ -548,3 +551,120 @@ def test_k12_every_expression_matches_plain(emu):
 
     sess, df, batch = every_expression_frame()
     _check_segment(emu, _segment(sess, df), batch)
+
+
+# --------------------------------------------------------------------------
+# K14 — the window kernel
+# --------------------------------------------------------------------------
+def _window_input(seed=21):
+    """Rows sorted by (k, t) with K1's plain version: the order, the
+    sorted segment ids (K2's plain version) and the row mask."""
+    rng = np.random.default_rng(seed)
+    k = DeviceColumn(T.INT32, torch.from_numpy(
+        rng.integers(0, 12, N).astype(np.int32)),
+        torch.from_numpy(rng.random(N) > 0.05))
+    t = DeviceColumn(T.INT32, torch.from_numpy(
+        rng.integers(0, 40, N).astype(np.int32)),
+        torch.from_numpy(rng.random(N) > 0.05))
+    rm = _pad()
+    order = S.lexsort_plain([k, t], [False, True], [True, False], rm)
+    rm_s = rm[order.long()]
+    seg = S.segment_ids_plain([G.gather_column_plain(k, order)], rm_s)
+    return rng, order, rm, seg
+
+
+def _window_values(rng, dtype):
+    if dtype == "float64":
+        v = rng.choice([0.0, -0.0, np.nan, 1.5, -2.25, np.inf, 7.0, 1e9], N)
+        return torch.from_numpy(v)
+    if dtype == "float64_finite":
+        return torch.from_numpy(rng.random(N) * 1e6 - 3e5)
+    if dtype == "int64":
+        return torch.from_numpy(rng.integers(2 ** 61, 2 ** 62, N)
+                                * rng.choice([-1, 1], N))
+    if dtype == "bool":
+        return torch.from_numpy(rng.random(N) > 0.5)
+    return torch.from_numpy(rng.integers(-100, 100, N).astype(dtype))
+
+
+def _same_bits(got, want):
+    """Equal bit for bit (NaN payloads and the sign of zero count)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype.is_floating_point:
+        ib = torch.int64 if want.dtype == torch.float64 else torch.int32
+        assert torch.equal(got.view(ib), want.view(ib))
+    else:
+        assert torch.equal(got, want)
+
+
+def test_k14_bounds_and_ranks_match_plain(emu):
+    _rng, order, rm, seg = _window_input()
+    W.WINDOW_LAUNCHES.reset()
+    start, end = W.segment_bounds(seg, kernels=emu)
+    assert W.WINDOW_LAUNCHES.count == 3
+    ws, we = W.segment_bounds_plain(seg)
+    _same_bits(start, ws)
+    _same_bits(end, we)
+    # no partition keys: every padding row its own segment
+    lane = torch.arange(N, dtype=torch.int32)
+    ids0 = torch.where(rm[order.long()], torch.zeros_like(lane), lane + 1)
+    for g, w in zip(W.segment_bounds(ids0, kernels=emu),
+                    W.segment_bounds_plain(ids0)):
+        _same_bits(g, w)
+    ok_ids = torch.from_numpy(np.cumsum(
+        np.random.default_rng(2).random(N) > 0.6).astype(np.int32))
+    ok_ids = torch.maximum(ok_ids, seg)  # nondecreasing, runs in segments
+    ok_start = W.segment_bounds_plain(ok_ids)[0]
+    for kind in W.RANK_KINDS:
+        got = W.rank_values(kind, order, rm, ws, ok_ids, ok_start,
+                            kernels=emu)
+        want = W.rank_values_plain(kind, order, rm, ws, ok_ids, ok_start)
+        _same_bits(got[0], want[0])
+        _same_bits(got[1], want[1])
+
+
+FRAMES = {"unbounded": (None, None), "running": (None, 0),
+          "reverse": (0, None), "rows_-4_0": (-4, 0), "rows_-2_2": (-2, 2),
+          "wide": (-700, 300)}
+# every frame mode for min (float64: NaN and -0.0) and first (both
+# ignore_nulls settings); the other kinds and dtypes on the frames whose
+# code paths differ for them (prefix sums are frame-independent; min/max
+# split into forward scan, reverse scan and sparse table)
+K14_CASES = (
+    [("min", "float64", f) for f in FRAMES]
+    + [("first", "float64", f) for f in FRAMES]
+    + [("count", None, "rows_-2_2"), ("count", "float64", "running"),
+       ("count", "float64", "unbounded"), ("sum", "int64", "rows_-4_0"),
+       ("sum", "int64", "reverse"), ("sum", "float64_finite", "wide"),
+       ("sum", "float64_finite", "unbounded"), ("avg", "int32", "rows_-2_2"),
+       ("avg", "float64_finite", "running"), ("max", "float64", "unbounded"),
+       ("max", "float64", "rows_-2_2"), ("max", "float64", "reverse"),
+       ("min", "int64", "running"), ("min", "int64", "wide"),
+       ("max", "int16", "reverse"), ("max", "int16", "rows_-2_2"),
+       ("min", "float32", "running"), ("min", "float32", "rows_-4_0"),
+       ("last", "bool", "running"), ("last", "bool", "reverse"),
+       ("last", "bool", "rows_-2_2")])
+
+
+@pytest.mark.parametrize("kind,dtype,frame", K14_CASES)
+def test_k14_frame_aggregates_match_plain(emu, kind, dtype, frame):
+    rng, order, rm, seg = _window_input()
+    start, end = W.segment_bounds_plain(seg)
+    values = valid = None
+    if dtype is not None:
+        values = _window_values(rng, dtype)
+        valid = torch.from_numpy(rng.random(N) > 0.25)
+    lower, upper = FRAMES[frame]
+    for ignore in ((False, True) if kind in ("first", "last") else (False,)):
+        args = (kind, lower, upper, ignore, values, valid, order, rm, seg,
+                start, end)
+        want = W.frame_aggregate_plain(*args)
+        got = W.frame_aggregate(*args, kernels=emu)
+        _same_bits(got[1], want[1])
+        if kind in ("sum", "avg") and values.dtype.is_floating_point:
+            scale = float(values.abs().sum())
+            assert torch.all((got[0] - want[0]).abs()
+                             <= 1e-9 * torch.clamp(want[0].abs(),
+                                                   min=scale))
+        else:
+            _same_bits(got[0], want[0])
