@@ -5,8 +5,9 @@
 1. builds the hand-written kernels (spark_rapids_tpu_torch/csrc/*.cu, one
    nvcc per source, in parallel) and prints the build time; then
    generates the fused segments' kernels (K12) of the plans of Q3, Q12,
-   Q13 and Q14 at one and two partitions (four distinct sources), builds
-   them in parallel and prints that build's seconds on a line of its own;
+   Q13 and Q14 at one and two partitions (four distinct sources) and of
+   the fifteen later queries at two, builds them in parallel and prints
+   that build's seconds on a line of its own;
 2. runs TPC-H Q1 and Q6 over lineitem, and Q3, Q4, Q12, Q13 and Q14 over
    customer, orders, lineitem and part, at SF1 (150,000 customers,
    1,500,000 orders, 6,000,000 lines, 200,000 parts; each table with the
@@ -44,6 +45,16 @@
    and window received one batch a partition, that K14 launched in both
    queries and in none of the seven TPC-H queries; times cold, warm and
    profiled runs;
+2d. runs the other fifteen TPC-H queries (Q2, Q5, Q7–Q11, Q15–Q22) at
+   SF1 (plus 10,000 suppliers, 800,000 partsupp rows, the 25 nations and
+   5 regions) at the default two partitions, each against
+   ``benchmarks/tpch_oracle.py``'s numpy answer (floats rel 1e-9, the
+   unordered queries after sorting) and required to return rows, with
+   the table sizes after each filter and join, the launch counts (K1,
+   K4, K5 and K12 in every one; no K14, and no K15 while Q22's substring
+   runs inside its fused segment), each exchange's per-partition rows,
+   the batch metrics, and cold, warm and profiled walls; then Q22 once
+   with fusion off, where its substring runs on K15;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -56,7 +67,11 @@
    startswith over p_type and contains, endswith and locate_from over
    o_comment; K14: every window function kind over the clickstream at one
    partition, 8,388,608 padded rows, partitioned by user and ordered by
-   click date and time) and holds it against its plain PyTorch version
+   click date and time; K12 also over Q8's three-member segment (Year,
+   the volume, the if_) and Q22's customer segment (Substring, isin) on
+   the inputs the main path gave them; K15: Q22's substring of c_phone
+   over the customer table and an 8,388,608 x 32-byte matrix with a
+   negative start) and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
    plain version and one PyTorch library call with CUDA events (median
@@ -69,7 +84,6 @@ prints no result.
 """
 from __future__ import annotations
 
-import datetime as dt
 import json
 import statistics
 import subprocess
@@ -90,6 +104,8 @@ SEED = 42
 READER_ROWS = 1 << 21      # spark.rapids.tpu.sql.reader.batchSizeRows
 JOINED = (3, 4, 12, 13, 14)  # the queries over several tables
 FUSED = (3, 12, 13, 14)      # the queries the reference fuses a segment in
+# the other fifteen TPC-H queries, at the default two partitions
+LATER = (2, 5, 7, 8, 9, 10, 11, 15, 16, 17, 18, 19, 20, 21, 22)
 BB_SF = 1.0                  # TPCx-BB scale of q30 and the clickstream
 BB_SEED = 99                 # the reference generator's default seed
 
@@ -185,166 +201,12 @@ def profile_query(label, run) -> None:
 
 
 # --------------------------------------------------------------------------
-# independent numpy reference for Q1 and Q6
+# independent numpy answers: TPC-H in benchmarks/tpch_oracle.py (imported
+# in main, with the package), TPCx-BB q30 and the clickstream windows here
 # --------------------------------------------------------------------------
-def _days(y, m, d):
-    return (dt.date(y, m, d) - dt.date(1970, 1, 1)).days
-
-
-def numpy_q1(hb):
-    c = {f.name: col for f, col in zip(hb.schema, hb.columns)}
-    keep = c["l_shipdate"].data <= _days(1998, 9, 2)
-    qty = c["l_quantity"].data[keep]
-    price = c["l_extendedprice"].data[keep]
-    disc = c["l_discount"].data[keep]
-    tax = c["l_tax"].data[keep]
-    rf = c["l_returnflag"].data[keep, 0]
-    ls = c["l_linestatus"].data[keep, 0]
-    rows = []
-    for code in sorted(set((rf.astype(np.int64) * 256 + ls).tolist())):
-        g = (rf.astype(np.int64) * 256 + ls) == code
-        n = int(g.sum())
-        dp = price[g] * (1.0 - disc[g])
-        rows.append((chr(code // 256), chr(code % 256),
-                     float(np.sum(qty[g])), float(np.sum(price[g])),
-                     float(np.sum(dp)), float(np.sum(dp * (1.0 + tax[g]))),
-                     float(np.sum(qty[g])) / n, float(np.sum(price[g])) / n,
-                     float(np.sum(disc[g])) / n, n))
-    return rows
-
-
-def numpy_q6(hb):
-    c = {f.name: col for f, col in zip(hb.schema, hb.columns)}
-    sd, disc = c["l_shipdate"].data, c["l_discount"].data
-    keep = ((sd >= _days(1994, 1, 1)) & (sd < _days(1995, 1, 1))
-            & (disc >= 0.05) & (disc <= 0.07) & (c["l_quantity"].data < 24.0))
-    return [(float(np.sum(c["l_extendedprice"].data[keep] * disc[keep])),)]
-
-
 def _cols(batches):
     return {f.name: c for b in batches.values()
             for f, c in zip(b.schema, b.columns)}
-
-
-def _strings_equal(c, literal: bytes):
-    w = c.data.shape[1]
-    lit = np.zeros(w, dtype=np.uint8)
-    lit[:len(literal)] = np.frombuffer(literal, dtype=np.uint8)
-    return (c.lengths == len(literal)) & (c.data == lit).all(axis=1)
-
-
-def _semi(keys, build_keys):
-    """Mask of ``keys`` present in ``build_keys`` (sorted-key probe)."""
-    b = np.unique(build_keys)
-    pos = np.clip(np.searchsorted(b, keys), 0, max(len(b) - 1, 0))
-    return (b[pos] == keys) if len(b) else np.zeros(len(keys), bool)
-
-
-def numpy_q3(tables, sizes):
-    c = _cols(tables)
-    cust = c["c_custkey"].data[_strings_equal(c["c_mktsegment"],
-                                              b"BUILDING")]
-    o_keep = c["o_orderdate"].data < _days(1995, 3, 15)
-    okey = c["o_orderkey"].data[o_keep]
-    odate = c["o_orderdate"].data[o_keep]
-    oship = c["o_shippriority"].data[o_keep]
-    j1 = _semi(c["o_custkey"].data[o_keep], cust)  # c_custkey is unique
-    okey, odate, oship = okey[j1], odate[j1], oship[j1]
-    l_keep = c["l_shipdate"].data > _days(1995, 3, 15)
-    lkey = c["l_orderkey"].data[l_keep]
-    rev = (c["l_extendedprice"].data * (1.0 - c["l_discount"].data))[l_keep]
-    order = np.argsort(okey)
-    okey, odate, oship = okey[order], odate[order], oship[order]
-    j2 = _semi(lkey, okey)                          # o_orderkey is unique
-    at = np.searchsorted(okey, lkey[j2])
-    groups, inv = np.unique(at, return_inverse=True)
-    sums = np.bincount(inv, weights=rev[j2])
-    top = np.lexsort((odate[groups], -sums))[:10]
-    sizes.update({"customer BUILDING": len(cust),
-                  "orders < 1995-03-15": int(o_keep.sum()),
-                  "join 1 (customer x orders)": len(okey),
-                  "lineitem > 1995-03-15": int(l_keep.sum()),
-                  "join 2 (x lineitem)": int(j2.sum()),
-                  "groups": len(groups)})
-    return [(int(okey[groups[i]]), float(sums[i]), int(odate[groups[i]]),
-             int(oship[groups[i]])) for i in top]
-
-
-def numpy_q4(tables, sizes):
-    c = _cols(tables)
-    od = c["o_orderdate"].data
-    o_keep = (od >= _days(1993, 7, 1)) & (od < _days(1993, 10, 1))
-    late = c["l_commitdate"].data < c["l_receiptdate"].data
-    semi = _semi(c["o_orderkey"].data[o_keep],
-                 c["l_orderkey"].data[late])
-    pr = c["o_orderpriority"]
-    bm, ln = pr.data[o_keep][semi], pr.lengths[o_keep][semi]
-    names = np.array([bytes(r[:n]).decode() for r, n in zip(bm, ln)])
-    keys, counts = np.unique(names, return_counts=True)
-    sizes.update({"orders in 1993 Q3": int(o_keep.sum()),
-                  "lineitem late": int(late.sum()),
-                  "semi join": int(semi.sum()), "groups": len(keys)})
-    return [(str(k), int(n)) for k, n in zip(keys, counts)]
-
-
-def _text(c):
-    """A string column's rows as numpy fixed-width bytes (trailing NUL
-    bytes dropped, as past the length every byte is 0)."""
-    return np.ascontiguousarray(c.data).view(f"S{c.data.shape[1]}")[:, 0]
-
-
-def numpy_q12(tables, sizes):
-    c = _cols(tables)
-    mode = _text(c["l_shipmode"])
-    sd, cd, rd = (c[n].data for n in ("l_shipdate", "l_commitdate",
-                                      "l_receiptdate"))
-    keep = (np.isin(mode, [b"MAIL", b"SHIP"]) & (cd < rd) & (sd < cd)
-            & (rd >= _days(1994, 1, 1)) & (rd < _days(1995, 1, 1)))
-    okey = c["o_orderkey"].data
-    order = np.argsort(okey)
-    lkey = c["l_orderkey"].data[keep]
-    at = order[np.searchsorted(okey, lkey, sorter=order)]
-    require(bool((okey[at] == lkey).all()), "Q12 numpy: an order is missing")
-    high = np.isin(_text(c["o_orderpriority"])[at], [b"1-URGENT", b"2-HIGH"])
-    sizes.update({"lineitem filtered": int(keep.sum()),
-                  "join": len(lkey)})
-    rows = []
-    for m in sorted(set(mode[keep].tolist())):
-        g = mode[keep] == m
-        rows.append((m.decode(), int((high & g).sum()),
-                     int((~high & g).sum())))
-    return rows
-
-
-def numpy_q13(tables, sizes):
-    c = _cols(tables)
-    comment = _text(c["o_comment"])
-    special = (np.char.find(comment, b"special") >= 0) & \
-        (np.char.find(comment, b"requests") >= 0)
-    custs = c["c_custkey"].data
-    per_cust = np.bincount(c["o_custkey"].data[~special],
-                           minlength=int(custs.max()) + 1)[custs]
-    counts, dist = np.unique(per_cust, return_counts=True)
-    sizes.update({"orders kept": int((~special).sum()),
-                  "customers": len(custs), "groups": len(counts)})
-    order = np.lexsort((-counts, -dist))
-    return [(int(counts[i]), int(dist[i])) for i in order]
-
-
-def numpy_q14(tables, sizes):
-    c = _cols(tables)
-    sd = c["l_shipdate"].data
-    keep = (sd >= _days(1995, 9, 1)) & (sd < _days(1995, 10, 1))
-    pkey = c["p_partkey"].data
-    require(bool((pkey == np.arange(1, len(pkey) + 1)).all()),
-            "Q14 numpy: part keys are not 1..n")
-    promo = np.char.startswith(_text(c["p_type"]), b"PROMO")
-    rev = (c["l_extendedprice"].data * (1.0 - c["l_discount"].data))[keep]
-    is_promo = promo[c["l_partkey"].data[keep] - 1]
-    sizes.update({"lineitem in 1995-09": int(keep.sum()),
-                  "promo lines": int(is_promo.sum())})
-    return [(100.0 * float(np.sum(np.where(is_promo, rev, 0.0)))
-             / float(np.sum(rev)),)]
 
 
 def numpy_q30(tables, sizes):
@@ -413,19 +275,6 @@ def numpy_clickstream(hb):
     return order, (i - start + 1).astype(np.int32), sum5, min5
 
 
-def check_rows(got, want, what):
-    require(len(got) == len(want), f"{what}: {len(got)} rows, want "
-            f"{len(want)}")
-    for g, w in zip(got, want):
-        require(len(g) == len(w), f"{what}: row width")
-        for a, b in zip(g, w):
-            if isinstance(b, float):
-                require(abs(a - b) <= 1e-9 * abs(b),
-                        f"{what}: {a!r} vs numpy {b!r}")
-            else:
-                require(a == b, f"{what}: {a!r} vs numpy {b!r}")
-
-
 # --------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -434,6 +283,7 @@ def main() -> int:
 
     from spark_rapids_tpu_torch import Session
     from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_datagen,
+                                                   tpch_oracle as O,
                                                    tpcxbb, tpcxbb_datagen)
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
                                                     bucket_rows,
@@ -453,6 +303,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
     from spark_rapids_tpu_torch.utils import hashing as H
 
+    check_rows = O.check_rows
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -466,8 +317,12 @@ def main() -> int:
 
     # ---- 2. main paths ----------------------------------------------------
     t0 = time.perf_counter()
-    hb = tpch_datagen.lineitem(sf=SF, seed=SEED)
-    host = {q: tpch_datagen.tables(q, sf=SF, seed=SEED) for q in JOINED}
+    # every column of every table, drawn once; each query's cut has the
+    # rows of its own draw
+    all_cols = tpch_datagen.draw_all(SF, SEED)
+    hb = tpch_datagen.tables(1, SF, SEED, cols=all_cols)["lineitem"]
+    host = {q: tpch_datagen.tables(q, SF, SEED, cols=all_cols)
+            for q in JOINED + LATER}
     log(f"tables SF{SF:g} generated in {time.perf_counter() - t0:.1f} s: "
         f"Q1/Q6 lineitem {hb.num_rows} rows x {len(hb.schema)} columns; "
         + "; ".join(f"Q{q} " + ", ".join(
@@ -485,17 +340,20 @@ def main() -> int:
     # query runs (the plans are made on CPU tensors, which build nothing)
     planner = Session(device="cpu")
     segments = {}
-    for q in FUSED:
-        for n_part in (1, 2):
+    for q in FUSED + LATER:
+        for n_part in ((1, 2) if q in FUSED else (2,)):
             cpu_tables = {t: planner.create_dataframe(b, n_partitions=n_part)
                           for t, b in host[q].items()}
             for p in walk_plan(planner.physical_plan(
                     tpch.QUERIES[q](cpu_tables).plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (q, p.program))
-    require(sorted(q for q, _p in segments.values()) == sorted(FUSED),
-            f"expected one segment source per fused query, got "
+    require(sorted(q for q, _p in segments.values() if q in FUSED)
+            == sorted(FUSED),
+            f"expected one segment source per fused query of Q1-Q14, got "
             f"{[(k, q) for k, (q, _p) in segments.items()]}")
+    require({q for q, _p in segments.values()} >= set(LATER),
+            "a later query planned no fused segment")
     t0 = time.perf_counter()
     _build.CUDA.prepare({k: p.source for k, (_q, p) in segments.items()})
     log(f"K12 codegen build: {len(segments)} generated sources, "
@@ -517,7 +375,8 @@ def main() -> int:
                 "K11": [EX.RANGE_PID_LAUNCHES],
                 "K12": [FK.FUSED_LAUNCHES],
                 "K13": [SK.STRING_SEARCH_LAUNCHES],
-                "K14": [W.WINDOW_LAUNCHES]}
+                "K14": [W.WINDOW_LAUNCHES],
+                "K15": [SK.STRING_TRANSFORM_LAUNCHES]}
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -548,18 +407,17 @@ def main() -> int:
         13: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
         14: [SK.STRING_COMPARE_LAUNCHES],
     }
-    for q in must_not_launch:
-        must_not_launch[q].append(W.WINDOW_LAUNCHES)
+    for q in must_not_launch:  # no window, no substring
+        must_not_launch[q] += [W.WINDOW_LAUNCHES,
+                               SK.STRING_TRANSFORM_LAUNCHES]
     # partial aggregates a query runs (Q13 two: per customer, per count)
     # and join pairs
     n_partial = {13: 2}
     n_pairs = {3: 2, 4: 1, 12: 1, 13: 1, 14: 1}
     sizes = {q: {} for q in JOINED}
-    numpy_ref = {3: numpy_q3, 4: numpy_q4, 12: numpy_q12, 13: numpy_q13,
-                 14: numpy_q14}
-    want = {1: numpy_q1(hb), 6: numpy_q6(hb)}
+    want = {1: O.numpy_q1(hb), 6: O.numpy_q6(hb)}
     for q in JOINED:
-        want[q] = numpy_ref[q](host[q], sizes[q])
+        want[q] = O.answer(q, host[q], sizes[q])
         log(f"Q{q} table sizes after each filter and join (numpy): "
             f"{sizes[q]}")
     queries = (1, 6, 3, 4, 12, 13, 14)
@@ -689,7 +547,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tables2 = {q: {t: sess.create_dataframe(b) for t, b in host[q].items()}
                for q in JOINED}
-    tables2[1] = tpch_datagen.dataframes(sess, sf=SF, seed=SEED, query=1)
+    tables2[1] = {"lineitem": sess.create_dataframe(hb)}
     tables2[6] = tables2[1]
     require(all(df.plan.n_partitions == 2 for ts in tables2.values()
                 for df in ts.values()),
@@ -938,12 +796,117 @@ def main() -> int:
     for cell, fn in bb_cells.items():
         profile_query(f"{cell} partition(s)", fn)
 
+    # ---- 2d. the other fifteen TPC-H queries, two partitions --------------
+    t0 = time.perf_counter()
+    later_sizes = {q: {} for q in LATER}
+    for q in LATER:
+        want[q] = O.answer(q, host[q], later_sizes[q])
+        log(f"Q{q} table sizes after each filter and join (numpy): "
+            f"{later_sizes[q]}")
+    log(f"Q{', Q'.join(map(str, LATER))} answered in numpy in "
+        f"{time.perf_counter() - t0:.1f} s")
+    later_tables = {q: {t: sess.create_dataframe(b)
+                        for t, b in host[q].items()} for q in LATER}
+
+    def run_later(q):
+        return tpch.QUERIES[q](later_tables[q]).collect()
+
+    # every later query joins (K1 sorts, K4 gathers, K5 probes) and runs a
+    # fused segment (K12); none runs a window (K14), and Q22's substring
+    # runs inside its K12 segment, so K15 stays idle with fusion on
+    later_must = [S.SORT_LAUNCHES, G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES,
+                  J.JOIN_PROBE_LAUNCHES, FK.FUSED_LAUNCHES]
+    later_must_not = [W.WINDOW_LAUNCHES, SK.STRING_TRANSFORM_LAUNCHES]
+    for q in LATER:
+        torch.cuda.synchronize()
+        for c in all_counters:
+            c.reset()
+        t0 = time.perf_counter()
+        rows = run_later(q)
+        cold2[q] = time.perf_counter() - t0
+        launches2[q] = {k: sum(c.count for c in cs)
+                        for k, cs in counters.items()}
+        log(f"Q{q} two partitions launches: {launches2[q]} "
+            f"{ {c.name: c.count for c in all_counters} }")
+        for c in later_must:
+            require(c.count > 0, f"Q{q}: wrapper {c.name} launched no "
+                    "kernel")
+        for c in later_must_not:
+            require(c.count == 0, f"Q{q}: wrapper {c.name} launched "
+                    f"{c.count} kernels, none expected")
+        m = sess.last_metrics
+        log(f"Q{q} batches: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(m.items()) if "Batches" in k
+            or "Pairs" in k))
+        for pl in sess.last_placements:
+            log(f"Q{q} placement {pl['exchange']}: rows written "
+                f"{pl['rows_written']}, per partition "
+                f"{pl['partition_rows']}")
+            require(sum(pl["partition_rows"]) == pl["rows_written"],
+                    f"Q{q}: {pl['exchange']} lost or duplicated rows")
+        require(len(rows) > 0, f"Q{q} returned no rows")
+        check_rows(rows, want[q], f"Q{q} two partitions",
+                   ordered=q not in O.UNORDERED)
+        log(f"Q{q} two partitions rows match numpy: {len(rows)} rows, "
+            f"first {rows[:2]}")
+    for q in (8, 22):
+        log(f"Q{q} two-partition device plan:\n" + str(sess.physical_plan(
+            tpch.QUERIES[q](later_tables[q]).plan)))
+
+    # Q22 with fusion off: its substring runs on K15
+    unfused22 = {t: unfused.create_dataframe(b) for t, b in host[22].items()}
+    torch.cuda.synchronize()
+    for c in all_counters:
+        c.reset()
+    t0 = time.perf_counter()
+    rows = tpch.q22(unfused22).collect()
+    cold["q22 fusion off"] = time.perf_counter() - t0
+    launches_q22_unfused = {k: sum(c.count for c in cs)
+                            for k, cs in counters.items()}
+    require(SK.STRING_TRANSFORM_LAUNCHES.count > 0 and
+            FK.FUSED_LAUNCHES.count == 0,
+            "Q22 with fusion off did not run its substring on K15")
+    check_rows(rows, want[22], "Q22 fusion off", ordered=False)
+    log(f"Q22 fusion off rows match numpy (cold "
+        f"{cold['q22 fusion off'] * 1e3:.1f} ms; launches "
+        f"{launches_q22_unfused})")
+
+    # one more run of Q8 and Q22, keeping each segment's first input
+    # batch for phase 3
+    seg_inputs = {}
+    seg_impl = TpuFusedSegmentExec._compute
+
+    def recording_segment(self, batch):
+        seg_inputs.setdefault(self.program.key, batch)
+        return seg_impl(self, batch)
+
+    TpuFusedSegmentExec._compute = recording_segment
+    try:
+        for q in (8, 22):
+            run_later(q)
+    finally:
+        TpuFusedSegmentExec._compute = seg_impl
+
+    for q in LATER:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_later(q)
+            runs.append(time.perf_counter() - t0)
+        warm2[q] = statistics.median(runs)
+        log(f"Q{q} SF{SF:g} two partitions wall: cold "
+            f"{cold2[q] * 1e3:.1f} ms, warm {warm2[q] * 1e3:.1f} ms (median "
+            f"of 3) on {card}")
+    for q in LATER:
+        profile_query(f"Q{q} (two partitions)", lambda: run_later(q))
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
     P = db.padded_rows
     cols = {f.name: c for f, c in zip(db.schema, db.columns)}
-    keep = (cols["l_shipdate"].data <= _days(1998, 9, 2)) & \
+    keep = (cols["l_shipdate"].data <= O._days(1998, 9, 2)) & \
         cols["l_shipdate"].validity
     fb = G.compact(db, keep)                   # the partial agg's input
     rm = fb.row_mask()
@@ -967,8 +930,14 @@ def main() -> int:
         k = name.split()[0]
         # the exchange kernels' main path is the two-partition runs, the
         # window kernel's q30 at both partition counts and the clickstream
+        # K15's is Q22 with fusion off (with fusion on, Q22's substring
+        # runs inside K12); every other kernel's the one-partition runs
+        # (and, for K12, the later queries at two partitions)
         mains = {"K9": [launches2], "K10": [launches2], "K11": [launches2],
-                 "K14": [launches, launches2]}.get(k, [launches])
+                 "K12": [launches, {q: launches2[q] for q in LATER}],
+                 "K14": [launches, launches2],
+                 "K15": [{"q22 fusion off": launches_q22_unfused}]
+                 }.get(k, [launches])
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              # summed over the cold runs of the queries
@@ -1055,7 +1024,7 @@ def main() -> int:
     # K4: compaction of one reader batch by Q1's filter, gather at P
     rb = host_to_device(hb.slice(0, READER_ROWS), 128, dev)
     rcols = {f.name: c for f, c in zip(rb.schema, rb.columns)}
-    rkeep = (rcols["l_shipdate"].data <= _days(1998, 9, 2)) & \
+    rkeep = (rcols["l_shipdate"].data <= O._days(1998, 9, 2)) & \
         rcols["l_shipdate"].validity
     got = G.compact(rb, rkeep)
     ref = G.compact_plain(rb, rkeep)
@@ -1339,46 +1308,58 @@ def main() -> int:
           "pass only")
 
     # K12: Q12's lineitem segment over its first 2,097,152-row reader
-    # batch, and Q13's orders segment (1,500,000 orders, one batch)
+    # batch, Q13's orders segment (1,500,000 orders, one batch), and the
+    # segments with the new rules on the inputs the main path gave them:
+    # Q8's three-member segment (Year, the volume, the if_) and Q22's
+    # customer segment (Substring filtered by isin)
     seg_of = {q: prog for _k, (q, prog) in segments.items()}
-    k12 = {}
+    k12_cases = {}
     for q, table in ((12, "lineitem"), (13, "orders")):
-        prog = seg_of[q]
         hbt = host[q][table]
-        kb = host_to_device(hbt.slice(0, min(hbt.num_rows, READER_ROWS)),
-                            128, dev)
+        k12_cases[f"q{q}"] = (seg_of[q], host_to_device(
+            hbt.slice(0, min(hbt.num_rows, READER_ROWS)), 128, dev))
+    for q, needle in ((8, "Year(o_orderdate)"), (22, "Substring(c_phone)")):
+        key, prog = next((k, p) for k, (qq, p) in segments.items()
+                         if qq == q and needle in p.describe()
+                         and len(p.members) == 3)
+        k12_cases[f"q{q}"] = (prog, seg_inputs[key])
+    k12 = {}
+    for case, (prog, kb) in k12_cases.items():
         got, gkeep = FK.run_segment(prog, kb)
         ref, rkeep = FK.segment_plain(prog, kb)
-        require(torch.equal(gkeep, rkeep),
-                f"K12 Q{q} keep mask differs from the plain composition")
+        require((gkeep is None and rkeep is None) or
+                torch.equal(gkeep, rkeep),
+                f"K12 {case} keep mask differs from the plain composition")
         for g, r in zip(got.columns, ref.columns):
             require(torch.equal(g.validity, r.validity) and
                     torch.equal(g.data.contiguous(), r.data.contiguous()) and
                     (r.lengths is None or torch.equal(
                         g.lengths.contiguous(), r.lengths.contiguous())),
-                    f"K12 Q{q} differs from the plain composition in a "
+                    f"K12 {case} differs from the plain composition in a "
                     f"{r.dtype} column")
-        k12[q] = dict(
+        k12[case] = dict(
             ms=cuda_ms(lambda: FK.run_segment(prog, kb)),
             plain=cuda_ms(lambda: FK.segment_plain(prog, kb)),
             bytes=prog.bytes_moved(kb), rows=kb.padded_rows,
-            kept=int(gkeep.sum()))
-        log(f"K12 Q{q} {table} segment: {int(kb.num_rows)} rows "
-            f"({kb.padded_rows} padded), {k12[q]['kept']} kept, "
-            f"{k12[q]['bytes']} bytes moved; kernel {k12[q]['ms']:.3f} ms, "
-            f"plain {k12[q]['plain']:.3f} ms")
-    first = k12[12]
+            kept=int(gkeep.sum()) if gkeep is not None
+            else int(kb.num_rows))
+        log(f"K12 {case} segment ({prog.describe()[:120]}): "
+            f"{int(kb.num_rows)} rows ({kb.padded_rows} padded), "
+            f"{k12[case]['kept']} kept, {k12[case]['bytes']} bytes moved; "
+            f"kernel {k12[case]['ms']:.3f} ms, plain "
+            f"{k12[case]['plain']:.3f} ms")
+    first = k12["q12"]
     entry("K12 fused_segment", "spark_rapids_tpu_torch/ops/kernels/fused.py",
           "spark_rapids_tpu/exec/fused.py:113",
           first["ms"], first["plain"], None, first["bytes"], first["rows"],
           FP32_PER_S, 0.0,
           generated_sources=len(segments),
-          ms_by_segment={f"q{q}": v["ms"] for q, v in k12.items()},
-          plain_ms_by_segment={f"q{q}": v["plain"] for q, v in k12.items()},
-          bound_ms_by_segment={f"q{q}": bound(v["bytes"], v["rows"],
-                                              FP32_PER_S)[0]
-                               for q, v in k12.items()},
-          rows_by_segment={f"q{q}": v["rows"] for q, v in k12.items()})
+          ms_by_segment={c: v["ms"] for c, v in k12.items()},
+          plain_ms_by_segment={c: v["plain"] for c, v in k12.items()},
+          bound_ms_by_segment={c: bound(v["bytes"], v["rows"],
+                                        FP32_PER_S)[0]
+                               for c, v in k12.items()},
+          rows_by_segment={c: v["rows"] for c, v in k12.items()})
 
     # K13: Q14's like (startswith 'PROMO' over p_type, 200,000 parts), and
     # contains / endswith / locate_from over Q13's o_comment (1,500,000)
@@ -1409,7 +1390,7 @@ def main() -> int:
         log(f"K13 {fn} {needle!r}: {rows} rows x {c.data.shape[1]} bytes, "
             f"{k13[fn]['hits']} hits; kernel {k13[fn]['ms']:.3f} ms, plain "
             f"{k13[fn]['plain']:.3f} ms")
-    promo = np.char.startswith(_text(host[14]["part"].column("p_type")),
+    promo = np.char.startswith(O._text(host[14]["part"].column("p_type")),
                                b"PROMO")
     require(k13["startswith"]["hits"] == int(promo.sum()),
             "K13 startswith count differs from numpy")
@@ -1553,6 +1534,61 @@ def main() -> int:
           bound_ms_by_function={c: v["bound"] for c, v in k14.items()},
           library_ms_by_function=k14_lib)
 
+    # K15: Q22's substring(c_phone, 1, 2) over the customer table
+    # (150,000 rows, 262,144 padded, 15 bytes wide), and a synthetic
+    # 8,388,608 x 32-byte matrix with a negative start and out_w 8
+    cust = host_to_device(host[22]["customer"], 128, dev)
+    phone = cust.columns[cust.schema.index_of("c_phone")]
+    rng = np.random.default_rng(15)
+    syn_n, syn_w = 1 << 23, 32
+    syn_len = torch.from_numpy(rng.integers(
+        0, syn_w + 1, syn_n).astype(np.int32)).to(dev)
+    syn_bm = torch.randint(1, 256, (syn_n, syn_w), dtype=torch.uint8,
+                           device=dev)
+    syn_bm = torch.where(torch.arange(syn_w, device=dev)[None, :]
+                         < syn_len[:, None], syn_bm,
+                         torch.zeros((), dtype=torch.uint8, device=dev))
+    k15_cases = {"q22 c_phone": (phone.data, phone.lengths, 0, 2, 2),
+                 "8388608 x 32 start -12": (syn_bm, syn_len, -12, 8, 8)}
+    k15 = {}
+    for case, (bm, lens, start, sub_len, out_w) in k15_cases.items():
+        got = SK.substring(bm, lens, start, sub_len, out_w)
+        ref = SK.substring_plain(bm, lens, start, sub_len, out_w)
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                f"K15 differs from its plain version at {case}")
+        n, w = bm.shape
+        lib = None
+        if start >= 0:
+            sliced = (bm[:, start:start + out_w].contiguous(),
+                      torch.clamp(lens - start, 0, sub_len))
+            require(torch.equal(sliced[0], got[0]) and
+                    torch.equal(sliced[1].to(torch.int32), got[1]),
+                    f"the library form of substring disagrees at {case}")
+            lib = cuda_ms(lambda: (bm[:, start:start + out_w].contiguous(),
+                                   torch.clamp(lens - start, 0, sub_len)))
+        k15[case] = dict(
+            ms=cuda_ms(lambda: SK.substring(bm, lens, start, sub_len,
+                                            out_w)),
+            plain=cuda_ms(lambda: SK.substring_plain(bm, lens, start,
+                                                     sub_len, out_w)),
+            lib=lib, bytes=n * (4 + w) + n * (out_w + 4), rows=n)
+        log(f"K15 at {case}: {n} rows x {w} bytes -> {out_w}; kernel "
+            f"{k15[case]['ms']:.3f} ms, plain {k15[case]['plain']:.3f} ms, "
+            f"library {lib if lib is None else round(lib, 3)} ms")
+    q22c = k15["q22 c_phone"]
+    entry("K15 substring", "spark_rapids_tpu_torch/csrc/string_transform.cu",
+          "spark_rapids_tpu/ops/kernels/stringkernels.py:93",
+          q22c["ms"], q22c["plain"], q22c["lib"], q22c["bytes"],
+          q22c["rows"], FP32_PER_S, 0.0,
+          library_call="bm[:, s0:s0 + out_w].contiguous() and a clamp of "
+          "the lengths (a fixed start >= 0 only)",
+          ms_by_shape={c: v["ms"] for c, v in k15.items()},
+          plain_ms_by_shape={c: v["plain"] for c, v in k15.items()},
+          library_ms_by_shape={c: v["lib"] for c, v in k15.items()},
+          bound_ms_by_shape={c: bound(v["bytes"], v["rows"], FP32_PER_S)[0]
+                             for c, v in k15.items()},
+          rows_by_shape={c: v["rows"] for c, v in k15.items()})
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -1560,7 +1596,7 @@ def main() -> int:
                                   for q in queries},
                       "queries_two_partitions": {
                           f"q{q}": {"cold_s": cold2[q], "warm_s": warm2[q]}
-                          for q in queries},
+                          for q in queries + LATER},
                       "tpcxbb": {cell: {"cold_s": cold[cell],
                                         "warm_s": warm[cell]}
                                  for cell in bb_cells},

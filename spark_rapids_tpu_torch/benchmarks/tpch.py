@@ -1,10 +1,15 @@
-"""TPC-H Q1, Q3, Q4, Q6, Q12, Q13 and Q14 as DataFrame code.
+"""TPC-H queries 1-22 as DataFrame code.
 
-Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py:q1`` (45), ``q3``
-(90), ``q4`` (105), ``q6`` (141), ``q12`` (283), ``q13`` (303) and
-``q14`` (317), written against this engine's DataFrame API.  The other
-fifteen queries need more joins, other string functions, distinct,
-unions or subquery forms, which come with later slices.
+Counterpart of ``spark_rapids_tpu/benchmarks/tpch.py``, query for query
+(``q1`` .. ``q22``, ``_cross_scalar``, ``_count_distinct`` and
+``Q18_MIN_QTY``), written against this engine's DataFrame API.  As in
+the reference, correlated subqueries are rewritten as inner, semi and
+anti joins, scalar subqueries as a cross join on a literal key, and
+``count(distinct x)`` as ``distinct`` plus ``count``.
+
+Usage:
+    tables = tpch_datagen.dataframes(session, query=3)
+    rows = QUERIES[3](tables).collect()
 """
 from __future__ import annotations
 
@@ -18,6 +23,20 @@ lit = F.lit
 
 def _d(y, m, d):
     return lit(dt.date(y, m, d))
+
+
+def _cross_scalar(df, scalar_df):
+    """Cross-join a 1-row aggregate onto every row (scalar subquery)."""
+    a = df.with_column("__one__", lit(1))
+    b = scalar_df.with_column("__one__", lit(1))
+    return a.join(b, on="__one__", how="inner").drop("__one__")
+
+
+def _count_distinct(df, group_cols, distinct_col, out_name):
+    """count(distinct x) group by g — emulated as distinct + count."""
+    d = df.select(*(group_cols + [distinct_col])).distinct()
+    return d.group_by(*group_cols).agg(
+        F.count(distinct_col).alias(out_name))
 
 
 def q1(t):
@@ -34,6 +53,35 @@ def q1(t):
                  F.avg("l_discount").alias("avg_disc"),
                  F.count("l_quantity").alias("count_order"))
             .sort("l_returnflag", "l_linestatus"))
+
+
+def _europe_suppliers(t):
+    region = t["region"].filter(col("r_name") == lit("EUROPE"))
+    nation = t["nation"].join(
+        region, on=(["n_regionkey"], ["r_regionkey"]), how="inner")
+    return t["supplier"].join(
+        nation, on=(["s_nationkey"], ["n_nationkey"]), how="inner")
+
+
+def q2(t):
+    part = t["part"].filter((col("p_size") == lit(15))
+                            & col("p_type").like("%BRASS"))
+    supp = _europe_suppliers(t).select(
+        "s_suppkey", "s_acctbal", "s_name", "n_name", "s_address",
+        "s_phone", "s_comment")
+    ps = t["partsupp"].join(supp, on=(["ps_suppkey"], ["s_suppkey"]),
+                            how="inner")
+    joined = part.join(ps, on=(["p_partkey"], ["ps_partkey"]), how="inner")
+    min_cost = (joined.group_by("p_partkey")
+                .agg(F.min("ps_supplycost").alias("__min_cost"))
+                .with_column_renamed("p_partkey", "__mk"))
+    return (joined.join(min_cost, on=(["p_partkey"], ["__mk"]), how="inner")
+            .filter(col("ps_supplycost") == col("__min_cost"))
+            .select("s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+                    "s_address", "s_phone", "s_comment")
+            .sort(col("s_acctbal").desc(), col("n_name").asc(),
+                  col("s_name").asc(), col("p_partkey").asc())
+            .limit(100))
 
 
 def q3(t):
@@ -63,6 +111,30 @@ def q4(t):
             .sort("o_orderpriority"))
 
 
+def q5(t):
+    region = t["region"].filter(col("r_name") == lit("ASIA"))
+    nation = t["nation"].join(region, on=(["n_regionkey"], ["r_regionkey"]),
+                              how="inner").select("n_nationkey", "n_name")
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= _d(1994, 1, 1))
+        & (col("o_orderdate") < _d(1995, 1, 1)))
+    # supplier nation must equal customer nation
+    j = (t["customer"]
+         .join(nation, on=(["c_nationkey"], ["n_nationkey"]), how="inner")
+         .select("c_custkey", "c_nationkey", "n_name")
+         .join(orders.select("o_orderkey", "o_custkey"),
+               on=(["c_custkey"], ["o_custkey"]), how="inner")
+         .join(t["lineitem"].select("l_orderkey", "l_suppkey",
+                                    "l_extendedprice", "l_discount"),
+               on=(["o_orderkey"], ["l_orderkey"]), how="inner")
+         .join(t["supplier"].select("s_suppkey", "s_nationkey"),
+               on=(["l_suppkey", "c_nationkey"],
+                   ["s_suppkey", "s_nationkey"]), how="inner"))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (j.group_by("n_name").agg(F.sum(rev).alias("revenue"))
+            .sort(col("revenue").desc()))
+
+
 def q6(t):
     li = t["lineitem"].filter(
         (col("l_shipdate") >= _d(1994, 1, 1))
@@ -71,6 +143,138 @@ def q6(t):
         & (col("l_quantity") < lit(24.0)))
     return li.agg(F.sum(col("l_extendedprice") * col("l_discount"))
                   .alias("revenue"))
+
+
+def q7(t):
+    n1 = t["nation"].select(col("n_nationkey").alias("n1_key"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("cust_nation"))
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= _d(1995, 1, 1))
+        & (col("l_shipdate") <= _d(1996, 12, 31)))
+    j = (t["supplier"].select("s_suppkey", "s_nationkey")
+         .join(n1, on=(["s_nationkey"], ["n1_key"]), how="inner")
+         .join(li.select("l_suppkey", "l_orderkey", "l_shipdate",
+                         "l_extendedprice", "l_discount"),
+               on=(["s_suppkey"], ["l_suppkey"]), how="inner")
+         .join(t["orders"].select("o_orderkey", "o_custkey"),
+               on=(["l_orderkey"], ["o_orderkey"]), how="inner")
+         .join(t["customer"].select("c_custkey", "c_nationkey"),
+               on=(["o_custkey"], ["c_custkey"]), how="inner")
+         .join(n2, on=(["c_nationkey"], ["n2_key"]), how="inner")
+         .filter(((col("supp_nation") == lit("FRANCE"))
+                  & (col("cust_nation") == lit("GERMANY")))
+                 | ((col("supp_nation") == lit("GERMANY"))
+                    & (col("cust_nation") == lit("FRANCE")))))
+    vol = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    j = j.with_column("l_year", F.year(col("l_shipdate")))
+    return (j.group_by("supp_nation", "cust_nation", "l_year")
+            .agg(F.sum(vol).alias("revenue"))
+            .sort("supp_nation", "cust_nation", "l_year"))
+
+
+def q8(t):
+    region = t["region"].filter(col("r_name") == lit("AMERICA"))
+    nation_r = t["nation"].join(
+        region, on=(["n_regionkey"], ["r_regionkey"]),
+        how="inner").select("n_nationkey")
+    n2 = t["nation"].select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("supp_nation"))
+    part = t["part"].filter(col("p_type") == lit("ECONOMY ANODIZED STEEL"))
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= _d(1995, 1, 1))
+        & (col("o_orderdate") <= _d(1996, 12, 31)))
+    j = (part.select("p_partkey")
+         .join(t["lineitem"].select("l_partkey", "l_suppkey", "l_orderkey",
+                                    "l_extendedprice", "l_discount"),
+               on=(["p_partkey"], ["l_partkey"]), how="inner")
+         .join(t["supplier"].select("s_suppkey", "s_nationkey"),
+               on=(["l_suppkey"], ["s_suppkey"]), how="inner")
+         .join(n2, on=(["s_nationkey"], ["n2_key"]), how="inner")
+         .join(orders.select("o_orderkey", "o_custkey", "o_orderdate"),
+               on=(["l_orderkey"], ["o_orderkey"]), how="inner")
+         .join(t["customer"].select("c_custkey", "c_nationkey"),
+               on=(["o_custkey"], ["c_custkey"]), how="inner")
+         .join(nation_r, on=(["c_nationkey"], ["n_nationkey"]),
+               how="semi"))
+    vol = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    j = (j.with_column("o_year", F.year(col("o_orderdate")))
+         .with_column("volume", vol)
+         .with_column("brazil_volume",
+                      F.if_(col("supp_nation") == lit("BRAZIL"),
+                            col("volume"), lit(0.0))))
+    return (j.group_by("o_year")
+            .agg((F.sum("brazil_volume")).alias("num"),
+                 (F.sum("volume")).alias("den"))
+            .select(col("o_year"),
+                    (col("num") / col("den")).alias("mkt_share"))
+            .sort("o_year"))
+
+
+def q9(t):
+    part = t["part"].filter(col("p_name").contains("green"))
+    j = (part.select("p_partkey")
+         .join(t["lineitem"].select("l_partkey", "l_suppkey", "l_orderkey",
+                                    "l_quantity", "l_extendedprice",
+                                    "l_discount"),
+               on=(["p_partkey"], ["l_partkey"]), how="inner")
+         .join(t["supplier"].select("s_suppkey", "s_nationkey"),
+               on=(["l_suppkey"], ["s_suppkey"]), how="inner")
+         .join(t["partsupp"].select("ps_partkey", "ps_suppkey",
+                                    "ps_supplycost"),
+               on=(["p_partkey", "l_suppkey"], ["ps_partkey", "ps_suppkey"]),
+               how="inner")
+         .join(t["orders"].select("o_orderkey", "o_orderdate"),
+               on=(["l_orderkey"], ["o_orderkey"]), how="inner")
+         .join(t["nation"].select("n_nationkey",
+                                  col("n_name").alias("nation")),
+               on=(["s_nationkey"], ["n_nationkey"]), how="inner"))
+    amount = (col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+              - col("ps_supplycost") * col("l_quantity"))
+    j = j.with_column("o_year", F.year(col("o_orderdate")))
+    return (j.group_by("nation", "o_year")
+            .agg(F.sum(amount).alias("sum_profit"))
+            .sort(col("nation").asc(), col("o_year").desc()))
+
+
+def q10(t):
+    orders = t["orders"].filter(
+        (col("o_orderdate") >= _d(1993, 10, 1))
+        & (col("o_orderdate") < _d(1994, 1, 1)))
+    li = t["lineitem"].filter(col("l_returnflag") == lit("R"))
+    j = (t["customer"]
+         .join(orders.select("o_orderkey", "o_custkey"),
+               on=(["c_custkey"], ["o_custkey"]), how="inner")
+         .join(li.select("l_orderkey", "l_extendedprice", "l_discount"),
+               on=(["o_orderkey"], ["l_orderkey"]), how="inner")
+         .join(t["nation"].select("n_nationkey", "n_name"),
+               on=(["c_nationkey"], ["n_nationkey"]), how="inner"))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return (j.group_by("c_custkey", "c_name", "c_acctbal", "c_phone",
+                       "n_name", "c_address", "c_comment")
+            .agg(F.sum(rev).alias("revenue"))
+            .select("c_custkey", "c_name", "revenue", "c_acctbal",
+                    "n_name", "c_address", "c_phone", "c_comment")
+            .sort(col("revenue").desc())
+            .limit(20))
+
+
+def q11(t):
+    germany = t["nation"].filter(col("n_name") == lit("GERMANY"))
+    ps = (t["partsupp"]
+          .join(t["supplier"].select("s_suppkey", "s_nationkey"),
+                on=(["ps_suppkey"], ["s_suppkey"]), how="inner")
+          .join(germany.select("n_nationkey"),
+                on=(["s_nationkey"], ["n_nationkey"]), how="semi"))
+    value = col("ps_supplycost") * col("ps_availqty")
+    per_part = (ps.group_by("ps_partkey")
+                .agg(F.sum(value).alias("value")))
+    total = ps.agg(F.sum(value).alias("__total"))
+    return (_cross_scalar(per_part, total)
+            .filter(col("value") > col("__total") * lit(0.0001))
+            .select("ps_partkey", "value")
+            .sort(col("value").desc()))
 
 
 def q12(t):
@@ -121,4 +325,177 @@ def q14(t):
                     .alias("promo_revenue")))
 
 
-QUERIES = {1: q1, 3: q3, 4: q4, 6: q6, 12: q12, 13: q13, 14: q14}
+def q15(t):
+    li = t["lineitem"].filter(
+        (col("l_shipdate") >= _d(1996, 1, 1))
+        & (col("l_shipdate") < _d(1996, 4, 1)))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    revenue = (li.group_by(col("l_suppkey").alias("supplier_no"))
+               .agg(F.sum(rev).alias("total_revenue")))
+    max_rev = revenue.agg(F.max("total_revenue").alias("__max_rev"))
+    top = (_cross_scalar(revenue, max_rev)
+           .filter(col("total_revenue") == col("__max_rev")))
+    return (t["supplier"].select("s_suppkey", "s_name", "s_address",
+                                 "s_phone")
+            .join(top, on=(["s_suppkey"], ["supplier_no"]), how="inner")
+            .select("s_suppkey", "s_name", "s_address", "s_phone",
+                    "total_revenue")
+            .sort("s_suppkey"))
+
+
+def q16(t):
+    part = t["part"].filter(
+        (col("p_brand") != lit("Brand#45"))
+        & ~col("p_type").like("MEDIUM POLISHED%")
+        & col("p_size").isin(49, 14, 23, 45, 19, 3, 36, 9))
+    bad_supp = t["supplier"].filter(
+        col("s_comment").contains("Customer Complaints"))
+    ps = (t["partsupp"].select("ps_partkey", "ps_suppkey")
+          .join(bad_supp.select("s_suppkey"),
+                on=(["ps_suppkey"], ["s_suppkey"]), how="anti")
+          .join(part.select("p_partkey", "p_brand", "p_type", "p_size"),
+                on=(["ps_partkey"], ["p_partkey"]), how="inner"))
+    return (_count_distinct(ps, ["p_brand", "p_type", "p_size"],
+                            "ps_suppkey", "supplier_cnt")
+            .sort(col("supplier_cnt").desc(), col("p_brand").asc(),
+                  col("p_type").asc(), col("p_size").asc()))
+
+
+def q17(t):
+    part = t["part"].filter((col("p_brand") == lit("Brand#23"))
+                            & (col("p_container") == lit("MED BOX")))
+    li = t["lineitem"].select("l_partkey", "l_quantity", "l_extendedprice")
+    avg_qty = (li.group_by(col("l_partkey").alias("__pk"))
+               .agg((F.avg("l_quantity")).alias("__avg_qty")))
+    j = (part.select("p_partkey")
+         .join(li, on=(["p_partkey"], ["l_partkey"]), how="inner")
+         .join(avg_qty, on=(["p_partkey"], ["__pk"]), how="inner")
+         .filter(col("l_quantity") < lit(0.2) * col("__avg_qty")))
+    return j.agg((F.sum("l_extendedprice")).alias("sum_ep")) \
+        .select((col("sum_ep") / lit(7.0)).alias("avg_yearly"))
+
+
+# threshold 300 in spec; scaled so tiny datasets (≈4 items/order) hit it
+Q18_MIN_QTY = 150.0
+
+
+def q18(t):
+    big = (t["lineitem"].group_by(col("l_orderkey").alias("__ok"))
+           .agg(F.sum("l_quantity").alias("__sum_qty"))
+           .filter(col("__sum_qty") > lit(Q18_MIN_QTY)))
+    j = (t["orders"]
+         .join(big.select("__ok"), on=(["o_orderkey"], ["__ok"]),
+               how="semi")
+         .join(t["customer"].select("c_custkey", "c_name"),
+               on=(["o_custkey"], ["c_custkey"]), how="inner")
+         .join(t["lineitem"].select("l_orderkey", "l_quantity"),
+               on=(["o_orderkey"], ["l_orderkey"]), how="inner"))
+    return (j.group_by("c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                       "o_totalprice")
+            .agg(F.sum("l_quantity").alias("sum_qty"))
+            .sort(col("o_totalprice").desc(), col("o_orderdate").asc())
+            .limit(100))
+
+
+def q19(t):
+    j = (t["lineitem"]
+         .filter(col("l_shipmode").isin("AIR", "REG AIR")
+                 & (col("l_shipinstruct") == lit("DELIVER IN PERSON")))
+         .select("l_partkey", "l_quantity", "l_extendedprice", "l_discount")
+         .join(t["part"].select("p_partkey", "p_brand", "p_container",
+                                "p_size"),
+               on=(["l_partkey"], ["p_partkey"]), how="inner"))
+    b1 = ((col("p_brand") == lit("Brand#12"))
+          & col("p_container").isin("SM CASE", "SM BOX", "SM PACK", "SM PKG")
+          & (col("l_quantity") >= lit(1.0)) & (col("l_quantity") <= lit(11.0))
+          & (col("p_size") >= lit(1)) & (col("p_size") <= lit(5)))
+    b2 = ((col("p_brand") == lit("Brand#23"))
+          & col("p_container").isin("MED BAG", "MED BOX", "MED PKG",
+                                    "MED PACK")
+          & (col("l_quantity") >= lit(10.0))
+          & (col("l_quantity") <= lit(20.0))
+          & (col("p_size") >= lit(1)) & (col("p_size") <= lit(10)))
+    b3 = ((col("p_brand") == lit("Brand#34"))
+          & col("p_container").isin("LG CASE", "LG BOX", "LG PACK", "LG PKG")
+          & (col("l_quantity") >= lit(20.0))
+          & (col("l_quantity") <= lit(30.0))
+          & (col("p_size") >= lit(1)) & (col("p_size") <= lit(15)))
+    rev = col("l_extendedprice") * (lit(1.0) - col("l_discount"))
+    return j.filter(b1 | b2 | b3).agg(F.sum(rev).alias("revenue"))
+
+
+def q20(t):
+    forest = t["part"].filter(col("p_name").like("forest%"))
+    shipped = (t["lineitem"]
+               .filter((col("l_shipdate") >= _d(1994, 1, 1))
+                       & (col("l_shipdate") < _d(1995, 1, 1)))
+               .group_by(col("l_partkey").alias("__pk"),
+                         col("l_suppkey").alias("__sk"))
+               .agg(F.sum("l_quantity").alias("__qty")))
+    ps = (t["partsupp"]
+          .join(forest.select("p_partkey"),
+                on=(["ps_partkey"], ["p_partkey"]), how="semi")
+          .join(shipped, on=(["ps_partkey", "ps_suppkey"],
+                             ["__pk", "__sk"]), how="inner")
+          .filter(col("ps_availqty") > lit(0.5) * col("__qty")))
+    canada = t["nation"].filter(col("n_name") == lit("CANADA"))
+    return (t["supplier"]
+            .join(ps.select("ps_suppkey"),
+                  on=(["s_suppkey"], ["ps_suppkey"]), how="semi")
+            .join(canada.select("n_nationkey"),
+                  on=(["s_nationkey"], ["n_nationkey"]), how="semi")
+            .select("s_name", "s_address")
+            .sort("s_name"))
+
+
+def q21(t):
+    li = t["lineitem"].select("l_orderkey", "l_suppkey", "l_receiptdate",
+                              "l_commitdate")
+    # distinct supplier count per order (exists-other-supplier rewrite)
+    n_supp_all = _count_distinct(
+        li.select(col("l_orderkey").alias("__ok_a"),
+                  col("l_suppkey").alias("__sk_a")),
+        ["__ok_a"], "__sk_a", "__n_all")
+    late = li.filter(col("l_receiptdate") > col("l_commitdate"))
+    n_supp_late = _count_distinct(
+        late.select(col("l_orderkey").alias("__ok_l"),
+                    col("l_suppkey").alias("__sk_l")),
+        ["__ok_l"], "__sk_l", "__n_late")
+    saudi = t["nation"].filter(col("n_name") == lit("SAUDI ARABIA"))
+    f_orders = t["orders"].filter(col("o_orderstatus") == lit("F"))
+    l1 = (late
+          .join(f_orders.select("o_orderkey"),
+                on=(["l_orderkey"], ["o_orderkey"]), how="semi")
+          .join(t["supplier"].select("s_suppkey", "s_name", "s_nationkey"),
+                on=(["l_suppkey"], ["s_suppkey"]), how="inner")
+          .join(saudi.select("n_nationkey"),
+                on=(["s_nationkey"], ["n_nationkey"]), how="semi")
+          .join(n_supp_all, on=(["l_orderkey"], ["__ok_a"]), how="inner")
+          .filter(col("__n_all") > lit(1))
+          .join(n_supp_late, on=(["l_orderkey"], ["__ok_l"]), how="inner")
+          .filter(col("__n_late") == lit(1)))
+    return (l1.group_by("s_name").agg(F.count("*").alias("numwait"))
+            .sort(col("numwait").desc(), col("s_name").asc())
+            .limit(100))
+
+
+def q22(t):
+    codes = ["13", "31", "23", "29", "30", "18", "17"]
+    cust = (t["customer"]
+            .with_column("cntrycode", F.substring(col("c_phone"), 1, 2))
+            .filter(col("cntrycode").isin(*codes)))
+    avg_bal = (cust.filter(col("c_acctbal") > lit(0.0))
+               .agg(F.avg("c_acctbal").alias("__avg_bal")))
+    return (_cross_scalar(cust, avg_bal)
+            .filter(col("c_acctbal") > col("__avg_bal"))
+            .join(t["orders"].select("o_custkey"),
+                  on=(["c_custkey"], ["o_custkey"]), how="anti")
+            .group_by("cntrycode")
+            .agg(F.count("*").alias("numcust"),
+                 F.sum("c_acctbal").alias("totacctbal"))
+            .sort("cntrycode"))
+
+
+QUERIES = {i: fn for i, fn in enumerate(
+    [q1, q2, q3, q4, q5, q6, q7, q8, q9, q10, q11, q12, q13, q14, q15,
+     q16, q17, q18, q19, q20, q21, q22], start=1)}

@@ -92,6 +92,17 @@ BUCKET_MIN_ROWS = conf("spark.rapids.tpu.sql.bucketMinRows").doc(
 # --- feature gates --------------------------------------------------------
 SQL_ENABLED = conf("spark.rapids.tpu.sql.enabled").doc(
     "Master enable for the plan-rewrite engine").boolean_conf(True)
+ALLOW_FLOAT_AGG = conf("spark.rapids.tpu.sql.variableFloatAgg.enabled").doc(
+    "Allow floating-point sums and averages on the device (their order "
+    "differs from the host engine's); when false the aggregate is tagged "
+    "off the device").boolean_conf(True)
+
+# --- aggregation ----------------------------------------------------------
+HASH_AGG_REPLACE_MODE = conf(
+    "spark.rapids.tpu.sql.hashAgg.replaceMode").doc(
+    "Which aggregation modes to replace: all, partial, final (several "
+    "joined by '|'); an excluded mode is tagged off the device"
+).string_conf("all")
 
 # --- whole-stage fusion (plan/fusion.py, exec/fused.py) -----------------
 FUSION_ENABLED = conf("spark.rapids.tpu.sql.fusion.enabled").doc(

@@ -12,6 +12,7 @@
 //   str_contains                  stringkernels.py:contains (156)
 //   str_startswith / str_endswith stringkernels.py:startswith (160),
 //                                 endswith (174)
+//   str_substring                 stringkernels.py:substring (93)
 //
 // Semantics are the reference's: an empty needle matches (locate_from
 // then returns the start position, 1-based, while it lies inside the
@@ -114,6 +115,34 @@ __device__ __forceinline__ bool str_endswith(const uint8_t* __restrict__ row,
     if (str_byte(row, w, len, idx) != (int)nd[j]) return false;
   }
   return true;
+}
+
+// substring(start, sub_len) of a row of length len: returns the new
+// length e - s and stores the 0-based first byte s, where s = start >= 0 ?
+// min(start, len) : max(len + start, 0) and e = min(s + max(sub_len, 0),
+// len) (the reference's substring, stringkernels.py:93).  The bytes are
+// row[s, e); K15 (string_transform.cu) copies them, K12 reads them in
+// place.
+__device__ __forceinline__ int str_substring(int len, int start, int sub_len,
+                                             int* s) {
+  int first;
+  if (start >= 0) {
+    first = start < len ? start : len;
+  } else {
+    const long long from_end = (long long)len + start;
+    first = from_end > 0 ? (int)from_end : 0;
+  }
+  const long long want = (long long)first + (sub_len > 0 ? sub_len : 0);
+  const int e = want < len ? (int)want : len;
+  *s = first;
+  return e - first;
+}
+
+// the output width of substring with sub_len bytes over a w-wide matrix:
+// min(max(sub_len, 1), w) (ops/stringexprs.py:Substring.out_width)
+__device__ __forceinline__ int substring_width(int sub_len, int w) {
+  const int k = sub_len < 1 ? 1 : sub_len;
+  return k < w ? k : w;
 }
 
 }  // namespace srt

@@ -6,8 +6,9 @@ Counterpart of ``spark_rapids_tpu/data/strings.py``.  A string column is
     lengths: int32[rows]          (byte length per row)
 
 on the host and on the device alike.  The reference encodes through
-pyarrow; this module uses numpy alone.  ``encode`` goes through numpy's
-fixed-width bytes type, so a string's trailing NUL bytes are not kept.
+pyarrow; this module uses numpy alone.  ``encode`` writes each value's
+UTF-8 bytes at their exact length, so NUL bytes (trailing ones too) are
+kept: ``"a\x00"`` has length 2 and differs from ``"a"``.
 """
 from __future__ import annotations
 
@@ -20,26 +21,25 @@ def encode(values, validity: Optional[np.ndarray] = None,
            max_len: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Encode a sequence of ``str`` (or None) into (bytes, lengths).
     Null rows (``None`` or ``validity`` False) encode as empty."""
-    vals = np.asarray(values, dtype=object)
+    vals = list(values)
     n = len(vals)
-    keep = np.array([isinstance(v, str) for v in vals], dtype=np.bool_)
+    keep = [isinstance(v, str) for v in vals]
     if validity is not None:
-        keep &= np.asarray(validity, dtype=np.bool_)
-    text = np.where(keep, vals, "").astype(str) if n else \
-        np.zeros(0, dtype="U1")
-    raw = np.char.encode(text, "utf-8") if n else np.zeros(0, dtype="S1")
-    lengths = np.char.str_len(raw).astype(np.int32) if n else \
-        np.zeros(0, dtype=np.int32)
+        keep = [k and bool(ok) for k, ok in zip(keep, validity)]
+    raw = [v.encode("utf-8") if k else b"" for v, k in zip(vals, keep)]
+    lengths = np.fromiter(map(len, raw), dtype=np.int32, count=n)
     ml = int(lengths.max()) if n else 0
     width = max(1, ml) if max_len is None else max_len
     if ml > width:
         raise ValueError(f"string of {ml} bytes exceeds max_len {width}")
     out = np.zeros((n, width), dtype=np.uint8)
-    if n and raw.dtype.itemsize:
-        mat = np.frombuffer(raw.tobytes(), dtype=np.uint8).reshape(
-            n, raw.dtype.itemsize)
-        k = min(width, mat.shape[1])
-        out[:, :k] = mat[:, :k]
+    total = int(lengths.sum())
+    if total:
+        flat = np.frombuffer(b"".join(raw), dtype=np.uint8)
+        starts = np.repeat(np.cumsum(lengths, dtype=np.int64) - lengths,
+                           lengths)
+        rows = np.repeat(np.arange(n), lengths)
+        out[rows, np.arange(total) - starts] = flat
     return out, lengths
 
 

@@ -239,6 +239,35 @@ class TpuHashAggregateExec(TpuExec):
                 f"aggs={[sp.func.sql() for sp in self.specs]}]")
 
 
+def tag(meta) -> None:
+    """The reference's aggregate tag (``exec/aggregate.py:465-494``), with
+    its reasons: a float aggregation input while
+    ``variableFloatAgg.enabled`` is false, and a mode that
+    ``hashAgg.replaceMode`` leaves out.  Until the host engine is ported,
+    a tagged aggregate raises when the plan is converted."""
+    from ..config import ALLOW_FLOAT_AGG, HASH_AGG_REPLACE_MODE
+
+    if not meta.conf.get(ALLOW_FLOAT_AGG):
+        for sp in meta.plan.specs:
+            child = sp.func.child
+            if child is not None and child.dtype.is_floating:
+                meta.will_not_work_on_tpu(
+                    f"aggregation over floating column "
+                    f"({sp.func.sql()}) disabled; enable "
+                    "spark.rapids.tpu.sql.variableFloatAgg.enabled")
+                break
+    allowed = str(meta.conf.get(HASH_AGG_REPLACE_MODE)).lower()
+    if allowed != "all":
+        modes = {m.strip() for m in allowed.split("|")}
+        mode = meta.plan.mode
+        if mode == "complete":
+            mode = "partial"  # complete ~ single-phase partial+final
+        if mode not in modes:
+            meta.will_not_work_on_tpu(
+                f"aggregation mode {meta.plan.mode} excluded by "
+                f"hashAgg.replaceMode={allowed}")
+
+
 def register(register_exec):
     from ..plan import physical as P
 
@@ -249,4 +278,5 @@ def register(register_exec):
         P.HashAggregateExec,
         convert=lambda meta, ch: TpuHashAggregateExec(ch[0], meta.plan),
         desc="sort-based segmented-reduction group-by on the device",
+        tag=tag,
         exprs_of=exprs_of)

@@ -91,6 +91,9 @@ KERNELS: Dict[str, tuple] = {
     "string_search": ("string_search.cu", {
         "k13_search": ([P, P, I, Q, P, I, I, P, P, P], 1),
     }),
+    "string_transform": ("string_transform.cu", {
+        "k15_substring": ([P, P, I, Q, I, I, I, P, P, P], 1),
+    }),
     "hashing": ("hashing.cu", {
         # no launch for an empty batch
         "k9_murmur3": ([P, I, Q, I, P, P, P], 1),

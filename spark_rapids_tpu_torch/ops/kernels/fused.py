@@ -30,9 +30,17 @@ The code generator covers every expression the engine registers
 (``plan/overrides.py``): BoundReference, Literal, Alias, Add, Subtract,
 Multiply, Divide, the five comparisons on numbers, dates and strings,
 Not, And, Or, IsNull, IsNotNull, If, InSet, Contains, StartsWith,
-EndsWith and Like, each with its torch body's semantics (integer
-arithmetic wraps, a zero divisor gives null, Kleene AND/OR, a null
-condition takes If's false branch, IEEE comparisons).
+EndsWith, Like, Substring and Year, each with its torch body's semantics
+(integer arithmetic wraps, a zero divisor gives null, Kleene AND/OR, a
+null condition takes If's false branch, IEEE comparisons).  A Substring
+is a view of its input row: the row pointer plus its first byte, the new
+length and the output width ``min(max(len, 1), width)`` computed at
+launch (``strings.cuh:str_substring``, K15's row arithmetic); only its
+bytes below the new length are read or copied, so the output row is zero
+past it, as K15 writes it.  Year is the reference's civil-from-days
+integer math in 64-bit with ``k12_fdiv``, a flooring division emitted
+into the source (C++ ``/`` truncates; dates before 1970 are negative day
+counts).
 
 ``segment_plain`` is the plain composition: the members' own torch
 bodies with the compaction deferred, the structure of
@@ -63,6 +71,7 @@ from ...data import strings as dstrings
 from ...data.column import DeviceBatch, DeviceColumn
 from .. import arithmetic as ar
 from .. import conditional as cond
+from .. import datetimeexprs as dte
 from .. import predicates as pr
 from .. import stringexprs as st
 from ..expression import Alias, BoundReference, Expression, Literal
@@ -117,8 +126,9 @@ def c_literal(value, dt: T.DType) -> str:
 class _Val:
     """A value of the generated code: data (``d``) or a string row
     (``p``, width ``w``, length ``l``), and its validity ``v``; ``wspec``
-    gives a string's width at launch: ("in", i), ("const", w) or
-    ("max", a, b)."""
+    gives a string's width at launch: ("in", i), ("const", w), ("max",
+    a, b) or ("sub", a, length); ``cw`` bounds the bytes an output copy
+    reads (a substring's new length; the width when empty)."""
 
     dtype: T.DType
     v: str
@@ -127,6 +137,11 @@ class _Val:
     w: str = ""
     l: str = ""
     wspec: tuple = ()
+    cw: str = ""
+
+    @property
+    def copy_width(self) -> str:
+        return self.cw or self.w
 
 
 @dataclass
@@ -166,6 +181,21 @@ def _is_filter(m) -> bool:
     return hasattr(m, "condition")
 
 
+#: a division that rounds toward negative infinity, as numpy's and
+#: torch's floor division do (C++ ``/`` truncates toward zero)
+_FDIV = """__device__ __forceinline__ long long k12_fdiv(long long a, long long b) {
+  const long long q = a / b;
+  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+"""
+
+
+def _int32(v: int) -> int:
+    """``v`` clamped into the int range (a start or a length past any
+    row's width gives the same substring)."""
+    return max(-(2 ** 31 - 1), min(int(v), 2 ** 31 - 1))
+
+
 class _Codegen:
     def __init__(self, schema: T.Schema):
         self.schema = schema
@@ -174,6 +204,7 @@ class _Codegen:
         self.loaded: Dict[int, _Val] = {}
         self.ptr_fields: List[Tuple[str, str, tuple]] = []  # decl, name, bind
         self.int_fields: List[Tuple[str, tuple]] = []       # name, bind
+        self.helpers: Dict[str, str] = {}                  # name -> code
         self.n = 0
 
     # ---- helpers ---------------------------------------------------------
@@ -327,6 +358,10 @@ class _Codegen:
                 "bool", self.needle_call(fn, c, e.needle())))
         if isinstance(e, st.Like):
             return self.like(e, syms)
+        if isinstance(e, st.Substring):
+            return self.substring(e, syms)
+        if isinstance(e, dte.Year):
+            return self.year(e, syms)
         raise NotImplementedError(
             f"the fused-segment code generator has no rule for "
             f"{type(e).__name__}")
@@ -364,11 +399,13 @@ class _Codegen:
         t, f = branches
         v = self.let("bool", f"{c} ? {t.v} : {f.v}")
         if out.is_string:
+            cw = self.let("int", f"{c} ? {t.copy_width} : "
+                          f"{f.copy_width}") if t.cw or f.cw else ""
             return _Val(out, v,
                         p=self.let("uint8_t*", f"{c} ? {t.p} : {f.p}"),
                         w=self.let("int", f"{c} ? {t.w} : {f.w}"),
                         l=self.let("int", f"{c} ? {t.l} : {f.l}"),
-                        wspec=("max", t.wspec, f.wspec))
+                        wspec=("max", t.wspec, f.wspec), cw=cw)
         ct = ctype(out)
         return _Val(out, v, d=self.let(
             ct, f"{c} ? {self.cast(t, out)} : {self.cast(f, out)}"))
@@ -387,6 +424,42 @@ class _Codegen:
         d = self.let("bool", " || ".join(terms) or "false")
         v = self.let("bool", f"{c.v} && {d}") if e.has_null_value else c.v
         return _Val(T.BOOL, v, d=d)
+
+    def substring(self, e, syms) -> _Val:
+        """A view of the input row: the pointer plus the first byte, the
+        new length, and the output width (K15's ``out_w``) at launch."""
+        c = self.gen(e.children[0], syms)
+        ln = str(_int32(e.length)) if e.length is not None else c.w
+        ow = self.let("int", f"srt::substring_width({ln}, {c.w})")
+        s = self.tmp()
+        self.body.append(f"int {s};")
+        nl = self.let("int", f"srt::str_substring({c.l}, "
+                      f"{_int32(e.start)}, {ln}, &{s})")
+        return _Val(T.STRING, c.v, p=self.let("uint8_t*", f"{c.p} + {s}"),
+                    w=ow, l=nl, wspec=("sub", c.wspec, e.length), cw=nl)
+
+    def year(self, e, syms) -> _Val:
+        """The reference's ``_civil_from_days`` in 64-bit integers, every
+        division flooring (``k12_fdiv``)."""
+        self.helpers["k12_fdiv"] = _FDIV
+        c = self.gen(e.child, syms)
+        z = f"(long long){c.d}"
+        if e.child.dtype.id is T.TypeId.TIMESTAMP:
+            z = f"k12_fdiv({z}, {dte.MICROS_PER_DAY}LL)"
+        ll = "long long"
+        z = self.let(ll, f"{z} + 719468LL")
+        era = self.let(ll, f"k12_fdiv({z}, 146097LL)")
+        doe = self.let(ll, f"{z} - {era} * 146097LL")
+        yoe = self.let(ll, f"k12_fdiv({doe} - k12_fdiv({doe}, 1460LL) + "
+                       f"k12_fdiv({doe}, 36524LL) - k12_fdiv({doe}, "
+                       f"146096LL), 365LL)")
+        doy = self.let(ll, f"{doe} - (365LL * {yoe} + k12_fdiv({yoe}, 4LL)"
+                       f" - k12_fdiv({yoe}, 100LL))")
+        mp = self.let(ll, f"k12_fdiv(5LL * {doy} + 2LL, 153LL)")
+        m = self.let(ll, f"{mp} < 10LL ? {mp} + 3LL : {mp} - 9LL")
+        y = self.let("int32_t", f"(int32_t)({m} <= 2LL ? {yoe} + {era} * "
+                     f"400LL + 1LL : {yoe} + {era} * 400LL)")
+        return _Val(T.INT32, c.v, d=y)
 
     def like(self, e, syms) -> _Val:
         segs = e.segments
@@ -471,7 +544,7 @@ class SegmentProgram:
                 g.body.append(
                     f"{{ uint8_t* dst = a.o{j} + row * (long long)a.ow{j}; "
                     f"for (int q = 0; q < a.ow{j}; ++q) dst[q] = q < "
-                    f"{s.val.w} ? {s.val.p}[q] : 0; }}")
+                    f"{s.val.copy_width} ? {s.val.p}[q] : 0; }}")
                 g.body.append(f"a.ol{j}[row] = {s.val.l};")
                 self.outputs.append(Output("str", dt, None, s.val.wspec))
             else:
@@ -498,6 +571,9 @@ class SegmentProgram:
             return int(batch.columns[spec[1]].data.shape[1])
         if spec[0] == "const":
             return spec[1]
+        if spec[0] == "sub":
+            w = self._width(spec[1], batch)
+            return min(max(w if spec[2] is None else spec[2], 1), w)
         return max(self._width(spec[1], batch), self._width(spec[2], batch))
 
     def bytes_moved(self, batch: DeviceBatch) -> int:
@@ -610,6 +686,7 @@ def _render(g: _Codegen, what: str) -> str:
         f"  a.{name} = (int)ints[{i + 1}];"
         for i, (name, _b) in enumerate(g.int_fields)]
     body = "\n".join(f"    {line}" for line in g.body)
+    helpers = "".join(f"{code}\n" for code in g.helpers.values())
     comment = what.replace("\\", "/")
     return f"""// K12 — a fused row-local segment, generated by
 // spark_rapids_tpu_torch/ops/kernels/fused.py:
@@ -620,7 +697,7 @@ namespace {{
 
 {chr(10).join(consts)}
 
-struct K12Args {{
+{helpers}struct K12Args {{
   const int* num_rows;
 {chr(10).join(f"  {f};" for f in fields)}
   long long n;

@@ -12,7 +12,14 @@ ported (the host engine comes with a later slice).
 
 Key passes are int64 in "signed order": the reference's order-preserving
 uint64 key with its top bit flipped, so that torch's signed compare and
-sort order them as the reference orders the uint64 keys.
+sort order them as the reference orders the uint64 keys.  The sort
+(``lexsort_plain`` / ``lexsort_device``) follows each string key's byte
+passes with a pass over its lengths, so strings whose zero-padded bytes
+tie (``"a"``, ``"a\x00"``) order shorter first, as Spark's binary order
+does; the reference's encoding has no length pass and keeps such rows in
+input order, which splits groups and misses join matches (ROADMAP C.6).
+``key_passes`` and ``key_passes_device`` stay the reference's encoding
+(range-exchange bounds, which place tied strings in one partition).
 """
 from __future__ import annotations
 
@@ -125,11 +132,34 @@ def sort_permutation(passes: Sequence[torch.Tensor]) -> torch.Tensor:
     return order.to(torch.int32)
 
 
+def _with_lengths(key_cols, descending, nulls_first):
+    """The sort's keys: each string key followed by its lengths, an INT32
+    key in the string's direction that is never null: a null (or
+    padding) row reads the first valid row's length, as the string's own
+    null pass already placed it, so the pass adds no live digit where
+    the valid rows' lengths do not vary (Q1's one-byte flags)."""
+    descending, nulls_first = _defaults(key_cols, descending, nulls_first)
+    cols, desc, nf = [], [], []
+    for c, d, f in zip(key_cols, descending, nulls_first):
+        cols.append(c)
+        desc.append(d)
+        nf.append(f)
+        if c.dtype.is_string:
+            lengths = c.lengths.to(torch.int32)
+            first = lengths[torch.argmax(c.validity.to(torch.uint8))]
+            lengths = torch.where(c.validity, lengths, first)
+            cols.append(DeviceColumn(T.INT32, lengths,
+                                     torch.ones_like(c.validity)))
+            desc.append(d)
+            nf.append(f)
+    return cols, desc, nf
+
+
 def lexsort_plain(key_cols: Sequence[DeviceColumn],
                   descending: Optional[List[bool]] = None,
                   nulls_first: Optional[List[bool]] = None,
                   pad_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    passes = key_passes(key_cols, descending, nulls_first)
+    passes = key_passes(*_with_lengths(key_cols, descending, nulls_first))
     if pad_valid is not None:
         passes.insert(0, _rank_pass(~pad_valid))
     return sort_permutation(passes)
@@ -188,12 +218,14 @@ def lexsort_device(key_cols: Sequence[DeviceColumn],
                    kernels: Optional[B.Kernels] = None) -> torch.Tensor:
     """K1: stable multi-key argsort; padding rows (``pad_valid`` False)
     sort last.  Returns an int32 permutation, bit-identical to the
-    reference's ``lexsort_device``."""
+    reference's ``lexsort_device`` but where string keys tie in their
+    zero-padded bytes (broken by length here)."""
     probe = key_cols[0].data if key_cols else pad_valid
     kernels = B.kernels_for(probe, kernels)
     if kernels is None:
         return lexsort_plain(key_cols, descending, nulls_first, pad_valid)
-    descending, nulls_first = _defaults(key_cols, descending, nulls_first)
+    key_cols, descending, nulls_first = _with_lengths(key_cols, descending,
+                                                      nulls_first)
     lib = kernels.library("sort")
     n = probe.shape[0]
     st = kernels.stream(probe)

@@ -1,20 +1,21 @@
-"""K8 — string comparison, and K13 — string search, over the
-fixed-width byte-matrix encoding.
+"""K8 — string comparison, K13 — string search, and K15 — substring,
+over the fixed-width byte-matrix encoding.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py``:
 ``equals`` (58) and ``compare`` (36) with the padding rule of ``_pad_to``
 (18) and ``_masked`` (28) as K8 (``csrc/strings.cu``); ``_find`` (134),
 ``contains`` (156), ``startswith`` (160), ``endswith`` (174) and
 ``locate_from`` (190) as K13 (``csrc/string_search.cu``), with the needle
-in the launch's parameters (at most ``MAX_NEEDLE_BYTES``).  A string is
+in the launch's parameters (at most ``MAX_NEEDLE_BYTES``); ``substring``
+(93) as K15 (``csrc/string_transform.cu``).  A string is
 ``(uint8[n, w] bytes, int32[n] lengths)``; either side of K8 may hold one
 row (a literal), which is read with a row stride of 0 instead of being
 copied ``n`` times.  The wrappers launch the kernels for CUDA tensors and
 take the plain PyTorch version only for CPU tensors, unless ``kernels=``
 names the libraries to launch.
 
-Left out, for later slices: ``upper``, ``lower``, ``length``,
-``substring``, ``concat``, ``locate`` (with a scalar start),
+Left out, for later slices (ROADMAP B.20): ``upper``, ``lower``,
+``length``, ``concat``, ``locate`` (with a scalar start),
 ``substring_index``, ``replace`` and ``trim``.
 """
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 
 from . import _build as B
 
-#: CUDA kernels launched by K8 and K13
+#: CUDA kernels launched by K8, K13 and K15
 STRING_COMPARE_LAUNCHES = B.LaunchCounter("string_compare")
 STRING_SEARCH_LAUNCHES = B.LaunchCounter("string_search")
+STRING_TRANSFORM_LAUNCHES = B.LaunchCounter("string_transform")
 
 #: the longest needle K13 takes in its launch parameters
 #: (``csrc/string_search.cu:NEEDLE_MAX``)
@@ -258,3 +260,60 @@ def locate_from(bm, lengths, needle: bytes, start: torch.Tensor,
     if kernels is None:
         return locate_from_plain(bm, lengths, needle, start)
     return _search(bm, lengths, needle, "locate_from", kernels, start)
+
+
+# ---------------------------------------------------------------------------
+# K15: substring
+# ---------------------------------------------------------------------------
+def _substring_args(w: int, start: int, sub_len: int, out_w: int):
+    """``start`` and ``sub_len`` clamped into [-w - 1, w] and [0, w]
+    (the same result: a start past either end clamps to it, and no
+    substring outlasts the row), so both fit a 32-bit int."""
+    if out_w < 1:
+        raise ValueError(f"substring's out_w must be at least 1, not "
+                         f"{out_w}")
+    return max(-w - 1, min(int(start), w)), max(0, min(int(sub_len), w))
+
+
+def substring_plain(bm, lengths, start: int, sub_len: int, out_w: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``take_along_axis`` formulation: the 0-based start
+    ``s`` (negative ``start`` counts from the end), ``e = min(s +
+    sub_len, len)``, bytes ``[s, e)`` into ``out_w`` columns, zero past
+    ``e - s``."""
+    n, w = bm.shape
+    start, sub_len = _substring_args(w, start, sub_len, out_w)
+    lengths = lengths.to(torch.int32)
+    if start < 0:
+        s = torch.clamp(lengths + start, min=0)
+    else:
+        s = torch.clamp(lengths, max=start)
+    e = torch.minimum(s + sub_len, lengths)
+    new_len = (e - s).to(torch.int32)
+    pos = torch.arange(out_w, dtype=torch.int32, device=bm.device)[None, :]
+    src = torch.clamp(s[:, None] + pos, 0, w - 1).to(torch.int64)
+    gathered = torch.gather(bm, 1, src)
+    out = torch.where(pos < new_len[:, None], gathered,
+                      torch.zeros((), dtype=torch.uint8, device=bm.device))
+    return out.to(torch.uint8), new_len
+
+
+def substring(bm, lengths, start: int, sub_len: int, out_w: int,
+              kernels: Optional[B.Kernels] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15: (uint8[n, out_w], int32[n]), each row's bytes from the
+    0-based ``start`` (negative: from the end) for ``sub_len`` bytes,
+    zero padded, and the new lengths."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return substring_plain(bm, lengths, start, sub_len, out_w)
+    n, w = bm.shape
+    start, sub_len = _substring_args(w, start, sub_len, out_w)
+    bm = bm.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((n, out_w), dtype=torch.uint8, device=bm.device)
+    new_len = torch.empty(n, dtype=torch.int32, device=bm.device)
+    B.launch(STRING_TRANSFORM_LAUNCHES, kernels.library("string_transform"),
+             "k15_substring", B.ptr(bm), B.ptr(lengths), w, n, start,
+             sub_len, out_w, B.ptr(out), B.ptr(new_len), kernels.stream(bm))
+    return out, new_len

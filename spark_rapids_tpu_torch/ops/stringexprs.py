@@ -1,8 +1,9 @@
-"""String predicates with a literal needle or pattern.
+"""String predicates with a literal needle or pattern, and substring.
 
 Counterpart of ``spark_rapids_tpu/ops/stringexprs.py:_NeedlePredicate``,
 ``Contains``, ``StartsWith``, ``EndsWith`` (272-330) and ``Like``
-(396-500), on K13 (``ops/kernels/stringkernels.py``).  ``Like`` takes
+(396-500), on K13 (``ops/kernels/stringkernels.py``), and ``Substring``
+(156-197) on K15.  ``Like`` takes
 patterns built from literal text and ``%`` and lowers them as the
 reference does: an exact pattern is startswith plus a length test;
 otherwise the first segment is a prefix, each middle segment the greedy
@@ -11,9 +12,11 @@ segment a suffix that must not overlap them.  A pattern that uses ``_``
 is tagged off the device with its reason: the reference evaluates it
 with the host regex, and the host engine is not ported yet, so planning
 such a query raises ``NotImplementedError``.  A needle longer than K13's
-``MAX_NEEDLE_BYTES`` is tagged off the device likewise.  The other
-string functions (length, substring, concat, case maps, replace, trim,
-locate with a scalar start) come with a later slice.
+``MAX_NEEDLE_BYTES`` is tagged off the device likewise.  ``Substring``
+works on byte positions, as the reference's device path does (exact for
+ASCII; a multi-byte UTF-8 row is cut between bytes there too).  The
+other string functions (length, concat, case maps, replace, trim,
+substring_index, locate with a scalar start) come with a later slice.
 """
 from __future__ import annotations
 
@@ -153,3 +156,38 @@ class Like(Expression):
                     "host engine is not ported yet")
         return (f"a LIKE segment is longer than the {sk.MAX_NEEDLE_BYTES} "
                 "bytes K13 takes")
+
+
+class Substring(Expression):
+    """substring(str, pos, len): ``pos`` is 1-based, 0 acts as 1 and a
+    negative value counts from the end; ``length`` None means to the
+    end.  The output is ``min(max(len, 1), width)`` bytes wide (the
+    input's width when ``length`` is None); validity passes through."""
+
+    def __init__(self, child, pos: int, length: Optional[int] = None):
+        super().__init__([child])
+        self.pos = int(pos)
+        self.length = int(length) if length is not None else None
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def start(self) -> int:
+        """The 0-based start K15 takes (negative: from the end)."""
+        return self.pos - 1 if self.pos > 0 else (0 if self.pos == 0
+                                                  else self.pos)
+
+    def out_width(self, width: int) -> int:
+        ln = self.length if self.length is not None else width
+        return min(max(ln, 1), width)
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        w = c.data.shape[1]
+        ln = self.length if self.length is not None else w
+        bm, lens = sk.substring(c.data, c.lengths, self.start, ln,
+                                self.out_width(w))
+        return DeviceColumn(T.STRING, bm, c.validity, lens)

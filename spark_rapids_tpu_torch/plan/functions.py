@@ -5,9 +5,9 @@ Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
 ``min``/``max``/``first``/``last``, and ``Column`` with arithmetic,
 comparison, boolean, alias, null-test and sort-order operators, ``isin``
 with literal members and the string predicates ``contains``/
-``startswith``/``endswith``/``like``.  ``isin`` with column members,
-``when``/``otherwise``, and the other string, math and date functions
-come with later slices.
+``startswith``/``endswith``/``like``, ``substring`` and ``year``.
+``isin`` with column members, ``when``/``otherwise``, and the other
+string, math and date functions come with later slices.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Any, Optional
 from ..ops import aggregates as agg
 from ..ops import arithmetic as ar
 from ..ops import conditional as cond
+from ..ops import datetimeexprs as dte
 from ..ops import predicates as pred
 from ..ops import stringexprs as st
 from ..ops.expression import (Alias, Expression, Literal,
@@ -182,7 +183,6 @@ def avg(c) -> AggColumn:
     return AggColumn(agg.Average(_col_e(c)))
 
 
-
 def min(c) -> AggColumn:  # noqa: A001
     return AggColumn(agg.Min(_col_e(c)))
 
@@ -197,3 +197,11 @@ def first(c, ignore_nulls: bool = False) -> AggColumn:
 
 def last(c, ignore_nulls: bool = False) -> AggColumn:
     return AggColumn(agg.Last(_col_e(c), ignore_nulls))
+
+
+def substring(c, pos: int, length_: int) -> Column:
+    return Column(st.Substring(_col_e(c), pos, length_))
+
+
+def year(c) -> Column:
+    return Column(dte.Year(_col_e(c)))

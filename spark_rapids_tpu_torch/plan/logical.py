@@ -4,9 +4,11 @@ Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
 ported so far: ``LocalRelation``, ``Filter``, ``Project``,
 ``Aggregate``, ``Join``, ``Sort``, ``Limit``, ``Repartition`` and
 ``Window``, and a ``DataFrame`` with ``filter``, ``with_column``,
-``select``, ``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
-``repartition``, ``distinct``, ``with_window``, ``collect`` and
-``explain``.  Unions, file scans and writes come with later slices.
+``with_column_renamed``, ``select``, ``drop``, ``group_by().agg``,
+``agg``, ``join``, ``sort``, ``limit``, ``repartition``, ``distinct``,
+``with_window``, ``collect`` and ``explain``.  Unions, explode,
+``sort_within_partitions``, file scans and writes come with later
+slices.
 """
 from __future__ import annotations
 
@@ -308,6 +310,16 @@ class DataFrame:
         aggregate."""
         keys = [UnresolvedAttribute(n) for n in self.columns]
         return DataFrame(self.session, Aggregate(self.plan, keys, []))
+
+    def drop(self, *names) -> "DataFrame":
+        """Every column but ``names`` (all columns of a name go)."""
+        keep = [n for n in self.columns if n not in names]
+        return self.select(*keep)
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [Alias(UnresolvedAttribute(n), new) if n == old
+                 else UnresolvedAttribute(n) for n in self.columns]
+        return DataFrame(self.session, Project(self.plan, exprs))
 
     def with_window(self, name: str, window_expr) -> "DataFrame":
         """Add column ``name`` = ``window_expr`` (``over(...)``); each

@@ -253,6 +253,7 @@ class TpuOverrides:
 def _register_expression_rules(reg: RuleRegistry) -> None:
     from ..ops import arithmetic as ar
     from ..ops import conditional as cond
+    from ..ops import datetimeexprs as dte
     from ..ops import expression as ex
     from ..ops import predicates as pr
     from ..ops import stringexprs as st
@@ -267,8 +268,12 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
                 pr.Or, pr.IsNull, pr.IsNotNull, pr.InSet):
         reg.register_expr(cls)
     reg.register_expr(cond.If)
-    for cls in (st.Contains, st.StartsWith, st.EndsWith, st.Like):
+    for cls in (st.Contains, st.StartsWith, st.EndsWith, st.Like,
+                st.Substring):
         reg.register_expr(cls)
+    # the reference registers both without a tag or an incompat flag
+    # (plan/overrides.py:414-426)
+    reg.register_expr(dte.Year)
 
 
 def _register_exec_rules(reg: RuleRegistry) -> None:

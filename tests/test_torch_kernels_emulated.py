@@ -1,12 +1,14 @@
-"""The CUDA kernels K1–K14 of spark_rapids_tpu_torch, built for the CPU
+"""The CUDA kernels K1–K15 of spark_rapids_tpu_torch, built for the CPU
 and held against their plain PyTorch versions on the same inputs (2,100
 rows: two 2,048-row tiles, so the cross-tile scans and carries run; the
 join's two sides together).  Exact, except float sums (rel 1e-12; K14's
 float window sums rel 1e-9 of max(|result|, sum of |v|), as a prefix-sum
 difference carries the prefix's rounding).
-K12's generated sources (Q12's lineitem segment, Q13's orders segment
-and one segment over every expression the code generator covers) are
-built once each for the module.
+K12's generated sources (Q12's lineitem segment, Q13's orders segment,
+one segment over every expression the code generator covers, and one
+with Substring and Year) are built once each for the module; a copy of
+the Year segment whose flooring division truncates instead must differ
+from the plain version on dates before 1970.
 
 ``_build_emulated`` compiles every ``csrc/*.cu`` with the host C++
 compiler against ``csrc/emulator/cuda_runtime.h`` (one thread per
@@ -174,13 +176,15 @@ def test_k1_k2_match_plain(emu, desc):
     S.SORT_LAUNCHES.reset()
     got = S.lexsort_device(keys, order, nfs, _pad(), kernels=emu)
     _same(got, want)
-    # one CUDA kernel per encoded column and for the padding, one
-    # histogram, and per pass with a live digit one key gather plus 3
-    # launches per live digit
-    passes = [S._rank_pass(~_pad())] + S.key_passes(keys, order, nfs)
+    # one CUDA kernel per encoded column (the string key's lengths are
+    # a column of their own) and for the padding, one histogram, and per
+    # pass with a live digit one key gather plus 3 launches per live
+    # digit
+    cols, descs, nfs2 = S._with_lengths(keys, order, nfs)
+    passes = [S._rank_pass(~_pad())] + S.key_passes(cols, descs, nfs2)
     digits = [[len(torch.unique((p >> (8 * d)) & 0xFF)) > 1
                for d in range(8)] for p in passes]
-    assert S.SORT_LAUNCHES.count == 3 + 1 + sum(
+    assert S.SORT_LAUNCHES.count == len(cols) + 2 + sum(
         any(ds) + 3 * sum(ds) for ds in digits)
     sorted_keys = [G.gather_column_plain(k, want) for k in keys]
     pad_sorted = _pad()[want.long()]
@@ -482,6 +486,33 @@ def test_k13_matches_plain(emu):
 
 
 # --------------------------------------------------------------------------
+# K15: substring
+# --------------------------------------------------------------------------
+def test_k15_matches_plain(emu):
+    """Every start and length shape, by the row kernel (out_w <= 4) and
+    the byte kernel, over rows of every length (15 bytes wide, as
+    c_phone) with zero padding."""
+    rng = np.random.default_rng(15)
+    w = 15
+    ln = rng.integers(0, w + 1, N).astype(np.int32)
+    bm = rng.integers(1, 256, (N, w)).astype(np.uint8)
+    bm = np.where(np.arange(w)[None, :] < ln[:, None], bm, 0).astype(
+        np.uint8)
+    bm, ln = torch.from_numpy(bm), torch.from_numpy(ln)
+    SK.STRING_TRANSFORM_LAUNCHES.reset()
+    calls = 0
+    for start in (-w - 3, -1, 0, 5, w + 2):
+        for sub_len in (0, 2, 8, w + 4):
+            out_w = min(max(sub_len, 1), w)
+            got = SK.substring(bm, ln, start, sub_len, out_w, kernels=emu)
+            want = SK.substring(bm, ln, start, sub_len, out_w)
+            _same(got[0], want[0])
+            _same(got[1], want[1])
+            calls += 1
+    assert SK.STRING_TRANSFORM_LAUNCHES.count == calls
+
+
+# --------------------------------------------------------------------------
 # K12: generated fused segments
 # --------------------------------------------------------------------------
 def _segment(sess, df):
@@ -551,6 +582,75 @@ def test_k12_every_expression_matches_plain(emu):
 
     sess, df, batch = every_expression_frame()
     _check_segment(emu, _segment(sess, df), batch)
+
+
+def _substring_year_frame():
+    """(session, DataFrame, device batch): Q22's customer segment shape
+    (a substring filtered by ``isin``) with Year of a date and of a
+    timestamp and a substring of every start kind, over 2,100 rows with
+    nulls, dates from before year 0 (where the day count plus 719,468 is
+    negative, so truncating and flooring divisions differ) to 9999, and
+    timestamps on both sides of midnight before the epoch."""
+    from spark_rapids_tpu_torch import Session
+    from spark_rapids_tpu_torch import f as F
+    from spark_rapids_tpu_torch.data.column import host_to_device
+    from spark_rapids_tpu_torch.ops.stringexprs import Substring
+
+    rng = np.random.default_rng(17)
+    phones = [None if i % 97 == 0 else
+              f"{a}-{b}" + "x" * int(e) for i, (a, b, e) in enumerate(zip(
+                  rng.integers(10, 35, N), rng.integers(100, 1000, N),
+                  rng.integers(0, 9, N)))]
+    days = rng.integers(-1_000_000, 2932897, N)
+    micros = days * 86_400_000_000 + rng.integers(-10 ** 11, 10 ** 11, N)
+    micros[:8] = [-1, -86_400_000_000, -86_400_000_001, 0, 1, -10 ** 6,
+                  -31_536_000_000_000, -31_536_000_000_001]
+    data = {"k": list(range(N)), "s": phones, "d": days.tolist(),
+            "t": micros.tolist()}
+    schema = T.Schema([T.Field("k", T.INT64), T.Field("s", T.STRING),
+                       T.Field("d", T.DATE32), T.Field("t", T.TIMESTAMP)])
+    sess = Session(device="cpu")
+    df = sess.create_dataframe(data, schema, n_partitions=1)
+    sub = [F.Column(Substring(F.col("s").expr, p, n)).alias(f"s{i}")
+           for i, (p, n) in enumerate([(-3, None), (0, 4), (5, 100),
+                                       (-20, 2)])]
+    q = (df.with_column("cc", F.substring(F.col("s"), 1, 2))
+         .filter(F.col("cc").isin("13", "31", "23", "29", "30", "18", "17")
+                 | (F.year(F.col("d")) < F.lit(1970)))
+         .select("k", "cc", F.year(F.col("d")).alias("y"),
+                 F.year(F.col("t")).alias("yt"), *sub))
+    batch = host_to_device(df.plan.batches[0], 128, "cpu")
+    return sess, q, batch
+
+
+def test_k12_substring_and_year_match_plain(emu):
+    sess, df, batch = _substring_year_frame()
+    seg = _segment(sess, df)
+    assert "Substring(s)" in seg.describe() and "Year(d)" in seg.describe()
+    keep = _check_segment(emu, seg, batch)
+    assert 0 < int(keep.sum()) < int(batch.num_rows)
+
+
+def test_k12_year_with_truncating_division_differs(emu):
+    """The mutation check of the Year rule: the same segment with
+    ``k12_fdiv`` truncating (C++ ``/``) disagrees with the plain
+    version."""
+    import copy
+
+    from spark_rapids_tpu_torch.ops.kernels import fused as FK
+
+    sess, df, batch = _substring_year_frame()
+    seg = _segment(sess, df)
+    prog = copy.copy(seg.program)
+    floor = "return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;"
+    assert floor in prog.source
+    prog.source = prog.source.replace(floor, "return q;")
+    prog.key = B.generated_key(prog.source)
+    want, _k = FK.segment_plain(prog, batch)
+    got, _k = FK.run_segment(prog, batch, kernels=emu)
+    for name in ("y", "yt"):
+        j = [f.name for f in prog.schema].index(name)
+        assert not torch.equal(got.columns[j].data, want.columns[j].data)
 
 
 # --------------------------------------------------------------------------
