@@ -55,6 +55,23 @@
    runs inside its fused segment), each exchange's per-partition rows,
    the batch metrics, and cold, warm and profiled walls; then Q22 once
    with fusion off, where its substring runs on K15;
+2e. the text ingest: lineitem's Q1/Q6 columns and l_orderkey at SF1 as
+   dbgen prints them (``tpch_datagen.lineitem_text``, every field a
+   string column), cast to TPC-H's types by one ``select``
+   (``benchmarks/tpch_text.py``) under the three cast confs, then Q1 and
+   Q6 at two partitions and at one (the cast Project fused with each
+   query's Filter: K12 launches, K16 stays idle) and at two with fusion
+   off (K16 parses, K12 idle), each against ``tpch_oracle``'s answer on
+   the typed columns; the cast table read back through
+   ``_result_batch()`` (keys, quantities, discounts, taxes and dates
+   exact, l_extendedprice within 1 ULP, the 1-ULP rows counted);
+2f. the text export: the typed SF1 lineitem formatted and concatenated
+   into dbgen's line by one ``select`` (K17 formats, K18 concatenates;
+   K12 idle) and again behind a filter on the ship mode (one fused
+   segment: K12, K17 and K18 idle), at two partitions and at one, every
+   line byte for byte, lengths included, against
+   ``tpch_datagen.export_lines``; both with launch counts, table sizes
+   and cold, warm and profiled walls;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -284,15 +301,20 @@ def main() -> int:
     from spark_rapids_tpu_torch import Session
     from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_datagen,
                                                    tpch_oracle as O,
+                                                   tpch_text as TT,
                                                    tpcxbb, tpcxbb_datagen)
+    from spark_rapids_tpu_torch.data import strings as dstrings
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
+                                                    HostBatch, HostColumn,
                                                     bucket_rows,
                                                     host_to_device)
+    from spark_rapids_tpu_torch.types import STRING, Field, Schema
     from spark_rapids_tpu_torch.exec.joins import TpuHashJoinExec
     from spark_rapids_tpu_torch.ops.expression import (Literal,
                                                        as_device_column)
     from spark_rapids_tpu_torch.exec.fused import TpuFusedSegmentExec
     from spark_rapids_tpu_torch.ops.kernels import _build
+    from spark_rapids_tpu_torch.ops.kernels import castkernels as CK
     from spark_rapids_tpu_torch.ops.kernels import fused as FK
     from spark_rapids_tpu_torch.ops.kernels import gather as G
     from spark_rapids_tpu_torch.ops.kernels import join as J
@@ -328,6 +350,19 @@ def main() -> int:
         + "; ".join(f"Q{q} " + ", ".join(
             f"{t} {b.num_rows} x {len(b.schema)}" for t, b in ts.items())
             for q, ts in host.items()))
+    t0 = time.perf_counter()
+    text_hb, typed_hb = tpch_datagen.lineitem_text(SF, SEED, cols=all_cols)
+    export_hb = tpch_datagen.export_table(SF, SEED, cols=all_cols)
+    want_lines = tpch_datagen.export_lines(export_hb)
+    text_bytes = sum(c.data.nbytes + c.lengths.nbytes
+                     for c in text_hb.columns)
+    log(f"text tables SF{SF:g} generated in {time.perf_counter() - t0:.1f} "
+        f"s: ingest {text_hb.num_rows} rows x {len(text_hb.schema)} string "
+        f"columns, widths {[c.data.shape[1] for c in text_hb.columns]}, "
+        f"{text_bytes} bytes of text and lengths; export {export_hb.num_rows}"
+        f" rows x {len(export_hb.schema)} columns, expected lines "
+        f"{want_lines[0].shape[1]} bytes wide at most, "
+        f"{int(want_lines[1].sum())} bytes in all")
     sess = Session()
     torch.zeros(1, device=sess.device)  # CUDA context outside the timings
     tables = {1: {"lineitem": sess.create_dataframe(hb, n_partitions=1)}}
@@ -348,6 +383,20 @@ def main() -> int:
                     tpch.QUERIES[q](cpu_tables).plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (q, p.program))
+    text_planner = Session(TT.CAST_CONF, device="cpu")
+    for n_part in (1, 2):
+        typed = TT.typed_select(text_planner.create_dataframe(
+            text_hb, n_partitions=n_part))
+        plans = [tpch.QUERIES[q]({"lineitem": typed}).plan for q in (1, 6)]
+        plans.append(TT.filtered_export(text_planner.create_dataframe(
+            export_hb, n_partitions=n_part)).plan)
+        for what, plan in zip(("text q1", "text q6", "export"), plans):
+            for p in walk_plan(text_planner.physical_plan(plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    segments.setdefault(p.program.key, (what, p.program))
+    require({"text q1", "text q6", "export"} <=
+            {q for q, _p in segments.values()},
+            "the text ingest or export planned no fused segment")
     require(sorted(q for q, _p in segments.values() if q in FUSED)
             == sorted(FUSED),
             f"expected one segment source per fused query of Q1-Q14, got "
@@ -376,7 +425,12 @@ def main() -> int:
                 "K12": [FK.FUSED_LAUNCHES],
                 "K13": [SK.STRING_SEARCH_LAUNCHES],
                 "K14": [W.WINDOW_LAUNCHES],
-                "K15": [SK.STRING_TRANSFORM_LAUNCHES]}
+                "K15": [SK.STRING_TRANSFORM_LAUNCHES],
+                "K16": [CK.CAST_PARSE_LAUNCHES],
+                "K17": [CK.CAST_FORMAT_LAUNCHES],
+                "K18": [SK.STRING_CONCAT_LAUNCHES]}
+    text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
+                    SK.STRING_CONCAT_LAUNCHES]
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -407,9 +461,9 @@ def main() -> int:
         13: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
         14: [SK.STRING_COMPARE_LAUNCHES],
     }
-    for q in must_not_launch:  # no window, no substring
+    for q in must_not_launch:  # no window, no substring, no cast, no concat
         must_not_launch[q] += [W.WINDOW_LAUNCHES,
-                               SK.STRING_TRANSFORM_LAUNCHES]
+                               SK.STRING_TRANSFORM_LAUNCHES] + text_kernels
     # partial aggregates a query runs (Q13 two: per customer, per count)
     # and join pairs
     n_partial = {13: 2}
@@ -816,7 +870,8 @@ def main() -> int:
     # runs inside its K12 segment, so K15 stays idle with fusion on
     later_must = [S.SORT_LAUNCHES, G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES,
                   J.JOIN_PROBE_LAUNCHES, FK.FUSED_LAUNCHES]
-    later_must_not = [W.WINDOW_LAUNCHES, SK.STRING_TRANSFORM_LAUNCHES]
+    later_must_not = [W.WINDOW_LAUNCHES, SK.STRING_TRANSFORM_LAUNCHES] \
+        + text_kernels
     for q in LATER:
         torch.cuda.synchronize()
         for c in all_counters:
@@ -901,6 +956,176 @@ def main() -> int:
     for q in LATER:
         profile_query(f"Q{q} (two partitions)", lambda: run_later(q))
 
+    # ---- 2e. the text ingest: dbgen's text cast to TPC-H's types --------
+    cast_sess = Session(TT.CAST_CONF)
+    cast_unfused = Session({**TT.CAST_CONF,
+                            "spark.rapids.tpu.sql.fusion.enabled": False})
+    want_text = {1: O.numpy_q1(typed_hb), 6: O.numpy_q6(typed_hb)}
+    tsd = typed_hb.column("l_shipdate").data
+    log(f"text ingest sizes (numpy): {typed_hb.num_rows} lines; Q1's filter "
+        f"keeps {int((tsd <= O._days(1998, 9, 2)).sum())}, Q6's 1994 "
+        f"shipdates {int(((tsd >= O._days(1994, 1, 1)) & (tsd < O._days(1995, 1, 1))).sum())}")
+    text_runs = {}      # cell -> callable
+    text_launches = {}  # cell -> kernel -> CUDA kernels in its cold run
+    text_frames = {}
+    for label, tsess, n_part in (("2", cast_sess, 2), ("1", cast_sess, 1),
+                                 ("2 fusion off", cast_unfused, 2)):
+        typed = TT.typed_select(tsess.create_dataframe(
+            text_hb, n_partitions=n_part))
+        text_frames[label] = typed
+        for q in (1, 6):
+            cell = f"text q{q}/{label}"
+            text_runs[cell] = (lambda q=q, typed=typed: tpch.QUERIES[q](
+                {"lineitem": typed}).collect())
+            torch.cuda.synchronize()
+            for c in all_counters:
+                c.reset()
+            t0 = time.perf_counter()
+            rows = text_runs[cell]()
+            cold[cell] = time.perf_counter() - t0
+            text_launches[cell] = {k: sum(c.count for c in cs)
+                                   for k, cs in counters.items()}
+            log(f"{cell} launches: {text_launches[cell]} "
+                f"{ {c.name: c.count for c in all_counters} }")
+            fused = "fusion off" not in label
+            require((FK.FUSED_LAUNCHES.count > 0) == fused and
+                    (CK.CAST_PARSE_LAUNCHES.count > 0) != fused,
+                    f"{cell}: the parses did not run in K12 alone (fusion "
+                    f"on) or in K16 alone (fusion off)")
+            for c in (CK.CAST_FORMAT_LAUNCHES, SK.STRING_CONCAT_LAUNCHES):
+                require(c.count == 0, f"{cell}: wrapper {c.name} launched")
+            log(f"{cell} batches: " + ", ".join(
+                f"{k} {v}" for k, v in sorted(tsess.last_metrics.items())
+                if "Batches" in k))
+            check_rows(rows, want_text[q], cell)
+            log(f"{cell} rows match numpy on the typed columns: {rows}")
+    log("text q1/2 device plan:\n" + str(cast_sess.physical_plan(
+        tpch.q1({"lineitem": text_frames["2"]}).plan)))
+
+    # the cast table itself, read back (a lone Project: K16)
+    for c in all_counters:
+        c.reset()
+    t0 = time.perf_counter()
+    cast_tb = text_frames["2"]._result_batch()
+    cast_table_s = time.perf_counter() - t0
+    require(CK.CAST_PARSE_LAUNCHES.count > 0,
+            "the cast table did not parse on K16")
+    got_cols = {f.name: c for f, c in zip(cast_tb.schema, cast_tb.columns)}
+    for f, want_c in zip(typed_hb.schema, typed_hb.columns):
+        g = got_cols[f.name]
+        require(g.validity is None or bool(g.validity.all()),
+                f"cast table: nulls in {f.name}")
+        if f.name == "l_extendedprice":
+            ulps = np.abs(g.data.view(np.int64) - want_c.data.view(np.int64))
+            require(int(ulps.max()) <= 1,
+                    f"cast table: l_extendedprice {int(ulps.max())} ULPs off")
+            log(f"cast table: l_extendedprice within 1 ULP of the typed "
+                f"column; {int((ulps == 1).sum())} of {len(ulps)} rows "
+                f"({(ulps == 1).mean():.4f}) 1 ULP off")
+        elif f.dtype.is_string:
+            require(np.array_equal(g.data, want_c.data) and
+                    np.array_equal(g.lengths, want_c.lengths),
+                    f"cast table: {f.name} differs")
+        else:
+            require(g.data.dtype == want_c.data.dtype and
+                    np.array_equal(g.data, want_c.data),
+                    f"cast table: {f.name} differs")
+    log(f"cast table read back in {cast_table_s * 1e3:.1f} ms: "
+        f"{cast_tb.num_rows} rows; l_orderkey, l_quantity, l_discount, "
+        f"l_tax, l_shipdate and the flags exact")
+
+    # ---- 2f. the text export: typed lineitem back to dbgen's text -------
+    smode = export_hb.column("l_shipmode")
+    not_air = O._text(smode) != b"AIR"
+    export_frames = {n: cast_sess.create_dataframe(export_hb, n_partitions=n)
+                     for n in (2, 1)}
+
+    def check_lines(out, keep, what):
+        line = out.columns[0]
+        require(out.num_rows == int(keep.sum()) and (
+            line.validity is None or bool(line.validity.all())),
+            f"{what}: {out.num_rows} lines or nulls")
+        wbm, wln = want_lines[0][keep], want_lines[1][keep]
+        w = line.data.shape[1]
+        require(w >= wbm.shape[1] and np.array_equal(line.lengths, wln)
+                and np.array_equal(line.data[:, :wbm.shape[1]], wbm)
+                and not line.data[:, wbm.shape[1]:].any(),
+                f"{what}: the lines differ from numpy's bytes")
+        return w
+
+    for n_part in (2, 1):
+        for kind, build, keep in (("export", TT.export_select,
+                                   np.ones(export_hb.num_rows, bool)),
+                                  ("export filtered", TT.filtered_export,
+                                   not_air)):
+            cell = f"{kind}/{n_part}"
+            df = build(export_frames[n_part])
+            text_runs[cell] = df._result_batch
+            torch.cuda.synchronize()
+            for c in all_counters:
+                c.reset()
+            t0 = time.perf_counter()
+            out = df._result_batch()
+            cold[cell] = time.perf_counter() - t0
+            text_launches[cell] = {k: sum(c.count for c in cs)
+                                   for k, cs in counters.items()}
+            log(f"{cell} launches: {text_launches[cell]} "
+                f"{ {c.name: c.count for c in all_counters} }")
+            fused = kind == "export filtered"
+            for c, live in ((FK.FUSED_LAUNCHES, fused),
+                            (CK.CAST_FORMAT_LAUNCHES, not fused),
+                            (SK.STRING_CONCAT_LAUNCHES, not fused),
+                            (CK.CAST_PARSE_LAUNCHES, False)):
+                require((c.count > 0) == live, f"{cell}: wrapper {c.name} "
+                        f"launched {c.count} kernels")
+            w = check_lines(out, keep, cell)
+            log(f"{cell}: {out.num_rows} lines byte for byte equal to "
+                f"numpy's ({w} bytes wide, {int(out.columns[0].lengths.sum())}"
+                f" bytes of text)")
+    log("export filtered/2 device plan:\n" + str(cast_sess.physical_plan(
+        TT.filtered_export(export_frames[2]).plan)))
+
+    # one more run of the ingest and the filtered export, keeping each
+    # fused segment's first input and the export's K17 and K18 calls
+    text_seg_inputs = {}
+    fmt_calls, concat_calls = {}, []
+    fmt_impl, concat_impl = CK._format, SK.concat
+
+    def recording_text_segment(self, batch):
+        text_seg_inputs.setdefault(self.program.key, batch)
+        return seg_impl(self, batch)
+
+    def rec_format(kind, values, validity, kernels):
+        fmt_calls.setdefault(kind, (values, validity))
+        return fmt_impl(kind, values, validity, kernels)
+
+    def rec_concat(parts, kernels=None):
+        if not concat_calls:
+            concat_calls.append(list(parts))
+        return concat_impl(parts, kernels)
+
+    TpuFusedSegmentExec._compute = recording_text_segment
+    CK._format, SK.concat = rec_format, rec_concat
+    try:
+        for cell in ("text q1/2", "export filtered/2", "export/2"):
+            text_runs[cell]()
+    finally:
+        TpuFusedSegmentExec._compute = seg_impl
+        CK._format, SK.concat = fmt_impl, concat_impl
+
+    for cell, fn in text_runs.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        log(f"{cell} SF{SF:g} wall: cold {cold[cell] * 1e3:.1f} ms, warm "
+            f"{warm[cell] * 1e3:.1f} ms (median of 3) on {card}")
+    for cell, fn in text_runs.items():
+        profile_query(cell, fn)
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -936,7 +1161,13 @@ def main() -> int:
         mains = {"K9": [launches2], "K10": [launches2], "K11": [launches2],
                  "K12": [launches, {q: launches2[q] for q in LATER}],
                  "K14": [launches, launches2],
-                 "K15": [{"q22 fusion off": launches_q22_unfused}]
+                 "K15": [{"q22 fusion off": launches_q22_unfused}],
+                 "K16": [{c: v for c, v in text_launches.items()
+                          if "fusion off" in c}],
+                 "K17": [{c: v for c, v in text_launches.items()
+                          if c.startswith("export/")}],
+                 "K18": [{c: v for c, v in text_launches.items()
+                          if c.startswith("export/")}],
                  }.get(k, [launches])
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
@@ -946,6 +1177,8 @@ def main() -> int:
                                    for q in launches},
              "launches_by_query_two_partitions": {
                  label(q): launches2[q][k] for q in launches2},
+             "launches_by_text_cell": {c: v[k] for c, v in
+                                       text_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -1323,6 +1556,12 @@ def main() -> int:
                          if qq == q and needle in p.describe()
                          and len(p.members) == 3)
         k12_cases[f"q{q}"] = (prog, seg_inputs[key])
+    # the text path's segments: the ingest's casts fused with Q1's filter,
+    # the export's formats and concatenation behind its filter
+    for what in ("text q1", "export"):
+        key, prog = next((k, p) for k, (qq, p) in segments.items()
+                         if qq == what and k in text_seg_inputs)
+        k12_cases[what.replace(" ", "_")] = (prog, text_seg_inputs[key])
     k12 = {}
     for case, (prog, kb) in k12_cases.items():
         got, gkeep = FK.run_segment(prog, kb)
@@ -1349,6 +1588,11 @@ def main() -> int:
             f"kernel {k12[case]['ms']:.3f} ms, plain "
             f"{k12[case]['plain']:.3f} ms")
     first = k12["q12"]
+    log("K12 over the text path's segments checked against their plain "
+        "compositions: " + ", ".join(
+            f"{c} {v['rows']} padded rows, {v['bytes']} bytes, kernel "
+            f"{v['ms']:.3f} ms" for c, v in k12.items()
+            if c in ("text_q1", "export")))
     entry("K12 fused_segment", "spark_rapids_tpu_torch/ops/kernels/fused.py",
           "spark_rapids_tpu/exec/fused.py:113",
           first["ms"], first["plain"], None, first["bytes"], first["rows"],
@@ -1589,6 +1833,141 @@ def main() -> int:
                              for c, v in k15.items()},
           rows_by_shape={c: v["rows"] for c, v in k15.items()})
 
+
+    # K16: every parse over the ingest's text columns at 6,000,000 rows
+    # (8,388,608 padded), a timestamp text column and a boolean column
+    tdb = host_to_device(text_hb, 128, dev)
+    tcol = {f.name: c for f, c in zip(tdb.schema, tdb.columns)}
+    rng = np.random.default_rng(16)
+    n_text = text_hb.num_rows
+    ts_us = tsd.astype(np.int64) * 86_400_000_000 + rng.integers(
+        0, 86_400_000_000, n_text)
+    ts_bm, ts_len = tpch_datagen.timestamp_text(ts_us)
+    spellings = ["t", "true", "y", "yes", "1", "f", "false", "n", "no", "0",
+                 "TRUE", "False", " Yes ", "N"]
+    sp_bm, sp_len = dstrings.encode(spellings)
+    codes = rng.integers(0, len(spellings), n_text)
+    extra = host_to_device(HostBatch(
+        Schema([Field("ts", STRING), Field("b", STRING)]),
+        [HostColumn(STRING, ts_bm, None, ts_len),
+         HostColumn(STRING, sp_bm[codes], None, sp_len[codes])]), 128, dev)
+    k16_cases = {
+        "int l_orderkey": ("int", tcol["l_orderkey"]),
+        "float l_extendedprice": ("float", tcol["l_extendedprice"]),
+        "float l_quantity": ("float", tcol["l_quantity"]),
+        "float l_discount": ("float", tcol["l_discount"]),
+        "date l_shipdate": ("date", tcol["l_shipdate"]),
+        "timestamp l_shipdate + time": ("timestamp", extra.columns[0]),
+        "bool spellings": ("bool", extra.columns[1]),
+        "trim l_extendedprice": ("trim", tcol["l_extendedprice"]),
+    }
+
+    def same_bits(g, w):
+        if w.dtype.is_floating_point:
+            return torch.equal(g.view(torch.int64), w.view(torch.int64))
+        return torch.equal(g, w)
+
+    k16 = {}
+    for case, (kind, c) in k16_cases.items():
+        if kind == "trim":
+            def run_k(c=c):
+                return CK.trim_aligned(c.data, c.lengths)
+
+            def run_p(c=c):
+                return CK.trim_aligned_plain(c.data, c.lengths)
+        else:
+            def run_k(c=c, kind=kind):
+                return getattr(CK, f"parse_{kind}")(c.data, c.lengths,
+                                                    c.validity)
+
+            def run_p(c=c, kind=kind):
+                return getattr(CK, f"parse_{kind}_plain")(
+                    c.data, c.lengths, c.validity)
+        got, ref = run_k(), run_p()
+        require(all(same_bits(g, r) for g, r in zip(got, ref)),
+                f"K16 {case} differs from its plain version")
+        if kind not in ("trim", "bool", "timestamp"):
+            require(bool(got[1][:n_text].all()),
+                    f"K16 {case}: a dbgen field did not parse")
+        moved = nbytes(c.data, c.lengths, *got) + \
+            (0 if kind == "trim" else nbytes(c.validity))
+        k16[case] = dict(ms=cuda_ms(run_k), plain=cuda_ms(run_p, reps=5),
+                         bytes=moved, rows=c.data.shape[0],
+                         bound=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"K16 {case}: {c.data.shape[0]} rows x {c.data.shape[1]} bytes; "
+            f"kernel {k16[case]['ms']:.3f} ms, plain "
+            f"{k16[case]['plain']:.3f} ms, bound {k16[case]['bound']:.4f} ms")
+    head = k16["float l_extendedprice"]
+    entry("K16 cast_parse", "spark_rapids_tpu_torch/csrc/cast_parse.cu",
+          "spark_rapids_tpu/ops/kernels/castkernels.py:124",
+          head["ms"], head["plain"], None, head["bytes"], head["rows"],
+          FP32_PER_S, 0.0,
+          library_call="none: no PyTorch call parses decimal or ISO text",
+          ms_by_function={c: v["ms"] for c, v in k16.items()},
+          plain_ms_by_function={c: v["plain"] for c, v in k16.items()},
+          bound_ms_by_function={c: v["bound"] for c, v in k16.items()},
+          rows_by_function={c: v["rows"] for c, v in k16.items()})
+
+    # K17: the export's formats as its two-partition run called them, and
+    # timestamps and booleans at the same rows
+    n17 = fmt_calls["int"][0].shape[0]
+    fmt_cases = {f"{k} (export)": (k, v, ok) for k, (v, ok)
+                 in fmt_calls.items()}
+    ts_vals = torch.from_numpy(ts_us[:n17] if n17 <= n_text else np.resize(
+        ts_us, n17)).to(dev)
+    any_valid = fmt_calls["int"][1]
+    fmt_cases["timestamp"] = ("timestamp", ts_vals, any_valid)
+    fmt_cases["bool"] = ("bool", ts_vals % 2 == 0, any_valid)
+    k17 = {}
+    for case, (kind, v, ok) in fmt_cases.items():
+        run_k = (lambda kind=kind, v=v, ok=ok:
+                 getattr(CK, f"format_{kind}")(v, ok))
+        run_p = (lambda kind=kind, v=v, ok=ok:
+                 getattr(CK, f"format_{kind}_plain")(v, ok))
+        got, ref = run_k(), run_p()
+        require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                f"K17 {case} differs from its plain version")
+        moved = nbytes(v, ok, *got)
+        k17[case] = dict(ms=cuda_ms(run_k), plain=cuda_ms(run_p, reps=5),
+                         bytes=moved, rows=v.shape[0],
+                         bound=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"K17 {case}: {v.shape[0]} rows -> {got[0].shape[1]} bytes; "
+            f"kernel {k17[case]['ms']:.3f} ms, plain "
+            f"{k17[case]['plain']:.3f} ms, bound {k17[case]['bound']:.4f} ms")
+    head = k17["int (export)"]
+    entry("K17 cast_format", "spark_rapids_tpu_torch/csrc/cast_format.cu",
+          "spark_rapids_tpu/ops/kernels/castkernels.py:359",
+          head["ms"], head["plain"], None, head["bytes"], head["rows"],
+          FP32_PER_S, 0.0,
+          library_call="none: no PyTorch call formats numbers or dates as "
+          "text",
+          ms_by_function={c: v["ms"] for c, v in k17.items()},
+          plain_ms_by_function={c: v["plain"] for c, v in k17.items()},
+          bound_ms_by_function={c: v["bound"] for c, v in k17.items()},
+          rows_by_function={c: v["rows"] for c, v in k17.items()})
+
+    # K18: the export's concatenation as its two-partition run called it
+    parts = concat_calls[0]
+    got = SK.concat(parts)
+    ref = SK.concat_plain(parts)
+    require(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+            "K18 differs from its plain version")
+    n18 = got[0].shape[0]
+    moved = nbytes(*got) + sum(
+        nbytes(bm, ln) if bm.stride(0) else nbytes(bm[:1], ln[:1])
+        for bm, ln in parts)
+    k18_ms = cuda_ms(lambda: SK.concat(parts))
+    k18_plain = cuda_ms(lambda: SK.concat_plain(parts), reps=3, warmup=1)
+    log(f"K18 at the export: {len(parts)} parts, {n18} rows -> "
+        f"{got[0].shape[1]} bytes; kernel {k18_ms:.3f} ms, plain "
+        f"{k18_plain:.3f} ms")
+    entry("K18 concat", "spark_rapids_tpu_torch/csrc/string_transform.cu",
+          "spark_rapids_tpu/ops/kernels/stringkernels.py:113",
+          k18_ms, k18_plain, None, moved, n18 * got[0].shape[1], FP32_PER_S,
+          0.0, library_call="none: torch.cat joins whole columns, not each "
+          "row's bytes at its running length", parts=len(parts),
+          rows=n18, out_width=got[0].shape[1])
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -1600,6 +1979,9 @@ def main() -> int:
                       "tpcxbb": {cell: {"cold_s": cold[cell],
                                         "warm_s": warm[cell]}
                                  for cell in bb_cells},
+                      "text": {cell: {"cold_s": cold[cell],
+                                      "warm_s": warm[cell]}
+                               for cell in text_runs},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -53,11 +53,19 @@ query's rows stay what they were before the later columns existed.
 ``dataframes(..., query=q)`` hands a query only the columns it reads, at
 the reference's default of two partitions unless told otherwise;
 ``draw_all`` draws every column once for many queries.
+
+``lineitem_text`` prints lineitem's Q1/Q6 columns and ``l_orderkey`` as
+dbgen's ``lineitem.tbl`` does (keys and quantities as integers, money
+``%.2f``, dates ``YYYY-MM-DD``), every field a string column, beside the
+typed columns it was printed from; ``export_lines`` gives the bytes of
+the text export's line (dbgen's line without ``l_linenumber``, the three
+money fields and ``l_comment``).  Both work on whole columns in numpy,
+never through Python strings.
 """
 from __future__ import annotations
 
 import datetime as dt
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +75,7 @@ from ..data.column import HostBatch, HostColumn
 from ..interop import from_reference_arrays
 
 EPOCH = dt.date(1970, 1, 1)
+MICROS_PER_DAY = 86_400_000_000
 
 REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
 NATIONS = [  # (name, regionkey) — the 25 standard TPC-H nations
@@ -815,3 +824,156 @@ def reference_tables(sf: float = 0.001, seed: int = 42
             [(f.name, f.dtype.sql_name) for f in schema],
             [cols[f.name] for f in schema])
     return out
+
+
+# ---------------------------------------------------------------------------
+# dbgen's text of lineitem
+# ---------------------------------------------------------------------------
+#: lineitem's columns as the text ingest reads them (every one a string)
+TEXT_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+                "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"]
+#: the TPC-H type each text column is cast to (the flags stay strings)
+TEXT_TYPES = {"l_orderkey": "bigint", "l_quantity": "double",
+              "l_extendedprice": "double", "l_discount": "double",
+              "l_tax": "double", "l_shipdate": "date"}
+#: the typed columns the text export formats, in the line's order
+EXPORT_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                  "l_returnflag", "l_linestatus", "l_shipdate",
+                  "l_commitdate", "l_receiptdate", "l_shipinstruct",
+                  "l_shipmode"]
+
+_Text = Tuple[np.ndarray, np.ndarray]  # (uint8[n, w] bytes, int32 lengths)
+
+
+def int_text(values: np.ndarray) -> _Text:
+    """Non-negative integers as left-aligned decimal text."""
+    v = values.astype(np.int64)
+    if len(v) and int(v.min()) < 0:
+        raise ValueError("int_text takes non-negative values")
+    k = len(str(int(v.max()))) if len(v) else 1
+    ndig = np.ones(len(v), dtype=np.int32)
+    for p in range(1, k):
+        ndig += (v >= 10 ** p).astype(np.int32)
+    digits = _digits(v, k)
+    col = np.arange(k)[None, :]
+    src = np.minimum(col + (k - ndig)[:, None], k - 1)
+    out = np.take_along_axis(digits, src, axis=1)
+    out[col >= ndig[:, None]] = 0
+    return out, ndig
+
+
+def join_text(*parts) -> _Text:
+    """Variable-width texts side by side: each part a ``bytes`` literal
+    or (bytes, lengths)."""
+    n = next(p[0].shape[0] for p in parts if isinstance(p, tuple))
+    mats = []
+    for p in parts:
+        if isinstance(p, bytes):
+            lit = np.frombuffer(p, dtype=np.uint8)
+            mats.append((np.broadcast_to(lit, (n, len(p))),
+                         np.full(n, len(p), dtype=np.int32)))
+        else:
+            mats.append(p)
+    lengths = np.sum([ln.astype(np.int64) for _bm, ln in mats], axis=0)
+    out = np.zeros((n, max(1, int(lengths.max()) if n else 1)),
+                   dtype=np.uint8)
+    rows = np.arange(n)
+    pos = np.zeros(n, dtype=np.int64)
+    for bm, ln in mats:
+        for c in range(bm.shape[1]):
+            put = c < ln
+            out[rows[put], pos[put] + c] = bm[put, c]
+        pos += ln
+    return out, lengths.astype(np.int32)
+
+
+def cents_text(values: np.ndarray) -> _Text:
+    """Non-negative money as C's ``%.2f`` prints it."""
+    cents = np.rint(values * 100.0).astype(np.int64)
+    return join_text(int_text(cents // 100), b".",
+                     (_digits(cents % 100, 2),
+                      np.full(len(cents), 2, dtype=np.int32)))
+
+
+def date_text(days: np.ndarray) -> _Text:
+    """int32 days since 1970-01-01 as 'YYYY-MM-DD' (years 0..9999)."""
+    d = days.astype("datetime64[D]")
+    month = d.astype("datetime64[M]")
+    y = month.astype("datetime64[Y]").astype(np.int64) + 1970
+    m = month.astype(np.int64) % 12 + 1
+    dd = (d - month).astype(np.int64) + 1
+    c = _concat(_digits(y, 4), b"-", _digits(m, 2), b"-", _digits(dd, 2))
+    return c.data, c.lengths
+
+
+def timestamp_text(us: np.ndarray) -> _Text:
+    """int64 microseconds since the epoch as 'YYYY-MM-DD HH:MM:SS.ffffff'
+    (years 0..9999)."""
+    us = us.astype(np.int64)
+    days = us // MICROS_PER_DAY
+    rem = us - days * MICROS_PER_DAY
+    date, _ln = date_text(days.astype(np.int32))
+    c = _concat(date, b" ", _digits(rem // 3_600_000_000, 2), b":",
+                _digits(rem // 60_000_000 % 60, 2), b":",
+                _digits(rem // 1_000_000 % 60, 2), b".",
+                _digits(rem % 1_000_000, 6))
+    return c.data, c.lengths
+
+
+def _text_column(text: _Text) -> HostColumn:
+    return HostColumn(T.STRING, text[0], None, text[1])
+
+
+def lineitem_text(sf: float = 1.0, seed: int = 42,
+                  n_rows: Optional[int] = None,
+                  cols: Optional[Dict[str, HostColumn]] = None
+                  ) -> Tuple[HostBatch, HostBatch]:
+    """(text, typed): ``TEXT_COLUMNS`` as dbgen prints them, every field a
+    string, and the typed columns they were printed from (cut from
+    ``cols``, a ``draw_all`` of the same arguments, when given)."""
+    if cols is None:
+        cols = _draw(sf, seed, n_rows, joins=True)
+    typed = _batch(cols, TEXT_COLUMNS)
+    c = {f.name: col for f, col in zip(typed.schema, typed.columns)}
+    text = {
+        "l_orderkey": int_text(c["l_orderkey"].data),
+        "l_quantity": int_text(c["l_quantity"].data.astype(np.int64)),
+        "l_extendedprice": cents_text(c["l_extendedprice"].data),
+        "l_discount": cents_text(c["l_discount"].data),
+        "l_tax": cents_text(c["l_tax"].data),
+        "l_returnflag": (c["l_returnflag"].data, c["l_returnflag"].lengths),
+        "l_linestatus": (c["l_linestatus"].data, c["l_linestatus"].lengths),
+        "l_shipdate": date_text(c["l_shipdate"].data),
+    }
+    batch = HostBatch(T.Schema([T.Field(n, T.STRING) for n in TEXT_COLUMNS]),
+                      [_text_column(text[n]) for n in TEXT_COLUMNS])
+    return batch, typed
+
+
+def export_table(sf: float = 1.0, seed: int = 42,
+                 n_rows: Optional[int] = None,
+                 cols: Optional[Dict[str, HostColumn]] = None) -> HostBatch:
+    """The typed columns of the text export (``EXPORT_COLUMNS``)."""
+    if cols is None:
+        cols = _draw(sf, seed, n_rows, joins=True, rest=True)
+    return _batch(cols, EXPORT_COLUMNS)
+
+
+def export_lines(batch: HostBatch) -> _Text:
+    """The export's line of each row of ``batch`` (``EXPORT_COLUMNS``):
+    every field followed by ``|``, as dbgen ends its fields."""
+    c = {f.name: col for f, col in zip(batch.schema, batch.columns)}
+    fields = [
+        int_text(c["l_orderkey"].data), int_text(c["l_partkey"].data),
+        int_text(c["l_suppkey"].data),
+        int_text(c["l_quantity"].data.astype(np.int64)),
+        (c["l_returnflag"].data, c["l_returnflag"].lengths),
+        (c["l_linestatus"].data, c["l_linestatus"].lengths),
+        date_text(c["l_shipdate"].data), date_text(c["l_commitdate"].data),
+        date_text(c["l_receiptdate"].data),
+        (c["l_shipinstruct"].data, c["l_shipinstruct"].lengths),
+        (c["l_shipmode"].data, c["l_shipmode"].lengths)]
+    parts = []
+    for f in fields:
+        parts += [f, b"|"]
+    return join_text(*parts)

@@ -104,6 +104,25 @@ HASH_AGG_REPLACE_MODE = conf(
     "joined by '|'); an excluded mode is tagged off the device"
 ).string_conf("all")
 
+# --- string cast gates (the reference's keys and defaults) ---------------
+CAST_STRING_TO_INTEGER = conf(
+    "spark.rapids.tpu.sql.castStringToInteger.enabled").doc(
+    "Cast string->integral on the device (K16).  Exact for "
+    "[+-]?digits[.digits] (fractions truncate); exponent forms ('1e2') "
+    "become NULL on the device.  Off by default, as in the reference"
+).boolean_conf(False)
+CAST_STRING_TO_FLOAT = conf(
+    "spark.rapids.tpu.sql.castStringToFloat.enabled").doc(
+    "Cast string->float on the device (K16).  The digits accumulate in "
+    "float64 and are scaled by a correctly rounded power of ten, which "
+    "can be an ULP off the correctly rounded parse.  Off by default, as "
+    "in the reference").boolean_conf(False)
+CAST_STRING_TO_TIMESTAMP = conf(
+    "spark.rapids.tpu.sql.castStringToTimestamp.enabled").doc(
+    "Cast string->date/timestamp on the device (K16): ISO "
+    "'YYYY[-MM[-DD]][ T]HH[:MM[:SS[.ffffff]]]' in UTC, malformed -> "
+    "NULL.  Off by default, as in the reference").boolean_conf(False)
+
 # --- whole-stage fusion (plan/fusion.py, exec/fused.py) -----------------
 FUSION_ENABLED = conf("spark.rapids.tpu.sql.fusion.enabled").doc(
     "Collapse maximal chains of row-local device execs (Project, "

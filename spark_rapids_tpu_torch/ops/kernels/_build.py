@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 #: headers a generated source includes (their text is part of its key)
-GENERATED_HEADERS = ("common.cuh", "strings.cuh")
+GENERATED_HEADERS = ("common.cuh", "strings.cuh", "pow10.cuh")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -93,6 +93,21 @@ KERNELS: Dict[str, tuple] = {
     }),
     "string_transform": ("string_transform.cu", {
         "k15_substring": ([P, P, I, Q, I, I, I, P, P, P], 1),
+        "k18_concat": ([P, P, P, P, I, Q, I, P, P, P], 1),
+    }),
+    "cast_parse": ("cast_parse.cu", {
+        "k16_trim": ([P, P, I, Q, P, P, P], 1),
+        "k16_parse_int": ([P, P, P, I, Q, P, P, P], 1),
+        "k16_parse_bool": ([P, P, P, I, Q, P, P, P], 1),
+        "k16_parse_float": ([P, P, P, I, Q, P, P, P], 1),
+        "k16_parse_date": ([P, P, P, I, Q, P, P, P], 1),
+        "k16_parse_timestamp": ([P, P, P, I, Q, P, P, P], 1),
+    }),
+    "cast_format": ("cast_format.cu", {
+        "k17_format_int": ([P, P, Q, P, P, P], 1),
+        "k17_format_bool": ([P, P, Q, P, P, P], 1),
+        "k17_format_date": ([P, P, Q, P, P, P], 1),
+        "k17_format_timestamp": ([P, P, Q, P, P, P], 1),
     }),
     "hashing": ("hashing.cu", {
         # no launch for an empty batch

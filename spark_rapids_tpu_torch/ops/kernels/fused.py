@@ -30,17 +30,26 @@ The code generator covers every expression the engine registers
 (``plan/overrides.py``): BoundReference, Literal, Alias, Add, Subtract,
 Multiply, Divide, the five comparisons on numbers, dates and strings,
 Not, And, Or, IsNull, IsNotNull, If, InSet, Contains, StartsWith,
-EndsWith, Like, Substring and Year, each with its torch body's semantics
+EndsWith, Like, Substring, Year, Cast (every direction the device
+takes), ConcatStrings, NormalizeNaNAndZero and
+KnownFloatingPointNormalized, each with its torch body's semantics
 (integer arithmetic wraps, a zero divisor gives null, Kleene AND/OR, a
-null condition takes If's false branch, IEEE comparisons).  A Substring
+null condition takes If's false branch, IEEE comparisons, float to
+integer as XLA converts).  A Substring
 is a view of its input row: the row pointer plus its first byte, the new
 length and the output width ``min(max(len, 1), width)`` computed at
 launch (``strings.cuh:str_substring``, K15's row arithmetic); only its
 bytes below the new length are read or copied, so the output row is zero
 past it, as K15 writes it.  Year is the reference's civil-from-days
-integer math in 64-bit with ``k12_fdiv``, a flooring division emitted
-into the source (C++ ``/`` truncates; dates before 1970 are negative day
-counts).
+integer math in 64-bit, ``strings.cuh:civil_from_days``, which K17
+formats dates with, every division flooring (``srt::fdiv``: C++ ``/``
+truncates; dates before 1970 are negative day counts).  A Cast from a string trims and
+parses the row in place with K16's row functions.  A Cast to a string
+formats into a buffer of the thread (20, 5, 10 or 26 bytes, K17's row
+functions) and is a view of it.  A ConcatStrings writes its row into a
+scratch matrix the wrapper allocates, as wide as the parts' widths
+together (known at launch), and is a view of that row; a concatenation
+that is an output column is its scratch matrix itself.
 
 ``segment_plain`` is the plain composition: the members' own torch
 bodies with the compaction deferred, the structure of
@@ -70,12 +79,14 @@ from ... import types as T
 from ...data import strings as dstrings
 from ...data.column import DeviceBatch, DeviceColumn
 from .. import arithmetic as ar
+from .. import cast as cst
 from .. import conditional as cond
 from .. import datetimeexprs as dte
 from .. import predicates as pr
 from .. import stringexprs as st
 from ..expression import Alias, BoundReference, Expression, Literal
 from . import _build as B
+from . import castkernels
 
 #: CUDA kernels launched by K12
 FUSED_LAUNCHES = B.LaunchCounter("fused_segment")
@@ -127,8 +138,10 @@ class _Val:
     """A value of the generated code: data (``d``) or a string row
     (``p``, width ``w``, length ``l``), and its validity ``v``; ``wspec``
     gives a string's width at launch: ("in", i), ("const", w), ("max",
-    a, b) or ("sub", a, length); ``cw`` bounds the bytes an output copy
-    reads (a substring's new length; the width when empty)."""
+    a, b), ("sub", a, length) or ("sum", (a, ...)); ``cw`` bounds the
+    bytes an output copy reads (a substring's new length; the width when
+    empty); ``scratch`` names the scratch matrix a concatenation's row
+    lies in."""
 
     dtype: T.DType
     v: str
@@ -138,6 +151,7 @@ class _Val:
     l: str = ""
     wspec: tuple = ()
     cw: str = ""
+    scratch: Optional[int] = None
 
     @property
     def copy_width(self) -> str:
@@ -158,12 +172,13 @@ class _Sym:
 class Output:
     """One output column: ``kind`` "raw" (the input column as it is),
     "valid" (the input's data, a new validity), "num" or "str"
-    (computed)."""
+    (computed), or "scratch" (a computed string's scratch matrix)."""
 
     kind: str
     dtype: T.DType
     src: Optional[int] = None
     wspec: tuple = ()
+    scratch: Optional[int] = None
 
 
 def _decl_type(line: str) -> str:
@@ -181,15 +196,6 @@ def _is_filter(m) -> bool:
     return hasattr(m, "condition")
 
 
-#: a division that rounds toward negative infinity, as numpy's and
-#: torch's floor division do (C++ ``/`` truncates toward zero)
-_FDIV = """__device__ __forceinline__ long long k12_fdiv(long long a, long long b) {
-  const long long q = a / b;
-  return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-"""
-
-
 def _int32(v: int) -> int:
     """``v`` clamped into the int range (a start or a length past any
     row's width gives the same substring)."""
@@ -204,7 +210,7 @@ class _Codegen:
         self.loaded: Dict[int, _Val] = {}
         self.ptr_fields: List[Tuple[str, str, tuple]] = []  # decl, name, bind
         self.int_fields: List[Tuple[str, tuple]] = []       # name, bind
-        self.helpers: Dict[str, str] = {}                  # name -> code
+        self.scratch: List[tuple] = []                     # width specs
         self.n = 0
 
     # ---- helpers ---------------------------------------------------------
@@ -362,6 +368,14 @@ class _Codegen:
             return self.substring(e, syms)
         if isinstance(e, dte.Year):
             return self.year(e, syms)
+        if isinstance(e, cst.Cast):
+            return self.cast_expr(e, syms)
+        if isinstance(e, st.ConcatStrings):
+            return self.concat(e, syms)
+        if isinstance(e, cst.NormalizeNaNAndZero):
+            return self.normalize(e, syms)
+        if isinstance(e, cst.KnownFloatingPointNormalized):
+            return self.gen(e.children[0], syms)
         raise NotImplementedError(
             f"the fused-segment code generator has no rule for "
             f"{type(e).__name__}")
@@ -439,27 +453,157 @@ class _Codegen:
                     w=ow, l=nl, wspec=("sub", c.wspec, e.length), cw=nl)
 
     def year(self, e, syms) -> _Val:
-        """The reference's ``_civil_from_days`` in 64-bit integers, every
-        division flooring (``k12_fdiv``)."""
-        self.helpers["k12_fdiv"] = _FDIV
+        """The reference's ``_civil_from_days``: ``strings.cuh``'s, every
+        division flooring (``srt::fdiv``)."""
         c = self.gen(e.child, syms)
-        z = f"(long long){c.d}"
+        days = f"(long long){c.d}"
         if e.child.dtype.id is T.TypeId.TIMESTAMP:
-            z = f"k12_fdiv({z}, {dte.MICROS_PER_DAY}LL)"
-        ll = "long long"
-        z = self.let(ll, f"{z} + 719468LL")
-        era = self.let(ll, f"k12_fdiv({z}, 146097LL)")
-        doe = self.let(ll, f"{z} - {era} * 146097LL")
-        yoe = self.let(ll, f"k12_fdiv({doe} - k12_fdiv({doe}, 1460LL) + "
-                       f"k12_fdiv({doe}, 36524LL) - k12_fdiv({doe}, "
-                       f"146096LL), 365LL)")
-        doy = self.let(ll, f"{doe} - (365LL * {yoe} + k12_fdiv({yoe}, 4LL)"
-                       f" - k12_fdiv({yoe}, 100LL))")
-        mp = self.let(ll, f"k12_fdiv(5LL * {doy} + 2LL, 153LL)")
-        m = self.let(ll, f"{mp} < 10LL ? {mp} + 3LL : {mp} - 9LL")
-        y = self.let("int32_t", f"(int32_t)({m} <= 2LL ? {yoe} + {era} * "
-                     f"400LL + 1LL : {yoe} + {era} * 400LL)")
-        return _Val(T.INT32, c.v, d=y)
+            days = f"srt::fdiv({days}, {dte.MICROS_PER_DAY}LL)"
+        y, m, d = self.tmp(), self.tmp(), self.tmp()
+        self.body.append(f"long long {y}; int {m}, {d}; "
+                         f"srt::civil_from_days({days}, &{y}, &{m}, &{d});")
+        return _Val(T.INT32, c.v, d=self.let("int32_t", f"(int32_t){y}"))
+
+    # ---- casts -------------------------------------------------------
+    def cast_expr(self, e, syms) -> _Val:
+        c = self.gen(e.child, syms)
+        src, dst = e.child.dtype, e.to
+        if src == dst:
+            return c
+        if src.id is T.TypeId.NULL:
+            return self.string_literal(None) if dst.is_string else \
+                _Val(dst, "false", d=c_literal(None, dst))
+        if src.is_string:
+            return self.parse(c, dst)
+        if dst.is_string:
+            return self.format(c, src)
+        return _Val(dst, c.v, d=self.let(ctype(dst),
+                                         self.numeric_cast(c.d, src, dst)))
+
+    def parse(self, c: _Val, dst: T.DType) -> _Val:
+        """K16's row functions on the row trimmed in place."""
+        start = self.tmp()
+        self.body.append(f"int {start};")
+        ln = self.let("int", f"srt::str_trim({c.p}, {c.w}, {c.l}, &{start})")
+        tok = self.let("uint8_t*", f"{c.p} + {start}")
+        did = dst.id
+        kind, ct = {T.TypeId.BOOL: ("bool", "bool"),
+                    T.TypeId.DATE32: ("date", "int"),
+                    T.TypeId.TIMESTAMP: ("timestamp", "long long")}.get(
+            did, ("float", "double") if dst.is_floating
+            else ("int", "long long"))
+        out = self.tmp()
+        self.body.append(f"{ct} {out};")
+        ok = self.let("bool", f"srt::parse_{kind}({tok}, {ln}, &{out})")
+        if dst.is_integral and did is not T.TypeId.INT64:
+            lo, hi = cst._INT_RANGE[did]
+            ok = self.let("bool", f"{ok} && {out} >= {lo}LL && "
+                          f"{out} <= {hi}LL")
+        d = self.let(ctype(dst), f"({ctype(dst)}){out}")
+        return _Val(dst, self.let("bool", f"{c.v} && {ok}"), d=d)
+
+    def format(self, c: _Val, src: T.DType) -> _Val:
+        """K17's row functions into a buffer of the thread."""
+        sid = src.id
+        kind, arg = {T.TypeId.BOOL: ("bool", "bool"),
+                     T.TypeId.DATE32: ("date", "int"),
+                     T.TypeId.TIMESTAMP: ("timestamp", "long long")}.get(
+            sid, ("int", "long long"))
+        if kind == "int" and not src.is_integral:
+            raise NotImplementedError(
+                f"CAST({src.sql_name} AS string) has no device "
+                "implementation")
+        width = castkernels.FORMAT_WIDTHS[kind]
+        buf = self.tmp()
+        self.body.append(f"uint8_t {buf}[{width}];")
+        ln = self.let("int", f"srt::format_{kind}(({arg}){c.d}, {c.v}, "
+                      f"{buf})")
+        return _Val(T.STRING, c.v, p=buf, w=str(width), l=ln,
+                    wspec=("const", width))
+
+    def f2i(self, expr: str, dst: T.DType) -> str:
+        """A double to an integer type as XLA converts (toward zero, NaN
+        to 0, saturating)."""
+        lo, hi = cst._INT_RANGE[dst.id]
+        ct = ctype(dst)
+        return (f"srt::f2i_sat<{ct}>({expr}, "
+                f"{c_literal(float(lo), T.FLOAT64)}, "
+                f"{c_literal(float(hi + 1), T.FLOAT64)}, "
+                f"{c_literal(lo, dst)}, {c_literal(hi, dst)})")
+
+    def numeric_cast(self, x: str, src: T.DType, dst: T.DType) -> str:
+        """The non-string directions (``ops/cast.py:numeric_cast``)."""
+        sid, did = src.id, dst.id
+        ct = ctype(dst)
+        day, sec = cst.MICROS_PER_DAY, cst.MICROS_PER_SEC
+        if sid is T.TypeId.BOOL:
+            return f"(({ct}){x})"
+        if did is T.TypeId.BOOL:
+            return f"({x} != 0)"
+        if sid is T.TypeId.DATE32:
+            if did is T.TypeId.TIMESTAMP:
+                return f"srt::wrap_mul((long long){x}, {day}LL)"
+            return f"(({ct}){x})"
+        if sid is T.TypeId.TIMESTAMP:
+            if did is T.TypeId.DATE32:
+                return f"((int32_t)srt::fdiv((long long){x}, {day}LL))"
+            if dst.is_floating:
+                return f"(({ct})((double){x} / {float(sec)!r}))"
+            return f"(({ct})srt::fdiv((long long){x}, {sec}LL))"
+        if did is T.TypeId.TIMESTAMP:
+            if src.is_floating:
+                return self.f2i(f"((double){x} * {float(sec)!r})", T.INT64)
+            return f"srt::wrap_mul((long long){x}, {sec}LL)"
+        if did is T.TypeId.DATE32:
+            if src.is_floating:
+                return self.f2i(f"((double){x})", T.INT32)
+            return f"((int32_t){x})"
+        if src.is_floating and dst.is_integral:
+            # NaN -> 0, clipped in the source's type, then converted
+            lo_f, hi_f = cst._float_int_bounds(dst)
+            sct = ctype(src)
+            lo_c, hi_c = c_literal(lo_f, src), c_literal(hi_f, src)
+            y = self.let(sct, f"{x} != {x} ? ({sct})0 : {x}")
+            z = self.let(sct, f"{y} < {lo_c} ? {lo_c} : ({y} > {hi_c} ? "
+                         f"{hi_c} : {y})")
+            return self.f2i(f"((double){z})", dst)
+        return f"(({ct}){x})"
+
+    def normalize(self, e, syms) -> _Val:
+        """-0.0 -> 0.0 and every NaN -> the canonical NaN."""
+        c = self.gen(e.child, syms)
+        if not c.dtype.is_floating:
+            return c
+        ct = ctype(c.dtype)
+        nan = c_literal(float("nan"), c.dtype)
+        zero = c_literal(0.0, c.dtype)
+        t = self.let(ct, f"{c.d} == {zero} ? {zero} : {c.d}")
+        return _Val(c.dtype, c.v, d=self.let(ct, f"{t} != {t} ? {nan} : {t}"))
+
+    def concat(self, e, syms) -> _Val:
+        """The parts at running offsets in a row of a scratch matrix
+        (the parts' widths together wide), zeros after: the reference's
+        concat, a part byte past its width repeating its last column."""
+        parts = [self.gen(ch, syms) for ch in e.children]
+        k = len(self.scratch)
+        self.scratch.append(("sum", tuple(p.wspec for p in parts)))
+        self.ptr_fields.append((f"uint8_t* s{k}", f"s{k}", ("scratch", k)))
+        self.int_fields.append((f"sw{k}", ("scratch_width", k)))
+        dst, pos = self.tmp(), self.tmp()
+        self.body.append(f"uint8_t* const {dst} = a.s{k} + row * "
+                         f"(long long)a.sw{k};")
+        self.body.append(f"int {pos} = 0;")
+        for p in parts:
+            self.body.append(
+                f"for (int q = 0; q < {p.l}; ++q) {{ const int o = {pos} + q; "
+                f"if (o < a.sw{k}) {dst}[o] = {p.p}[q < {p.w} ? q : "
+                f"{p.w} - 1]; }}")
+            self.body.append(f"{pos} += {p.l};")
+        self.body.append(f"for (int q = {pos} > 0 ? {pos} : 0; q < a.sw{k}; "
+                         f"++q) {dst}[q] = 0;")
+        v = " && ".join(p.v for p in parts) or "true"
+        return _Val(T.STRING, self.let("bool", v), p=dst, w=f"a.sw{k}",
+                    l=pos, wspec=self.scratch[k], scratch=k)
 
     def like(self, e, syms) -> _Val:
         segs = e.segments
@@ -535,6 +679,12 @@ class SegmentProgram:
             g.body.append(f"a.ov{j}[row] = {s.val.v};")
             if s.src is not None:
                 self.outputs.append(Output("valid", dt, s.src))
+            elif s.val.scratch is not None:  # the scratch matrix itself
+                g.ptr_fields.append((f"int* ol{j}", f"ol{j}",
+                                     ("out_len", j)))
+                g.body.append(f"a.ol{j}[row] = {s.val.l};")
+                self.outputs.append(Output("scratch", dt, None, s.val.wspec,
+                                           s.val.scratch))
             elif dt.is_string:
                 g.ptr_fields.append((f"uint8_t* o{j}", f"o{j}",
                                      ("out_data", j)))
@@ -556,6 +706,7 @@ class SegmentProgram:
             g.ptr_fields.append(("bool* keep", "keep", ("keep",)))
             g.body.append("a.keep[row] = keep;")
         g.prune_loads()
+        self.scratch = list(g.scratch)
         self._ptr_binds = [("num_rows",)] + [b for _d, _n, b in
                                              g.ptr_fields]
         self._int_binds = [("n",)] + [b for _n, b in g.int_fields]
@@ -574,6 +725,8 @@ class SegmentProgram:
         if spec[0] == "sub":
             w = self._width(spec[1], batch)
             return min(max(w if spec[2] is None else spec[2], 1), w)
+        if spec[0] == "sum":
+            return sum(self._width(p, batch) for p in spec[1])
         return max(self._width(spec[1], batch), self._width(spec[2], batch))
 
     def bytes_moved(self, batch: DeviceBatch) -> int:
@@ -595,6 +748,8 @@ class SegmentProgram:
                                                ).element_size())
             elif kind == "out_len":
                 total += 4 * n
+            elif kind == "scratch":
+                total += n * self._width(self.scratch[b[1]], batch)
             else:  # a validity or the keep mask
                 total += n
         return total
@@ -603,13 +758,20 @@ class SegmentProgram:
                ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
         n, dev = batch.padded_rows, batch.device
         ins = batch.columns
+        scratch = [torch.empty((n, self._width(spec, batch)),
+                               dtype=torch.uint8, device=dev)
+                   for spec in self.scratch]
         cols: List[DeviceColumn] = []
         for o in self.outputs:
             if o.kind == "raw":
                 cols.append(ins[o.src])
                 continue
             validity = torch.empty(n, dtype=torch.bool, device=dev)
-            if o.kind == "valid":
+            if o.kind == "scratch":
+                cols.append(DeviceColumn(
+                    o.dtype, scratch[o.scratch], validity,
+                    torch.empty(n, dtype=torch.int32, device=dev)))
+            elif o.kind == "valid":
                 src = ins[o.src]
                 cols.append(DeviceColumn(o.dtype, src.data, validity,
                                          src.lengths))
@@ -656,6 +818,8 @@ class SegmentProgram:
                 ptrs.append(cols[b[1]].data.data_ptr())
             elif kind == "out_len":
                 ptrs.append(cols[b[1]].lengths.data_ptr())
+            elif kind == "scratch":
+                ptrs.append(scratch[b[1]].data_ptr())
             else:  # keep
                 ptrs.append(keep.data_ptr())
         ints = []
@@ -664,6 +828,8 @@ class SegmentProgram:
                 ints.append(n)
             elif b[0] == "in_width":
                 ints.append(int(ins[b[1]].data.shape[1]))
+            elif b[0] == "scratch_width":
+                ints.append(int(scratch[b[1]].shape[1]))
             else:  # out_width
                 ints.append(int(cols[b[1]].data.shape[1]))
         lib = kernels.generated(self.key, self.source)
@@ -686,7 +852,6 @@ def _render(g: _Codegen, what: str) -> str:
         f"  a.{name} = (int)ints[{i + 1}];"
         for i, (name, _b) in enumerate(g.int_fields)]
     body = "\n".join(f"    {line}" for line in g.body)
-    helpers = "".join(f"{code}\n" for code in g.helpers.values())
     comment = what.replace("\\", "/")
     return f"""// K12 — a fused row-local segment, generated by
 // spark_rapids_tpu_torch/ops/kernels/fused.py:
@@ -697,7 +862,7 @@ namespace {{
 
 {chr(10).join(consts)}
 
-{helpers}struct K12Args {{
+struct K12Args {{
   const int* num_rows;
 {chr(10).join(f"  {f};" for f in fields)}
   long long n;

@@ -1,5 +1,5 @@
-"""K8 — string comparison, K13 — string search, and K15 — substring,
-over the fixed-width byte-matrix encoding.
+"""K8 — string comparison, K13 — string search, K15 — substring and K18 —
+concat, over the fixed-width byte-matrix encoding.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py``:
 ``equals`` (58) and ``compare`` (36) with the padding rule of ``_pad_to``
@@ -7,7 +7,7 @@ Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py``:
 ``contains`` (156), ``startswith`` (160), ``endswith`` (174) and
 ``locate_from`` (190) as K13 (``csrc/string_search.cu``), with the needle
 in the launch's parameters (at most ``MAX_NEEDLE_BYTES``); ``substring``
-(93) as K15 (``csrc/string_transform.cu``).  A string is
+(93) as K15 and ``concat`` (113) as K18 (both ``csrc/string_transform.cu``).  A string is
 ``(uint8[n, w] bytes, int32[n] lengths)``; either side of K8 may hold one
 row (a literal), which is read with a row stride of 0 instead of being
 copied ``n`` times.  The wrappers launch the kernels for CUDA tensors and
@@ -15,7 +15,7 @@ take the plain PyTorch version only for CPU tensors, unless ``kernels=``
 names the libraries to launch.
 
 Left out, for later slices (ROADMAP B.20): ``upper``, ``lower``,
-``length``, ``concat``, ``locate`` (with a scalar start),
+``length``, ``locate`` (with a scalar start),
 ``substring_index``, ``replace`` and ``trim``.
 """
 from __future__ import annotations
@@ -27,14 +27,17 @@ import torch
 
 from . import _build as B
 
-#: CUDA kernels launched by K8, K13 and K15
+#: CUDA kernels launched by K8, K13, K15 and K18
 STRING_COMPARE_LAUNCHES = B.LaunchCounter("string_compare")
 STRING_SEARCH_LAUNCHES = B.LaunchCounter("string_search")
 STRING_TRANSFORM_LAUNCHES = B.LaunchCounter("string_transform")
+STRING_CONCAT_LAUNCHES = B.LaunchCounter("string_concat")
 
 #: the longest needle K13 takes in its launch parameters
 #: (``csrc/string_search.cu:NEEDLE_MAX``)
 MAX_NEEDLE_BYTES = 1024
+#: the most parts one K18 launch takes (``csrc/string_transform.cu``)
+MAX_CONCAT_PARTS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +320,65 @@ def substring(bm, lengths, start: int, sub_len: int, out_w: int,
              "k15_substring", B.ptr(bm), B.ptr(lengths), w, n, start,
              sub_len, out_w, B.ptr(out), B.ptr(new_len), kernels.stream(bm))
     return out, new_len
+
+
+# ---------------------------------------------------------------------------
+# K18: concat
+# ---------------------------------------------------------------------------
+def concat_plain(parts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's formulation: for each part in turn, the output
+    bytes from the running length for the part's length come from the
+    part (its column clipped into its width), the rest stay zero; the
+    output is the sum of the widths wide and its lengths the sum of the
+    lengths.  A part may be one row (a literal), broadcast."""
+    n = max(bm.shape[0] for bm, _ln in parts)
+    total_w = sum(bm.shape[1] for bm, _ln in parts)
+    dev = parts[0][0].device
+    out = torch.zeros((n, total_w), dtype=torch.uint8, device=dev)
+    out_len = torch.zeros(n, dtype=torch.int32, device=dev)
+    pos = torch.arange(total_w, dtype=torch.int32, device=dev)[None, :]
+    for bm, ln in parts:
+        w = bm.shape[1]
+        bm = bm.expand(n, w)
+        ln = ln.to(torch.int32).expand(n)
+        src = pos - out_len[:, None]
+        g = torch.gather(bm, 1, torch.clamp(src, 0, w - 1).to(torch.int64))
+        out = torch.where((src >= 0) & (src < ln[:, None]), g, out)
+        out_len = out_len + ln
+    return out, out_len
+
+
+def concat(parts, kernels: Optional[B.Kernels] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K18: (uint8[n, sum of the widths], int32[n]), the parts
+    ``[(bytes, lengths), ...]`` side by side in each row (a part may be
+    one row, a literal)."""
+    kernels = B.kernels_for(parts[0][0], kernels)
+    if kernels is None:
+        return concat_plain(parts)
+    if len(parts) > MAX_CONCAT_PARTS:
+        head = concat(parts[:MAX_CONCAT_PARTS], kernels)
+        return concat([head] + list(parts[MAX_CONCAT_PARTS:]), kernels)
+    n = max(bm.shape[0] for bm, _ln in parts)
+    for bm, ln in parts:
+        if bm.dtype != torch.uint8 or bm.dim() != 2 or bm.shape[1] < 1 \
+                or bm.shape[0] not in (1, n) or ln.shape[0] != bm.shape[0]:
+            raise ValueError(f"a concat part is uint8[{n} or 1, w >= 1] "
+                             f"with a length a row, not {bm.dtype} "
+                             f"{tuple(bm.shape)} and {tuple(ln.shape)}")
+    sides = [_side(bm, ln) for bm, ln in parts]
+    out_w = sum(w for _b, _l, w, _s in sides)
+    dev = parts[0][0].device
+    out = torch.empty((n, out_w), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        k = len(sides)
+        B.launch(STRING_CONCAT_LAUNCHES, kernels.library("string_transform"),
+                 "k18_concat",
+                 (ctypes.c_void_p * k)(*[B.ptr(b) for b, _l, _w, _s in sides]),
+                 (ctypes.c_void_p * k)(*[B.ptr(l) for _b, l, _w, _s in sides]),
+                 (ctypes.c_int * k)(*[w for _b, _l, w, _s in sides]),
+                 (ctypes.c_int * k)(*[s for _b, _l, _w, s in sides]),
+                 k, n, out_w, B.ptr(out), B.ptr(out_len),
+                 kernels.stream(parts[0][0]))
+    return out, out_len

@@ -2,8 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/ops/stringexprs.py:_NeedlePredicate``,
 ``Contains``, ``StartsWith``, ``EndsWith`` (272-330) and ``Like``
-(396-500), on K13 (``ops/kernels/stringkernels.py``), and ``Substring``
-(156-197) on K15.  ``Like`` takes
+(396-500), on K13 (``ops/kernels/stringkernels.py``), ``Substring``
+(156-197) on K15 and ``ConcatStrings`` (362-393) on K18.  ``Like`` takes
 patterns built from literal text and ``%`` and lowers them as the
 reference does: an exact pattern is startswith plus a length test;
 otherwise the first segment is a prefix, each middle segment the greedy
@@ -14,9 +14,11 @@ with the host regex, and the host engine is not ported yet, so planning
 such a query raises ``NotImplementedError``.  A needle longer than K13's
 ``MAX_NEEDLE_BYTES`` is tagged off the device likewise.  ``Substring``
 works on byte positions, as the reference's device path does (exact for
-ASCII; a multi-byte UTF-8 row is cut between bytes there too).  The
-other string functions (length, concat, case maps, replace, trim,
-substring_index, locate with a scalar start) come with a later slice.
+ASCII; a multi-byte UTF-8 row is cut between bytes there too).
+``ConcatStrings`` is null where any part is null; its bytes are the
+parts' bytes whatever their validity, as in the reference.  The other
+string functions (length, case maps, replace, trim, substring_index,
+locate with a scalar start) come with a later slice.
 """
 from __future__ import annotations
 
@@ -191,3 +193,25 @@ class Substring(Expression):
         bm, lens = sk.substring(c.data, c.lengths, self.start, ln,
                                 self.out_width(w))
         return DeviceColumn(T.STRING, bm, c.validity, lens)
+
+
+class ConcatStrings(Expression):
+    """concat(part, ...): the parts' bytes side by side, the output as
+    wide as the parts' widths together; null if any part is null."""
+
+    def __init__(self, exprs):
+        super().__init__(list(exprs))
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    def eval_tpu(self, batch):
+        n, dev = batch.padded_rows, batch.device
+        cols = [as_device_column(e.eval_tpu(batch), n, dev)
+                for e in self.children]
+        bm, ln = sk.concat([(c.data, c.lengths) for c in cols])
+        validity = torch.ones(n, dtype=torch.bool, device=dev)
+        for c in cols:
+            validity = validity & c.validity
+        return DeviceColumn(T.STRING, bm, validity, ln)

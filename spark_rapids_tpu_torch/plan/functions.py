@@ -3,18 +3,21 @@
 Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
 ``col``, ``lit``, ``if_``, the aggregates ``sum``/``count``/``avg``/
 ``min``/``max``/``first``/``last``, and ``Column`` with arithmetic,
-comparison, boolean, alias, null-test and sort-order operators, ``isin``
-with literal members and the string predicates ``contains``/
-``startswith``/``endswith``/``like``, ``substring`` and ``year``.
+comparison, boolean, alias, null-test and sort-order operators, ``cast``
+(a type name or a DType), ``isin`` with literal members and the string
+predicates ``contains``/``startswith``/``endswith``/``like``,
+``substring``, ``concat`` and ``year``.
 ``isin`` with column members, ``when``/``otherwise``, and the other
 string, math and date functions come with later slices.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
+from .. import types as T
 from ..ops import aggregates as agg
 from ..ops import arithmetic as ar
+from ..ops import cast as cst
 from ..ops import conditional as cond
 from ..ops import datetimeexprs as dte
 from ..ops import predicates as pred
@@ -82,6 +85,10 @@ class Column:
 
     def alias(self, name: str) -> "Column":
         return Column(Alias(self.expr, name))
+
+    def cast(self, to: Union[str, T.DType]) -> "Column":
+        to_t = T.from_name(to) if isinstance(to, str) else to
+        return Column(cst.Cast(self.expr, to_t))
 
     def is_null(self) -> "Column":
         return Column(pred.IsNull(self.expr))
@@ -201,6 +208,10 @@ def last(c, ignore_nulls: bool = False) -> AggColumn:
 
 def substring(c, pos: int, length_: int) -> Column:
     return Column(st.Substring(_col_e(c), pos, length_))
+
+
+def concat(*cols) -> Column:
+    return Column(st.ConcatStrings([_col_e(c) for c in cols]))
 
 
 def year(c) -> Column:

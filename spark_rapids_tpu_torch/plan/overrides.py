@@ -31,7 +31,9 @@ HOST_SOURCES = (P.LocalScanExec,)
 
 
 class ExprRule:
-    def __init__(self, cls: Type[Expression]):
+    def __init__(self, cls: Type[Expression],
+                 tag: Optional[Callable] = None):
+        self.tag = tag  # (ExprMeta) -> None: conf- or input-based reasons
         self.conf_entry = register_op_enable_key(
             "expr", cls.__name__,
             f"enable expression {cls.__name__} on the device")
@@ -54,8 +56,8 @@ class RuleRegistry:
         self.expr_rules: Dict[type, ExprRule] = {}
         self.exec_rules: Dict[type, ExecRule] = {}
 
-    def register_expr(self, cls):
-        self.expr_rules[cls] = ExprRule(cls)
+    def register_expr(self, cls, tag: Optional[Callable] = None):
+        self.expr_rules[cls] = ExprRule(cls, tag)
 
     def register_exec(self, cls, convert, **kw):
         self.exec_rules[cls] = ExecRule(cls, convert, **kw)
@@ -113,9 +115,12 @@ class ExprMeta(BaseMeta):
         name = type(e).__name__
         if rule is None:
             self.will_not_work_on_tpu(f"no device rule for expression {name}")
-        elif not rule.conf_entry.get(dict(self.conf.items())):
-            self.will_not_work_on_tpu(
-                f"expression {name} disabled by {rule.conf_entry.key}")
+        else:
+            if not rule.conf_entry.get(dict(self.conf.items())):
+                self.will_not_work_on_tpu(
+                    f"expression {name} disabled by {rule.conf_entry.key}")
+            if rule.tag is not None:
+                rule.tag(self)
         if not e.tpu_supported:
             reason = getattr(e, "unsupported_reason", None)
             self.will_not_work_on_tpu(
@@ -250,8 +255,38 @@ class TpuOverrides:
 # ==========================================================================
 # Registry population
 # ==========================================================================
+def tag_cast(meta: ExprMeta) -> None:
+    """The reference's conf gates of the string parses, reason for reason
+    (``spark_rapids_tpu/plan/overrides.py:369-395``)."""
+    from .. import types as T
+    from ..config import (CAST_STRING_TO_FLOAT, CAST_STRING_TO_INTEGER,
+                          CAST_STRING_TO_TIMESTAMP)
+
+    e = meta.expr
+    try:
+        src, dst = e.child.dtype, e.to
+    except Exception:  # noqa: BLE001 - unresolved child
+        return
+    if not src.is_string:
+        return
+    if dst.is_integral and not meta.conf.get(CAST_STRING_TO_INTEGER):
+        meta.will_not_work_on_tpu(
+            "string->integral cast disabled by "
+            f"{CAST_STRING_TO_INTEGER.key}")
+    if dst.is_floating and not meta.conf.get(CAST_STRING_TO_FLOAT):
+        meta.will_not_work_on_tpu(
+            "string->float cast on device can differ by a few ULPs "
+            f"from the host parse; enable {CAST_STRING_TO_FLOAT.key}")
+    if dst.id in (T.TypeId.DATE32, T.TypeId.TIMESTAMP) \
+            and not meta.conf.get(CAST_STRING_TO_TIMESTAMP):
+        meta.will_not_work_on_tpu(
+            "string->date/timestamp cast disabled by "
+            f"{CAST_STRING_TO_TIMESTAMP.key}")
+
+
 def _register_expression_rules(reg: RuleRegistry) -> None:
     from ..ops import arithmetic as ar
+    from ..ops import cast as cst
     from ..ops import conditional as cond
     from ..ops import datetimeexprs as dte
     from ..ops import expression as ex
@@ -269,8 +304,13 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
         reg.register_expr(cls)
     reg.register_expr(cond.If)
     for cls in (st.Contains, st.StartsWith, st.EndsWith, st.Like,
-                st.Substring):
+                st.Substring, st.ConcatStrings):
         reg.register_expr(cls)
+    # the string directions conf-gated as in the reference
+    # (plan/overrides.py:366-397)
+    reg.register_expr(cst.Cast, tag=tag_cast)
+    reg.register_expr(cst.NormalizeNaNAndZero)
+    reg.register_expr(cst.KnownFloatingPointNormalized)
     # the reference registers both without a tag or an incompat flag
     # (plan/overrides.py:414-426)
     reg.register_expr(dte.Year)

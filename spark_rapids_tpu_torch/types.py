@@ -46,6 +46,10 @@ class DType:
         return self.id in _NUMERIC
 
     @property
+    def is_integral(self) -> bool:
+        return self.id in _INTEGRAL
+
+    @property
     def is_floating(self) -> bool:
         return self.id in (TypeId.FLOAT32, TypeId.FLOAT64)
 
@@ -71,8 +75,8 @@ class DType:
         return self.id.value
 
 
-_NUMERIC = {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64,
-            TypeId.FLOAT32, TypeId.FLOAT64}
+_INTEGRAL = {TypeId.INT8, TypeId.INT16, TypeId.INT32, TypeId.INT64}
+_NUMERIC = _INTEGRAL | {TypeId.FLOAT32, TypeId.FLOAT64}
 
 _NP = {
     TypeId.BOOL: np.dtype(np.bool_),

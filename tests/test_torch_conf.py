@@ -155,9 +155,6 @@ UNREAD_KEYS = {
     "spark.rapids.tpu.sql.adaptive.skewedPartitionThresholdBytes",
     "spark.rapids.tpu.sql.adaptive.targetPartitionBytes",
     "spark.rapids.tpu.sql.batchSizeRows",
-    "spark.rapids.tpu.sql.castStringToFloat.enabled",
-    "spark.rapids.tpu.sql.castStringToInteger.enabled",
-    "spark.rapids.tpu.sql.castStringToTimestamp.enabled",
     "spark.rapids.tpu.sql.concurrentTpuTasks",
     "spark.rapids.tpu.sql.exportColumnarRdd",
     "spark.rapids.tpu.sql.incompatibleOps.enabled",

@@ -631,9 +631,19 @@ def test_k12_substring_and_year_match_plain(emu):
     assert 0 < int(keep.sum()) < int(batch.num_rows)
 
 
+def with_truncating_fdiv(source: str) -> str:
+    """``source`` with ``strings.cuh`` inlined and its flooring division
+    ``srt::fdiv`` truncating instead (C++ ``/``)."""
+    floor = "return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;"
+    header = (B.CSRC / "strings.cuh").read_text()
+    assert floor in header and "srt::fdiv" in source
+    return source.replace('#include "strings.cuh"',
+                          header.replace(floor, "return q;"))
+
+
 def test_k12_year_with_truncating_division_differs(emu):
     """The mutation check of the Year rule: the same segment with
-    ``k12_fdiv`` truncating (C++ ``/``) disagrees with the plain
+    ``srt::fdiv`` truncating (C++ ``/``) disagrees with the plain
     version."""
     import copy
 
@@ -642,9 +652,7 @@ def test_k12_year_with_truncating_division_differs(emu):
     sess, df, batch = _substring_year_frame()
     seg = _segment(sess, df)
     prog = copy.copy(seg.program)
-    floor = "return (q * b != a && ((a < 0) != (b < 0))) ? q - 1 : q;"
-    assert floor in prog.source
-    prog.source = prog.source.replace(floor, "return q;")
+    prog.source = with_truncating_fdiv(prog.source)
     prog.key = B.generated_key(prog.source)
     want, _k = FK.segment_plain(prog, batch)
     got, _k = FK.run_segment(prog, batch, kernels=emu)
