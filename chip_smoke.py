@@ -72,6 +72,24 @@
    line byte for byte, lengths included, against
    ``tpch_datagen.export_lines``; both with launch counts, table sizes
    and cold, warm and profiled walls;
+2g. orders and customer cleaned as text (``benchmarks/tpch_clean.py``,
+   under ``CLEAN_CONF``: the cast confs, ``incompatibleOps`` and the
+   Upper/Lower keys): ``orders_profile`` over the 1,500,000 orders
+   (substring_index, lower, length, locate, trim of a substring, upper
+   of a replace, then a group-by with count, avg, sum, string min and
+   string max) and ``customer_clean`` over the 150,000 customers (a
+   length filter, then substring_index, casts, replace, lower, upper of
+   an rtrim of a substring, ltrim of a substring_index, a sort), each at
+   two partitions, at one and at two with fusion off, against
+   ``tpch_clean``'s Python oracle (strings byte for byte, integers
+   exact, avg_len rel 1e-9); logs the sizes after the filter, each
+   exchange's per-partition rows (which must add up), the batch metrics
+   and the launch counts: customer_clean with fusion on runs its
+   expressions inside its K12 segment (K19-K21, K13, K15 and K16 idle);
+   orders_profile's lone Project is no segment, so it runs them on
+   K19-K21, K13, K15 and K16 in every cell, as customer_clean does with
+   fusion off; orders_profile's string min/max launches K1, K3 and K4
+   (B.5); cold, warm and profiled walls;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -88,7 +106,11 @@
    the volume, the if_) and Q22's customer segment (Substring, isin) on
    the inputs the main path gave them; K15: Q22's substring of c_phone
    over the customer table and an 8,388,608 x 32-byte matrix with a
-   negative start) and holds it against its plain PyTorch version
+   negative start; K16-K18 at the text path's shapes; K12 also over
+   customer_clean's segment; K13's locate with one start over o_comment;
+   K19-K21 and the string min/max composition (B.5) on the calls phase
+   2g's orders_profile at one partition and customer_clean with fusion
+   off made) and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
    plain version and one PyTorch library call with CUDA events (median
@@ -299,7 +321,8 @@ def main() -> int:
         return 2
 
     from spark_rapids_tpu_torch import Session
-    from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_datagen,
+    from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_clean as TC,
+                                                   tpch_datagen,
                                                    tpch_oracle as O,
                                                    tpch_text as TT,
                                                    tpcxbb, tpcxbb_datagen)
@@ -394,9 +417,25 @@ def main() -> int:
             for p in walk_plan(text_planner.physical_plan(plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (what, p.program))
+    clean_host = {name: tpch_datagen.tables(name, SF, SEED,
+                                            cols=all_cols)[table]
+                  for name, (_q, table) in TC.QUERIES.items()}
+    clean_planner = Session(TC.CLEAN_CONF, device="cpu")
+    for name, (query, _table) in TC.QUERIES.items():
+        for n_part in (1, 2):
+            for p in walk_plan(clean_planner.physical_plan(query(
+                    clean_planner.create_dataframe(
+                        clean_host[name], n_partitions=n_part)).plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    segments.setdefault(p.program.key, (name, p.program))
     require({"text q1", "text q6", "export"} <=
             {q for q, _p in segments.values()},
             "the text ingest or export planned no fused segment")
+    # the reference fuses customer_clean's Filter -> Project; the lone
+    # Project of orders_profile is no segment (a segment has two members)
+    require({q for q, _p in segments.values() if q in TC.QUERIES}
+            == {"customer_clean"},
+            "customer_clean planned no fused segment, or orders_profile one")
     require(sorted(q for q, _p in segments.values() if q in FUSED)
             == sorted(FUSED),
             f"expected one segment source per fused query of Q1-Q14, got "
@@ -428,9 +467,16 @@ def main() -> int:
                 "K15": [SK.STRING_TRANSFORM_LAUNCHES],
                 "K16": [CK.CAST_PARSE_LAUNCHES],
                 "K17": [CK.CAST_FORMAT_LAUNCHES],
-                "K18": [SK.STRING_CONCAT_LAUNCHES]}
+                "K18": [SK.STRING_CONCAT_LAUNCHES],
+                "K19": [SK.STRING_CASE_LAUNCHES],
+                "K20": [SK.STRING_TRIM_LAUNCHES],
+                "K21": [SK.STRING_REPLACE_LAUNCHES],
+                "B.5": [S.STRING_MINMAX_LAUNCHES]}
+    # the string transforms and string min/max run in phase 2g alone
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
-                    SK.STRING_CONCAT_LAUNCHES]
+                    SK.STRING_CONCAT_LAUNCHES, SK.STRING_CASE_LAUNCHES,
+                    SK.STRING_TRIM_LAUNCHES, SK.STRING_REPLACE_LAUNCHES,
+                    S.STRING_MINMAX_LAUNCHES]
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -1126,6 +1172,161 @@ def main() -> int:
     for cell, fn in text_runs.items():
         profile_query(cell, fn)
 
+    # ---- 2g. orders and customer cleaned as text ------------------------
+    t0 = time.perf_counter()
+    want_clean = {name: TC.ORACLES[name](b) for name, b in clean_host.items()}
+    log(f"clean tables SF{SF:g} answered in Python in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{name} {b.num_rows} x {len(b.schema)} (widths "
+            f"{[c.data.shape[1] for c in b.columns]})"
+            for name, b in clean_host.items()))
+    log(f"clean table sizes after the filter (Python): orders_profile "
+        f"{clean_host['orders_profile'].num_rows} orders in "
+        f"{len(want_clean['orders_profile'])} groups; customer_clean "
+        f"{len(want_clean['customer_clean'])} of "
+        f"{clean_host['customer_clean'].num_rows} customers")
+    clean_sess = Session(TC.CLEAN_CONF)
+    clean_unfused = Session({**TC.CLEAN_CONF,
+                             "spark.rapids.tpu.sql.fusion.enabled": False})
+    clean_runs = {}      # cell -> callable
+    clean_frames = {}    # cell -> DataFrame
+    clean_launches = {}  # cell -> kernel -> CUDA kernels in its cold run
+    transform_kernels = [SK.STRING_CASE_LAUNCHES, SK.STRING_TRIM_LAUNCHES,
+                         SK.STRING_REPLACE_LAUNCHES, SK.STRING_TRANSFORM_LAUNCHES,
+                         CK.CAST_PARSE_LAUNCHES]
+    for name, (query, _table) in TC.QUERIES.items():
+        for label, csess, n_part in (("2", clean_sess, 2),
+                                     ("1", clean_sess, 1),
+                                     ("2 fusion off", clean_unfused, 2)):
+            cell = f"{name}/{label}"
+            df = query(csess.create_dataframe(clean_host[name],
+                                              n_partitions=n_part))
+            clean_runs[cell] = df.collect
+            clean_frames[cell] = df
+            torch.cuda.synchronize()
+            for c in all_counters:
+                c.reset()
+            t0 = time.perf_counter()
+            rows = df.collect()
+            cold[cell] = time.perf_counter() - t0
+            clean_launches[cell] = {k: sum(c.count for c in cs)
+                                    for k, cs in counters.items()}
+            log(f"{cell} launches: {clean_launches[cell]} "
+                f"{ {c.name: c.count for c in all_counters} }")
+            # with fusion on, customer_clean's expressions run inside its
+            # K12 segment; orders_profile's lone Project and every
+            # expression with fusion off run on K19-K21, K15 and K16 (and
+            # K13 for orders_profile's locate)
+            in_k12 = name == "customer_clean" and "fusion off" not in label
+            require((FK.FUSED_LAUNCHES.count > 0) == in_k12,
+                    f"{cell}: wrapper {FK.FUSED_LAUNCHES.name} launched "
+                    f"{FK.FUSED_LAUNCHES.count} kernels")
+            for c in transform_kernels:
+                require((c.count > 0) != in_k12,
+                        f"{cell}: wrapper {c.name} launched {c.count} "
+                        "kernels")
+            require((SK.STRING_SEARCH_LAUNCHES.count > 0) ==
+                    (name == "orders_profile"),
+                    f"{cell}: locate did not run on K13 alone")
+            minmax = name == "orders_profile"
+            for c in (S.SORT_LAUNCHES, S.SEGMENT_REDUCE_LAUNCHES,
+                      G.GATHER_LAUNCHES, S.STRING_MINMAX_LAUNCHES):
+                require((c.count > 0) == (minmax or c is S.SORT_LAUNCHES
+                                          or c is G.GATHER_LAUNCHES),
+                        f"{cell}: wrapper {c.name} launched {c.count} "
+                        "kernels")
+            for c in (W.WINDOW_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
+                      SK.STRING_CONCAT_LAUNCHES):
+                require(c.count == 0, f"{cell}: wrapper {c.name} launched")
+            m = csess.last_metrics
+            log(f"{cell} batches: " + ", ".join(
+                f"{k} {v}" for k, v in sorted(m.items()) if "Batches" in k))
+            if minmax:
+                require(m.get("TpuHashAggregateExec[partial].numInputBatches")
+                        == n_part, f"{cell}: a partial aggregate did not "
+                        f"receive one batch a partition: {m}")
+            for pl in csess.last_placements:
+                log(f"{cell} placement {pl['exchange']}: rows written "
+                    f"{pl['rows_written']}, per partition "
+                    f"{pl['partition_rows']}")
+                require(sum(pl["partition_rows"]) == pl["rows_written"],
+                        f"{cell}: {pl['exchange']} lost or duplicated rows")
+            require(len(csess.last_placements) == (
+                0 if n_part == 1 else (2 if minmax else 1)),
+                f"{cell} planned {len(csess.last_placements)} "
+                "multi-partition exchanges")
+            TC.check_rows(rows, want_clean[name], cell)
+            log(f"{cell} rows match the Python oracle: {len(rows)} rows, "
+                f"first {rows[:2]}")
+    for name in TC.QUERIES:
+        log(f"{name}/2 device plan:\n" + str(clean_sess.physical_plan(
+            TC.QUERIES[name][0](clean_sess.create_dataframe(
+                clean_host[name])).plan)))
+
+    # one more run of orders_profile at one partition and customer_clean
+    # with fusion off, keeping the first call of each transform, of the
+    # string min/max, and customer_clean's fused segment input (its run
+    # at two partitions with fusion on)
+    clean_calls = {}
+    rec_names = ("upper", "lower", "length", "trim_ws", "substring_index",
+                 "replace_single", "locate")
+    impls = {n: getattr(SK, n) for n in rec_names}
+    minmax_impl = S.string_minmax
+
+    rec_cell = [None]
+
+    def recorder(n):
+        def rec(*args, **kw):
+            clean_calls.setdefault(n, []).append((rec_cell[0], args, kw))
+            return impls[n](*args, **kw)
+        return rec
+
+    def rec_minmax(*args, **kw):
+        clean_calls.setdefault("string_minmax", []).append(
+            (rec_cell[0], args, kw))
+        return minmax_impl(*args, **kw)
+
+    for n in rec_names:
+        setattr(SK, n, recorder(n))
+    S.string_minmax = rec_minmax
+    TpuFusedSegmentExec._compute = recording_text_segment
+    try:
+        for cell in ("orders_profile/1", "customer_clean/2 fusion off",
+                     "customer_clean/2"):
+            rec_cell[0] = cell
+            clean_runs[cell]()
+    finally:
+        for n in rec_names:
+            setattr(SK, n, impls[n])
+        S.string_minmax = minmax_impl
+        TpuFusedSegmentExec._compute = seg_impl
+
+    for cell, fn in clean_runs.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        log(f"{cell} SF{SF:g} wall: cold {cold[cell] * 1e3:.1f} ms, warm "
+            f"{warm[cell] * 1e3:.1f} ms (median of 3) on {card}")
+    # the wall split at the host batch: collect() is _result_batch() and
+    # then the Python rows built from it
+    for cell, df in clean_frames.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            df._result_batch()
+            runs.append(time.perf_counter() - t0)
+        hb_s = statistics.median(runs)
+        log(f"{cell}: host batch {hb_s * 1e3:.1f} ms (median of 3), "
+            f"collect {warm[cell] * 1e3:.1f} ms: Python rows ~"
+            f"{(warm[cell] - hb_s) * 1e3:.1f} ms")
+    for cell, fn in clean_runs.items():
+        profile_query(cell, fn)
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -1157,17 +1358,24 @@ def main() -> int:
         # window kernel's q30 at both partition counts and the clickstream
         # K15's is Q22 with fusion off (with fusion on, Q22's substring
         # runs inside K12); every other kernel's the one-partition runs
-        # (and, for K12, the later queries at two partitions)
+        # (and, for K12, the later queries at two partitions); phase 2g's
+        # six cells are the main path of K19-K21 and the string min/max
+        # (B.5) and count for K12, K13, K15 and K16 too
         mains = {"K9": [launches2], "K10": [launches2], "K11": [launches2],
-                 "K12": [launches, {q: launches2[q] for q in LATER}],
+                 "K12": [launches, {q: launches2[q] for q in LATER},
+                         clean_launches],
+                 "K13": [launches, clean_launches],
                  "K14": [launches, launches2],
-                 "K15": [{"q22 fusion off": launches_q22_unfused}],
+                 "K15": [{"q22 fusion off": launches_q22_unfused},
+                         clean_launches],
                  "K16": [{c: v for c, v in text_launches.items()
-                          if "fusion off" in c}],
+                          if "fusion off" in c}, clean_launches],
                  "K17": [{c: v for c, v in text_launches.items()
                           if c.startswith("export/")}],
                  "K18": [{c: v for c, v in text_launches.items()
                           if c.startswith("export/")}],
+                 "K19": [clean_launches], "K20": [clean_launches],
+                 "K21": [clean_launches], "B.5": [clean_launches],
                  }.get(k, [launches])
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
@@ -1179,6 +1387,8 @@ def main() -> int:
                  label(q): launches2[q][k] for q in launches2},
              "launches_by_text_cell": {c: v[k] for c, v in
                                        text_launches.items()},
+             "launches_by_clean_cell": {c: v[k] for c, v in
+                                        clean_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -1558,7 +1768,7 @@ def main() -> int:
         k12_cases[f"q{q}"] = (prog, seg_inputs[key])
     # the text path's segments: the ingest's casts fused with Q1's filter,
     # the export's formats and concatenation behind its filter
-    for what in ("text q1", "export"):
+    for what in ("text q1", "export", "customer_clean"):
         key, prog = next((k, p) for k, (qq, p) in segments.items()
                          if qq == what and k in text_seg_inputs)
         k12_cases[what.replace(" ", "_")] = (prog, text_seg_inputs[key])
@@ -1617,6 +1827,8 @@ def main() -> int:
         "contains": (comment, b"special", ()),
         "endswith": (comment, b"requests", ()),
         "locate_from": (comment, b"requests", (start,)),
+        # orders_profile's locate('special', o_comment): one start
+        "locate": (comment, b"special", (1,)),
     }
     k13 = {}
     for fn, (c, needle, extra) in k13_cases.items():
@@ -1629,7 +1841,9 @@ def main() -> int:
         k13[fn] = dict(
             ms=cuda_ms(lambda: kernel(c.data, c.lengths, needle, *extra)),
             plain=cuda_ms(lambda: plain(c.data, c.lengths, needle, *extra)),
-            bytes=nbytes(c.data, c.lengths, got, *extra), rows=rows,
+            bytes=nbytes(c.data, c.lengths, got,
+                         *[x for x in extra if torch.is_tensor(x)]),
+            rows=rows,
             ops=rows * c.data.shape[1], hits=int((got != 0).sum()))
         log(f"K13 {fn} {needle!r}: {rows} rows x {c.data.shape[1]} bytes, "
             f"{k13[fn]['hits']} hits; kernel {k13[fn]['ms']:.3f} ms, plain "
@@ -1651,7 +1865,7 @@ def main() -> int:
           cuda_ms(lambda: (ptype.data[:, :5] == needle_t).all(1)),
           sw["bytes"], sw["ops"], FP32_PER_S, 0.0,
           library_call="(p_type[:, :5] == b'PROMO').all(1), startswith "
-          "only; contains, endswith and locate_from have none",
+          "only; contains, endswith, locate_from and locate have none",
           ms_by_function={f: v["ms"] for f, v in k13.items()},
           plain_ms_by_function={f: v["plain"] for f, v in k13.items()},
           bound_ms_by_function={f: bound(v["bytes"], v["ops"],
@@ -1968,6 +2182,121 @@ def main() -> int:
           "row's bytes at its running length", parts=len(parts),
           rows=n18, out_width=got[0].shape[1])
 
+    # K19-K21: each transform as the clean path called it (orders_profile
+    # at one partition: 1,500,000 orders, 2,097,152 padded rows;
+    # customer_clean at two with fusion off: a partition's customers),
+    # against its plain version
+    def case_plain(which):
+        return lambda bm, ln: (SK.case_map_plain(bm, ln, which), ln)
+
+    plain_of = {"upper": case_plain("upper"), "lower": case_plain("lower"),
+                "length": SK.length_plain, "trim_ws": SK.trim_ws_plain,
+                "substring_index": SK.substring_index_plain,
+                "replace_single": SK.replace_single_plain}
+    # (kernel, call name, cell, which of its calls there, label)
+    transform_cases = [
+        ("K19", "upper", "orders_profile/1", 0, "upper comment_key"),
+        ("K19", "length", "orders_profile/1", 0, "length o_comment"),
+        ("K19", "lower", "orders_profile/1", 0, "lower priority name"),
+        ("K19", "lower", "customer_clean/2 fusion off", 0,
+         "lower c_mktsegment"),
+        ("K20", "trim_ws", "orders_profile/1", 0, "trim preview"),
+        ("K20", "substring_index", "orders_profile/1", 0,
+         "substring_index o_orderpriority '-' 1"),
+        ("K20", "substring_index", "orders_profile/1", 1,
+         "substring_index o_orderpriority '-' -1"),
+        ("K20", "substring_index", "customer_clean/2 fusion off", 3,
+         "substring_index c_comment ' ' -2"),
+        ("K21", "replace_single", "orders_profile/1", 0,
+         "replace o_comment ' ' -> '_'"),
+        ("K21", "replace_single", "customer_clean/2 fusion off", 0,
+         "replace c_phone '-' -> ''"),
+    ]
+    transform = {}
+    for kname, fn, cell, which, what in transform_cases:
+        calls = [(a, kw) for c, a, kw in clean_calls[fn] if c == cell]
+        args, kw = calls[which]
+        run_k = (lambda fn=fn, args=args, kw=kw: getattr(SK, fn)(*args,
+                                                                 **kw))
+        run_p = (lambda fn=fn, args=args, kw=kw: plain_of[fn](*args, **kw))
+        got, ref = run_k(), run_p()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        require(all(torch.equal(g.to(r.dtype), r) for g, r in zip(got, ref)),
+                f"{kname} {what} differs from its plain version")
+        bm, ln = args[0], args[1]
+        outs = [g for g in got if g is not ln]
+        moved = nbytes(bm, ln, *outs)
+        transform[what] = dict(
+            k=kname, ms=cuda_ms(run_k), plain=cuda_ms(run_p, reps=5),
+            bytes=moved, rows=bm.shape[0], width=bm.shape[1],
+            out_width=got[0].shape[1] if got[0].dim() == 2 else None,
+            bound=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"{kname} {what} ({cell}): {bm.shape[0]} rows x {bm.shape[1]} "
+            f"bytes; kernel {transform[what]['ms']:.3f} ms, plain "
+            f"{transform[what]['plain']:.3f} ms, bound "
+            f"{transform[what]['bound']:.4f} ms")
+    for kname, head_case, fname, src, ref_line, fns in (
+            ("K19", "upper comment_key", "case_map", "string_case.cu",
+             "stringkernels.py:66", "upper, lower (_case_map :66) and "
+             "length (:83)"),
+            ("K20", "trim preview", "trim_substring_index",
+             "string_transform.cu", "stringkernels.py:279",
+             "trim_ws (:279) and substring_index (:216)"),
+            ("K21", "replace o_comment ' ' -> '_'", "replace",
+             "string_replace.cu", "stringkernels.py:250",
+             "replace_single (:250)")):
+        mine = {c: v for c, v in transform.items() if v["k"] == kname}
+        head = mine[head_case]
+        entry(f"{kname} {fname}", f"spark_rapids_tpu_torch/csrc/{src}",
+              f"spark_rapids_tpu/ops/kernels/{ref_line}",
+              head["ms"], head["plain"], None, head["bytes"],
+              head["rows"] * head["width"], FP32_PER_S, 0.0,
+              library_call=f"none: no PyTorch call computes {fns} of a "
+              "byte matrix",
+              ms_by_call={c: v["ms"] for c, v in mine.items()},
+              plain_ms_by_call={c: v["plain"] for c, v in mine.items()},
+              bound_ms_by_call={c: v["bound"] for c, v in mine.items()},
+              rows_by_call={c: v["rows"] for c, v in mine.items()},
+              width_by_call={c: v["width"] for c, v in mine.items()})
+
+    # B.5: the partial aggregate's string min and max of orders_profile
+    # at one partition (2,097,152 padded rows, five groups), K1 + K4 + K3
+    # + K4 against the reference's rank encoding in torch
+    minmax = {}
+    for (cell, args, kw) in clean_calls["string_minmax"][:2]:
+        op = args[5]
+        got = minmax_impl(*args, **kw)
+        ref = S.string_minmax_plain(*args, **kw)
+        require(all(torch.equal(g.to(r.dtype), r) for g, r in zip(got, ref)),
+                f"string {op} differs from its plain version")
+        bm, ln, valid, seg_ids, n_seg = args[:5]
+        moved = nbytes(bm, ln, valid, seg_ids, *got)
+        minmax[op] = dict(
+            ms=cuda_ms(lambda args=args: minmax_impl(*args)),
+            plain=cuda_ms(lambda args=args: S.string_minmax_plain(*args),
+                          reps=3, warmup=1),
+            bytes=moved, rows=bm.shape[0], width=bm.shape[1],
+            groups=int((got[2] > 0).sum()),
+            bound=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"B.5 string {op} ({cell}): {bm.shape[0]} rows x {bm.shape[1]} "
+            f"bytes, {minmax[op]['groups']} groups; composition "
+            f"{minmax[op]['ms']:.3f} ms, plain {minmax[op]['plain']:.3f} ms, "
+            f"bound {minmax[op]['bound']:.4f} ms")
+    head = minmax["min"]
+    entry("B.5 string_minmax", "spark_rapids_tpu_torch/ops/kernels/segment.py",
+          "spark_rapids_tpu/exec/aggregate.py:32", head["ms"],
+          head["plain"], None, head["bytes"], head["rows"] * head["width"],
+          FP32_PER_S, 0.0,
+          library_call="none: no PyTorch call reduces strings per group",
+          composition="K1 (csrc/sort.cu) + K4 scatter (csrc/gather.cu) + "
+          "K3 (csrc/segment_reduce.cu) + K4 gathers",
+          ms_by_op={o: v["ms"] for o, v in minmax.items()},
+          plain_ms_by_op={o: v["plain"] for o, v in minmax.items()},
+          bound_ms_by_op={o: v["bound"] for o, v in minmax.items()},
+          rows=head["rows"], width_by_op={o: v["width"]
+                                          for o, v in minmax.items()})
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -1982,6 +2311,9 @@ def main() -> int:
                       "text": {cell: {"cold_s": cold[cell],
                                       "warm_s": warm[cell]}
                                for cell in text_runs},
+                      "clean": {cell: {"cold_s": cold[cell],
+                                       "warm_s": warm[cell]}
+                                for cell in clean_runs},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -65,7 +65,7 @@ never through Python strings.
 from __future__ import annotations
 
 import datetime as dt
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -133,7 +133,7 @@ LINEITEM_Q1_SCHEMA = T.Schema([
 ])
 
 #: the columns each query reads, by table, in the reference's order
-QUERY_COLUMNS: Dict[int, Dict[str, List[str]]] = {
+QUERY_COLUMNS: Dict[Union[int, str], Dict[str, List[str]]] = {
     1: {"lineitem": LINEITEM_Q1_SCHEMA.names},
     6: {"lineitem": LINEITEM_Q1_SCHEMA.names},
     3: {"customer": ["c_custkey", "c_mktsegment"],
@@ -223,10 +223,15 @@ QUERY_COLUMNS: Dict[int, Dict[str, List[str]]] = {
          "nation": ["n_nationkey", "n_name"]},
     22: {"customer": ["c_custkey", "c_phone", "c_acctbal"],
          "orders": ["o_custkey"]},
+    # benchmarks/tpch_clean.py
+    "orders_profile": {"orders": ["o_orderpriority", "o_comment"]},
+    "customer_clean": {"customer": ["c_name", "c_phone", "c_address",
+                                    "c_mktsegment", "c_comment"]},
 }
 #: the queries that read the Q12–Q14 columns, and the columns drawn last
 _LATE_QUERIES = (12, 13, 14)
-_REST_QUERIES = (2, 5, 7, 8, 9, 10, 11, 15, 16, 17, 18, 19, 20, 21, 22)
+_REST_QUERIES = (2, 5, 7, 8, 9, 10, 11, 15, 16, 17, 18, 19, 20, 21, 22,
+                 "orders_profile", "customer_clean")
 
 
 def days(y: int, m: int, d: int) -> int:
@@ -526,7 +531,7 @@ def draw_all(sf: float = 1.0, seed: int = 42,
     return _draw(sf, seed, n_rows, joins=True, rest=True)
 
 
-def tables(query: int, sf: float = 1.0, seed: int = 42,
+def tables(query: Union[int, str], sf: float = 1.0, seed: int = 42,
            n_rows: Optional[int] = None,
            cols: Optional[Dict[str, HostColumn]] = None
            ) -> Dict[str, HostBatch]:
@@ -534,7 +539,7 @@ def tables(query: int, sf: float = 1.0, seed: int = 42,
     (cut from ``cols``, a ``draw_all`` of the same arguments, when
     given)."""
     if query not in QUERY_COLUMNS:
-        raise ValueError(f"no table layout for TPC-H Q{query}")
+        raise ValueError(f"no table layout for TPC-H query {query!r}")
     if cols is None:
         cols = _draw(sf, seed, n_rows, joins=query not in (1, 6),
                      late=query in _LATE_QUERIES,

@@ -92,6 +92,10 @@ BUCKET_MIN_ROWS = conf("spark.rapids.tpu.sql.bucketMinRows").doc(
 # --- feature gates --------------------------------------------------------
 SQL_ENABLED = conf("spark.rapids.tpu.sql.enabled").doc(
     "Master enable for the plan-rewrite engine").boolean_conf(True)
+INCOMPATIBLE_OPS = conf("spark.rapids.tpu.sql.incompatibleOps.enabled").doc(
+    "Allow ops whose results may diverge from the host engine in corner "
+    "cases (reference: spark.rapids.sql.incompatibleOps.enabled)"
+).boolean_conf(False)
 ALLOW_FLOAT_AGG = conf("spark.rapids.tpu.sql.variableFloatAgg.enabled").doc(
     "Allow floating-point sums and averages on the device (their order "
     "differs from the host engine's); when false the aggregate is tagged "

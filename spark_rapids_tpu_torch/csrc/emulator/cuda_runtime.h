@@ -2,9 +2,10 @@
 // logic can run on a machine with no card: the test file
 // tests/test_torch_kernels_emulated.py builds them with g++ against this
 // header (the package's own build never includes it).  One std::thread
-// per CUDA thread;
-// the blocks of a launch run one after another, so a function-local
-// `static` stands in for __shared__ memory.  Warp intrinsics exchange
+// per CUDA thread of a block, created once a launch; the blocks of a
+// launch run one after another (every thread meets the others at a
+// barrier after each block), so a function-local `static` stands in for
+// __shared__ memory.  Warp intrinsics exchange
 // values through a per-warp slot array between two warp barriers.  It
 // checks logic only: timing, memory coalescing and races between blocks
 // are not modelled.
@@ -99,26 +100,32 @@ inline SrtCfg srt_cfg(dim3 g, dim3 b, size_t = 0, cudaStream_t = 0) {
   return SrtCfg{g, b};
 }
 
+// The launch's blockDim.x threads are created once; each runs the blocks
+// of the grid in order, and all of them meet at a barrier after every
+// block, so the blocks still run one after another (shared memory, a
+// function-local static, is never seen by two blocks at once).
 template <class... KA, class... A>
 void srt_launch(SrtCfg c, void (*kernel)(KA...), A... args) {
   gridDim = c.grid;
   blockDim = c.block;
   const int nt = (int)c.block.x;
-  for (unsigned by = 0; by < c.grid.y; ++by)
-    for (unsigned bx = 0; bx < c.grid.x; ++bx) {
-      std::barrier<> bar(nt);
-      srt_block_barrier = &bar;
-      std::vector<SrtWarp*> warps;
-      for (int w = 0; w < (nt + 31) / 32; ++w) warps.push_back(new SrtWarp());
-      srt_warps = &warps;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < nt; ++t)
-        threads.emplace_back([&, t, bx, by] {
-          threadIdx = dim3(t);
+  std::barrier<> bar(nt);
+  std::barrier<> block_end(nt);
+  srt_block_barrier = &bar;
+  std::vector<SrtWarp*> warps;
+  for (int w = 0; w < (nt + 31) / 32; ++w) warps.push_back(new SrtWarp());
+  srt_warps = &warps;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nt; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned by = 0; by < c.grid.y; ++by)
+        for (unsigned bx = 0; bx < c.grid.x; ++bx) {
           blockIdx = dim3(bx, by);
           kernel(static_cast<KA>(args)...);
-        });
-      for (auto& th : threads) th.join();
-      for (auto* w : warps) delete w;
-    }
+          block_end.arrive_and_wait();
+        }
+    });
+  for (auto& th : threads) th.join();
+  for (auto* w : warps) delete w;
 }

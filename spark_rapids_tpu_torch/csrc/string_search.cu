@@ -9,6 +9,8 @@
 // lengths); bytes at or past the length never match, an empty needle
 // matches, a needle wider than w never matches, and locate_from is
 // 1-based with 0 when absent, searching from a per-row 0-based start.
+// Mode LOCATE is stringkernels.py:locate (204), which StringLocate runs:
+// locate_from with one start for every row (start[0]).
 //
 // Bound on this card: bytes.  For Q13's o_comment (1,500,000 rows of a
 // ~63-byte matrix) contains must read each row once and write one byte:
@@ -34,7 +36,9 @@ struct Needle {
   uint8_t b[NEEDLE_MAX];
 };
 
-enum Mode { CONTAINS = 0, STARTSWITH = 1, ENDSWITH = 2, LOCATE_FROM = 3 };
+enum Mode {
+  CONTAINS = 0, STARTSWITH = 1, ENDSWITH = 2, LOCATE_FROM = 3, LOCATE = 4
+};
 
 __global__ void search_rows(const uint8_t* __restrict__ bm,
                             const int* __restrict__ lengths, int w,
@@ -60,19 +64,21 @@ __global__ void search_rows(const uint8_t* __restrict__ bm,
       break;
     default:
       ((int*)out)[i] = srt::str_locate_from(row, w, len, s_nd, nd.k,
-                                            start[i]);
+                                            start[mode == LOCATE ? 0 : i]);
   }
 }
 
 }  // namespace
 
 // mode: 0 contains, 1 startswith, 2 endswith (bool out), 3 locate_from
-// (int32 out; start: int32[n] 0-based offsets, else NULL); the needle is
-// k bytes of host memory, copied into the launch's parameters
+// (int32 out; start: int32[n] 0-based offsets, else NULL), 4 locate
+// (int32 out; start: int32[1], one 0-based offset for every row); the
+// needle is k bytes of host memory, copied into the launch's parameters
 SRT_API int k13_search(const void* bm, const void* lengths, int w,
                        long long n, const void* needle, int k, int mode,
                        const void* start, void* out, void* stream) {
-  if (k < 0 || k > NEEDLE_MAX || (mode == LOCATE_FROM && start == nullptr))
+  if (k < 0 || k > NEEDLE_MAX || mode < CONTAINS || mode > LOCATE ||
+      (mode >= LOCATE_FROM && start == nullptr))
     return (int)cudaErrorInvalidValue;
   Needle nd;
   nd.k = k;

@@ -1,4 +1,5 @@
-// K15 — substring of a byte matrix, and K18 — row-wise concatenation.
+// K15 — substring of a byte matrix, K18 — row-wise concatenation, and
+// K20 — trim and substring_index.
 //
 // Replaces spark_rapids_tpu/ops/kernels/stringkernels.py:substring (93),
 // which ops/stringexprs.py:Substring (156-197) runs: for each row of
@@ -36,6 +37,24 @@
 // The parts' pointers, widths and strides travel in the launch
 // parameters (at most MAX_PARTS; the wrapper concatenates more in
 // groups).
+//
+// K20 replaces spark_rapids_tpu/ops/kernels/stringkernels.py:trim_ws
+// (279) and substring_index (216), which ops/stringexprs.py's StringTrim,
+// StringTrimLeft, StringTrimRight and SubstringIndex run: each row keeps
+// a span of its bytes, [s, s + new length), copied to the front of an
+// out_w wide row, zeros after.  trim drops leading and/or trailing
+// spaces (0x20 only); substring_index with a one-byte delimiter keeps
+// the bytes before the count-th delimiter (count > 0) or after the
+// |count|-th from the right (count < 0; too few delimiters keep the row,
+// count 0 keeps nothing).  The spans are strings.cuh's str_trim_ws and
+// str_substring_index, which K12 reads in place as it reads a substring.
+// Bound on this card: bytes, as K15: each row reads its length and its
+// bytes and writes out_w bytes and a length: the orders preview (24
+// bytes, 2,097,152 padded rows) ~0.17 GB read and written, ~50 us at
+// 3.35 TB/s.  Design: two launches, one thread a row finding its span
+// (a serial scan of the row, strided reads as K13's) into a scratch of
+// starts and the new lengths, then K15's copy, one thread an output byte
+// (coalesced writes).
 #include "strings.cuh"
 
 namespace {
@@ -77,6 +96,42 @@ __global__ void substring_rows(const uint8_t* __restrict__ bm,
     const uint8_t* src = bm + row * (long long)w + s;
     uint8_t* dst = out + row * (long long)out_w;
     for (int q = 0; q < out_w; ++q) dst[q] = q < nl ? src[q] : (uint8_t)0;
+    out_len[row] = nl;
+  }
+}
+
+// one thread per output byte: the span [starts[row], + out_len[row])
+__global__ void span_bytes(const uint8_t* __restrict__ bm, int w,
+                           long long n, const int* __restrict__ starts,
+                           const int* __restrict__ out_len, int out_w,
+                           uint8_t* __restrict__ out) {
+  const long long total = n * (long long)out_w;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const long long row = i / out_w;
+    const int q = (int)(i - row * out_w);
+    out[i] = q < out_len[row] ? bm[row * (long long)w + starts[row] + q]
+                              : (uint8_t)0;
+  }
+}
+
+// one thread per row: the span of trim (mode 0, a = left, b = right) or
+// substring_index (mode 1, a = delimiter, b = count)
+__global__ void span_rows(const uint8_t* __restrict__ bm,
+                          const int* __restrict__ lengths, int w,
+                          long long n, int mode, int a, int b,
+                          int* __restrict__ starts,
+                          int* __restrict__ out_len) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       row < n; row += stride) {
+    const uint8_t* r = bm + row * (long long)w;
+    int s;
+    const int nl = mode == 0
+        ? srt::str_trim_ws(r, w, lengths[row], a != 0, b != 0, &s)
+        : srt::str_substring_index(r, w, lengths[row], a, b, &s);
+    starts[row] = s;
     out_len[row] = nl;
   }
 }
@@ -193,4 +248,41 @@ SRT_API int k18_concat(const void* const* bms, const void* const* lens,
                    (cudaStream_t)stream>>>(p, n, out_w, (uint8_t*)out,
                                            (int*)out_len);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+int k20_span(const void* bm, const void* lengths, int w, long long n,
+             int mode, int a, int b, int out_w, void* starts, void* out,
+             void* out_len, void* stream) {
+  if (w < 1 || out_w < 1) return (int)cudaErrorInvalidValue;
+  span_rows<<<grid_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bm, (const int*)lengths, w, n, mode, a, b,
+      (int*)starts, (int*)out_len);
+  span_bytes<<<grid_for(n * (long long)out_w), BLOCK, 0,
+               (cudaStream_t)stream>>>(
+      (const uint8_t*)bm, w, n, (const int*)starts, (const int*)out_len,
+      out_w, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// trim: left/right 0 or 1; starts int32[n] scratch, out uint8[n, out_w],
+// out_len int32[n]
+SRT_API int k20_trim(const void* bm, const void* lengths, int w, long long n,
+                     int left, int right, int out_w, void* starts, void* out,
+                     void* out_len, void* stream) {
+  return k20_span(bm, lengths, w, n, 0, left, right, out_w, starts, out,
+                  out_len, stream);
+}
+
+// substring_index: delim a byte (0..255), count in [-w - 1, w + 1]
+SRT_API int k20_substring_index(const void* bm, const void* lengths, int w,
+                                long long n, int delim, int count, int out_w,
+                                void* starts, void* out, void* out_len,
+                                void* stream) {
+  if (delim < 0 || delim > 255) return (int)cudaErrorInvalidValue;
+  return k20_span(bm, lengths, w, n, 1, delim, count, out_w, starts, out,
+                  out_len, stream);
 }

@@ -13,6 +13,10 @@
 //   str_startswith / str_endswith stringkernels.py:startswith (160),
 //                                 endswith (174)
 //   str_substring                 stringkernels.py:substring (93)
+//   case_map / str_length         stringkernels.py:_case_map (66), length (83)
+//   str_trim_ws                   stringkernels.py:trim_ws (279)
+//   str_substring_index           stringkernels.py:substring_index (216)
+//   str_replace                   stringkernels.py:replace_single (250)
 //
 // and the row functions of the casts (castkernels.py), which K16
 // (cast_parse.cu), K17 (cast_format.cu) and K12 share:
@@ -161,6 +165,96 @@ __device__ __forceinline__ int str_substring(int len, int start, int sub_len,
 __device__ __forceinline__ int substring_width(int sub_len, int w) {
   const int k = sub_len < 1 ? 1 : sub_len;
   return k < w ? k : w;
+}
+
+// ---------------------------------------------------------------------------
+// transforms (K19 string_case.cu, K20 string_transform.cu, K21
+// string_replace.cu, and K12)
+// ---------------------------------------------------------------------------
+
+enum CaseMode { CASE_UPPER = 0, CASE_LOWER = 1 };
+
+// one byte of _case_map: an ASCII letter of the other case moved by 32
+__device__ __forceinline__ uint8_t case_map(int b, int mode) {
+  if (mode == CASE_UPPER) return (uint8_t)((b >= 'a' && b <= 'z') ? b - 32 : b);
+  return (uint8_t)((b >= 'A' && b <= 'Z') ? b + 32 : b);
+}
+
+// the characters of a row: its bytes below min(len, w) that do not
+// continue a UTF-8 sequence (b & 0xC0 != 0x80), NUL bytes included
+__device__ __forceinline__ int str_length(const uint8_t* __restrict__ row,
+                                          int w, int len) {
+  const int n = len < w ? len : w;
+  int count = 0;
+  for (int p = 0; p < n; ++p) count += (row[p] & 0xC0) != 0x80;
+  return count;
+}
+
+// trim_ws without the copy: the kept bytes are row[*s, *s + new length);
+// spaces (0x20) only, from the front when `left`, from the back when
+// `right`; an all-space row keeps nothing
+__device__ __forceinline__ int str_trim_ws(const uint8_t* __restrict__ row,
+                                           int w, int len, bool left,
+                                           bool right, int* s) {
+  const int n = len < 0 ? 0 : (len < w ? len : w);
+  int lo = 0;
+  if (left)
+    while (lo < n && row[lo] == ' ') ++lo;
+  int hi = n;
+  if (right)
+    while (hi > lo && row[hi - 1] == ' ') --hi;
+  *s = lo;
+  return hi - lo;
+}
+
+// substring_index with a one-byte delimiter, without the copy: count > 0
+// keeps the bytes before the count-th delimiter (*s = 0), count < 0 those
+// after the |count|-th delimiter from the right, too few delimiters keep
+// the row, count 0 keeps nothing.  A delimiter counts where it lies below
+// the length.
+__device__ __forceinline__ int str_substring_index(
+    const uint8_t* __restrict__ row, int w, int len, int delim, int count,
+    int* s) {
+  *s = 0;
+  if (count == 0) return 0;
+  const int n = len < 0 ? 0 : (len < w ? len : w);
+  if (count > 0) {
+    int seen = 0;
+    for (int p = 0; p < n; ++p)
+      if (row[p] == delim && ++seen == count) return p;
+    return len;
+  }
+  int seen = 0;
+  for (int p = n - 1; p >= 0; --p)
+    if (row[p] == delim && ++seen == -count) {
+      *s = p + 1;
+      return len - (p + 1);
+    }
+  return len;
+}
+
+// replace_single of one row into out (out_w bytes, zeros past the new
+// length): every byte below the length equal to `search` becomes the k
+// bytes of repl; returns the new length, len + (k - 1) * matches
+__device__ __forceinline__ int str_replace(const uint8_t* __restrict__ row,
+                                           int w, int len, int search,
+                                           const uint8_t* __restrict__ repl,
+                                           int k, uint8_t* __restrict__ out,
+                                           int out_w) {
+  const int n = len < 0 ? 0 : (len < w ? len : w);
+  int o = 0;
+  for (int p = 0; p < n; ++p) {
+    const uint8_t b = row[p];
+    if (b == search) {
+      for (int t = 0; t < k; ++t, ++o)
+        if (o < out_w) out[o] = repl[t];
+    } else {
+      if (o < out_w) out[o] = b;
+      ++o;
+    }
+  }
+  for (int q = o; q < out_w; ++q) out[q] = 0;
+  return len + o - n;
 }
 
 // ---------------------------------------------------------------------------

@@ -16,6 +16,14 @@ around it are not ported.  A partial aggregate over several input
 batches raises ``NotImplementedError`` (its per-batch update comes with
 the SF10 slice).  The number of input batches is recorded in the
 context's metrics as ``TpuHashAggregateExec[<mode>].numInputBatches``.
+
+Min and Max over a string column (the reference's
+``_string_minmax_device``, ``:32-52``, ``:247-257``) reduce through
+``segment.string_minmax``: the strings' ranks (K1 sort, K4 scatter),
+each group's least or greatest rank (K3), the winning row gathered (K4);
+the partial mode reduces the input strings, the final mode the partial
+string buffers the exchange delivered, and a group with only null values
+gives null.
 """
 from __future__ import annotations
 
@@ -123,6 +131,12 @@ class TpuHashAggregateExec(TpuExec):
     def _sorted(x, order):
         return x if order is None else G.gather_array(x, order)
 
+    @classmethod
+    def _sorted_lengths(cls, c: DeviceColumn, order):
+        if c.lengths is None:
+            return None
+        return cls._sorted(c.lengths.to(torch.int32), order)
+
     def _update_buffers(self, batch, rm, order, pad_sorted, seg_ids,
                         padded, out_valid_seg) -> List[DeviceColumn]:
         buffers = []
@@ -131,17 +145,18 @@ class TpuHashAggregateExec(TpuExec):
             func = sp.func
             if func.child is None:  # count(*)
                 inputs = [(torch.ones(padded, dtype=torch.int64, device=dev),
-                           pad_sorted)]
+                           pad_sorted, None)]
             else:
                 c = as_device_column(func.child.eval_tpu(batch), padded,
                                      dev)
                 inputs = [(self._sorted(c.data, order),
-                           self._sorted(c.validity & rm, order))]
+                           self._sorted(c.validity & rm, order),
+                           self._sorted_lengths(c, order))]
             for (op, which), bt in zip(func.updates, func.buffer_dtypes()):
-                vals, valid = inputs[which]
+                vals, valid, lens = inputs[which]
                 buffers.append(self._reduce_one(
                     vals, valid, seg_ids, padded, op, bt, out_valid_seg,
-                    pad_sorted))
+                    pad_sorted, lens))
         return buffers
 
     def _merge_buffers(self, batch, rm, order, pad_sorted, seg_ids, padded,
@@ -154,13 +169,22 @@ class TpuHashAggregateExec(TpuExec):
                 buffers.append(self._reduce_one(
                     self._sorted(c.data, order),
                     self._sorted(c.validity & rm, order), seg_ids, padded,
-                    op, bt, out_valid_seg, pad_sorted))
+                    op, bt, out_valid_seg, pad_sorted,
+                    self._sorted_lengths(c, order)))
                 col_idx += 1
         return buffers
 
     def _reduce_one(self, vals, valid, seg_ids, padded, op,
                     buf_dtype: T.DType, out_valid_seg,
-                    present) -> DeviceColumn:
+                    present, lengths=None) -> DeviceColumn:
+        if buf_dtype.is_string:
+            if op not in ("min", "max"):
+                raise NotImplementedError(
+                    f"{op} over a string column on the device")
+            data, lens, counts = seg.string_minmax(vals, lengths, valid,
+                                                   seg_ids, padded, op)
+            return DeviceColumn(buf_dtype, data,
+                                (counts > 0) & out_valid_seg, lens)
         data, ok = seg.segment_reduce_device(vals, valid, seg_ids, padded,
                                              op, present=present)
         ok = out_valid_seg if op == "count" else ok & out_valid_seg
@@ -186,7 +210,8 @@ class TpuHashAggregateExec(TpuExec):
             data = c.data if c.dtype == f.dtype \
                 else c.data.to(f.dtype.torch_dtype)
             out_cols.append(DeviceColumn(f.dtype, data,
-                                         c.validity & out_valid_seg))
+                                         c.validity & out_valid_seg,
+                                         c.lengths))
             bi += nbuf
         return DeviceBatch(self._schema, out_cols, n_real)
 

@@ -6,7 +6,9 @@ partial-buffer reductions (``updates``), how partial buffers merge
 (``merges``), its buffer dtypes and a finalize expression.  The
 aggregate exec drives them through the segmented-reduction kernel
 (``ops/kernels/segment.py``); the window exec reads the same classes as
-frame aggregates.  String inputs are not reduced on the device yet.
+frame aggregates.  Over a string input only Min and Max run on the
+device (through ``segment.string_minmax``); the reference also takes
+Count, First and Last there, which the port does not yet.
 """
 from __future__ import annotations
 
@@ -58,8 +60,9 @@ class AggregateFunction:
             return True
         if not self.child.tpu_supported:
             return False
-        # this slice reduces numeric buffers only
-        return not self.child.dtype.is_string
+        # over strings: the min/max of the rank encoding only
+        return not self.child.dtype.is_string or \
+            isinstance(self, (Min, Max))
 
     def sql(self):
         c = self.child.sql() if self.child is not None else "*"

@@ -94,6 +94,15 @@ KERNELS: Dict[str, tuple] = {
     "string_transform": ("string_transform.cu", {
         "k15_substring": ([P, P, I, Q, I, I, I, P, P, P], 1),
         "k18_concat": ([P, P, P, P, I, Q, I, P, P, P], 1),
+        "k20_trim": ([P, P, I, Q, I, I, I, P, P, P, P], 2),
+        "k20_substring_index": ([P, P, I, Q, I, I, I, P, P, P, P], 2),
+    }),
+    "string_case": ("string_case.cu", {
+        "k19_case_map": ([P, P, I, Q, I, P, P], 1),
+        "k19_length": ([P, P, I, Q, P, P], 1),
+    }),
+    "string_replace": ("string_replace.cu", {
+        "k21_replace": ([P, P, I, Q, I, P, I, I, P, P, P], 1),
     }),
     "cast_parse": ("cast_parse.cu", {
         "k16_trim": ([P, P, I, Q, P, P, P], 1),

@@ -31,8 +31,10 @@ The code generator covers every expression the engine registers
 Multiply, Divide, the five comparisons on numbers, dates and strings,
 Not, And, Or, IsNull, IsNotNull, If, InSet, Contains, StartsWith,
 EndsWith, Like, Substring, Year, Cast (every direction the device
-takes), ConcatStrings, NormalizeNaNAndZero and
-KnownFloatingPointNormalized, each with its torch body's semantics
+takes), ConcatStrings, NormalizeNaNAndZero,
+KnownFloatingPointNormalized, Upper, Lower, Length, StringLocate,
+StringTrim (both, left, right), SubstringIndex and StringReplace, each
+with its torch body's semantics
 (integer arithmetic wraps, a zero divisor gives null, Kleene AND/OR, a
 null condition takes If's false branch, IEEE comparisons, float to
 integer as XLA converts).  A Substring
@@ -49,7 +51,13 @@ formats into a buffer of the thread (20, 5, 10 or 26 bytes, K17's row
 functions) and is a view of it.  A ConcatStrings writes its row into a
 scratch matrix the wrapper allocates, as wide as the parts' widths
 together (known at launch), and is a view of that row; a concatenation
-that is an output column is its scratch matrix itself.
+that is an output column is its scratch matrix itself.  Upper and Lower
+write their row into a scratch matrix as wide as the input (K19's byte
+map), a StringReplace into one ``w * max(k, 1)`` wide (K21's row loop,
+``strings.cuh:str_replace``); a trim or a SubstringIndex is a view of its
+input row, as a Substring is (the span of ``str_trim_ws`` or
+``str_substring_index``, K20's); Length and StringLocate are K19's and
+K13's row functions.
 
 ``segment_plain`` is the plain composition: the members' own torch
 bodies with the compaction deferred, the structure of
@@ -138,7 +146,7 @@ class _Val:
     """A value of the generated code: data (``d``) or a string row
     (``p``, width ``w``, length ``l``), and its validity ``v``; ``wspec``
     gives a string's width at launch: ("in", i), ("const", w), ("max",
-    a, b), ("sub", a, length) or ("sum", (a, ...)); ``cw`` bounds the
+    a, b), ("sub", a, length), ("sum", (a, ...)) or ("mul", a, k); ``cw`` bounds the
     bytes an output copy reads (a substring's new length; the width when
     empty); ``scratch`` names the scratch matrix a concatenation's row
     lies in."""
@@ -372,6 +380,28 @@ class _Codegen:
             return self.cast_expr(e, syms)
         if isinstance(e, st.ConcatStrings):
             return self.concat(e, syms)
+        if isinstance(e, (st.Upper, st.Lower)):
+            return self.case_map(e, syms)
+        if isinstance(e, st.Length):
+            c = self.gen(e.children[0], syms)
+            return _Val(T.INT32, c.v, d=self.let(
+                "int32_t", f"srt::str_length({c.p}, {c.w}, {c.l})"))
+        if isinstance(e, st.StringLocate):
+            c = self.gen(e.children[0], syms)
+            return _Val(T.INT32, c.v, d=self.let(
+                "int32_t", self.needle_call("str_locate_from", c, e.needle,
+                                            str(_int32(e.pos - 1)))))
+        if isinstance(e, st.StringTrim):
+            return self.span(e, syms, "str_trim_ws",
+                             f"{str(e.left).lower()}, "
+                             f"{str(e.right).lower()}")
+        if isinstance(e, st.SubstringIndex):
+            if not e.tpu_supported:
+                raise NotImplementedError(e.unsupported_reason())
+            return self.span(e, syms, "str_substring_index",
+                             f"{e.delim_bytes[0]}, {_int32(e.count)}")
+        if isinstance(e, st.StringReplace):
+            return self.replace(e, syms)
         if isinstance(e, cst.NormalizeNaNAndZero):
             return self.normalize(e, syms)
         if isinstance(e, cst.KnownFloatingPointNormalized):
@@ -585,13 +615,8 @@ class _Codegen:
         (the parts' widths together wide), zeros after: the reference's
         concat, a part byte past its width repeating its last column."""
         parts = [self.gen(ch, syms) for ch in e.children]
-        k = len(self.scratch)
-        self.scratch.append(("sum", tuple(p.wspec for p in parts)))
-        self.ptr_fields.append((f"uint8_t* s{k}", f"s{k}", ("scratch", k)))
-        self.int_fields.append((f"sw{k}", ("scratch_width", k)))
-        dst, pos = self.tmp(), self.tmp()
-        self.body.append(f"uint8_t* const {dst} = a.s{k} + row * "
-                         f"(long long)a.sw{k};")
+        k, dst = self.scratch_row(("sum", tuple(p.wspec for p in parts)))
+        pos = self.tmp()
         self.body.append(f"int {pos} = 0;")
         for p in parts:
             self.body.append(
@@ -604,6 +629,56 @@ class _Codegen:
         v = " && ".join(p.v for p in parts) or "true"
         return _Val(T.STRING, self.let("bool", v), p=dst, w=f"a.sw{k}",
                     l=pos, wspec=self.scratch[k], scratch=k)
+
+    def scratch_row(self, wspec: tuple) -> Tuple[int, str]:
+        """A row of a new scratch matrix of width ``wspec`` (allocated at
+        launch): its index and the pointer to this thread's row."""
+        k = len(self.scratch)
+        self.scratch.append(wspec)
+        self.ptr_fields.append((f"uint8_t* s{k}", f"s{k}", ("scratch", k)))
+        self.int_fields.append((f"sw{k}", ("scratch_width", k)))
+        dst = self.tmp()
+        self.body.append(f"uint8_t* const {dst} = a.s{k} + row * "
+                         f"(long long)a.sw{k};")
+        return k, dst
+
+    def case_map(self, e, syms) -> _Val:
+        """K19's case map of the row below its length, zeros after, into a
+        scratch row as wide as the input."""
+        c = self.gen(e.children[0], syms)
+        mode = "srt::CASE_UPPER" if isinstance(e, st.Upper) \
+            else "srt::CASE_LOWER"
+        k, dst = self.scratch_row(c.wspec)
+        self.body.append(
+            f"for (int q = 0; q < a.sw{k}; ++q) {dst}[q] = q < {c.l} && "
+            f"q < {c.w} ? srt::case_map({c.p}[q], {mode}) : (uint8_t)0;")
+        return _Val(T.STRING, c.v, p=dst, w=f"a.sw{k}", l=c.l,
+                    wspec=c.wspec, scratch=k)
+
+    def span(self, e, syms, fn: str, args: str) -> _Val:
+        """A trim or a substring_index: a view of its input row (the
+        pointer plus the span's first byte, the span's length), as wide
+        as the input, K20's row arithmetic."""
+        c = self.gen(e.children[0], syms)
+        s = self.tmp()
+        self.body.append(f"int {s};")
+        nl = self.let("int", f"srt::{fn}({c.p}, {c.w}, {c.l}, {args}, "
+                      f"&{s})")
+        return _Val(T.STRING, c.v, p=self.let("uint8_t*", f"{c.p} + {s}"),
+                    w=c.w, l=nl, wspec=c.wspec, cw=nl)
+
+    def replace(self, e, syms) -> _Val:
+        """K21's row loop into a scratch row ``w * max(k, 1)`` wide."""
+        if not e.tpu_supported:
+            raise NotImplementedError(e.unsupported_reason())
+        c = self.gen(e.children[0], syms)
+        rep = e.replace_bytes
+        k, dst = self.scratch_row(("mul", c.wspec, max(len(rep), 1)))
+        nl = self.let("int", f"srt::str_replace({c.p}, {c.w}, {c.l}, "
+                      f"{e.search_bytes[0]}, {self.const_bytes(rep)}, "
+                      f"{len(rep)}, {dst}, a.sw{k})")
+        return _Val(T.STRING, c.v, p=dst, w=f"a.sw{k}", l=nl,
+                    wspec=self.scratch[k], scratch=k)
 
     def like(self, e, syms) -> _Val:
         segs = e.segments
@@ -727,6 +802,8 @@ class SegmentProgram:
             return min(max(w if spec[2] is None else spec[2], 1), w)
         if spec[0] == "sum":
             return sum(self._width(p, batch) for p in spec[1])
+        if spec[0] == "mul":
+            return self._width(spec[1], batch) * spec[2]
         return max(self._width(spec[1], batch), self._width(spec[2], batch))
 
     def bytes_moved(self, batch: DeviceBatch) -> int:

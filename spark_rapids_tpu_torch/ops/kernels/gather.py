@@ -58,6 +58,24 @@ def gather_array(x: torch.Tensor, order: torch.Tensor,
     return out
 
 
+def invert_permutation(order: torch.Tensor,
+                       kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K4: the int32 ranks of a permutation, ``rank[order[i]] = i`` (K4's
+    scatter of the row index)."""
+    n = order.shape[0]
+    lane = torch.arange(n, dtype=torch.int32, device=order.device)
+    kernels = B.kernels_for(order, kernels)
+    if kernels is None:
+        rank = torch.empty_like(lane)
+        rank[order.to(torch.int64)] = lane
+        return rank
+    rank = torch.empty(n, dtype=torch.int32, device=order.device)
+    B.launch(GATHER_LAUNCHES, kernels.library("gather"), "k4_scatter_rows",
+             B.ptr(lane), B.ptr(order.to(torch.int32).contiguous()), n, 4,
+             B.ptr(rank), kernels.stream(order))
+    return rank
+
+
 def gather_column(col: DeviceColumn, order: torch.Tensor,
                   valid_mask: Optional[torch.Tensor] = None,
                   kernels: Optional[B.Kernels] = None) -> DeviceColumn:

@@ -478,3 +478,61 @@ def segment_reduce_device(values, valid, seg_ids, n_segments: int, op: str,
         return G.gather_array(values, safe, kernels), \
             has & G.gather_array(valid, safe, kernels)
     raise ValueError(op)
+
+
+# ===========================================================================
+# string min/max (K1 + K4 + K3 + K4)
+# ===========================================================================
+#: CUDA kernels the string min/max composition launched (its K1, K3 and
+#: K4 launches, also counted by those kernels' own counters)
+STRING_MINMAX_LAUNCHES = B.LaunchCounter("string_minmax")
+
+
+def string_minmax_plain(bm, lengths, valid, seg_ids, n_segments: int,
+                        op: str):
+    """The reference's rank encoding (``exec/aggregate.py:32
+    _string_minmax_device``) in torch: sort the strings (null rows
+    last), invert the order to ranks, take each segment's least (min)
+    or greatest (max) rank among its valid rows, and gather that row.
+    Returns (bytes[n_segments, w], lengths, count of valid rows)."""
+    n = bm.shape[0]
+    col = DeviceColumn(T.STRING, bm, valid, lengths)
+    order = lexsort_plain([col], pad_valid=valid)
+    rank = torch.empty(n, dtype=torch.int32, device=bm.device)
+    rank[order.to(torch.int64)] = torch.arange(n, dtype=torch.int32,
+                                               device=bm.device)
+    picked, counts = segment_aggregate_plain(rank, valid, seg_ids,
+                                             n_segments, op)
+    row = order.to(torch.int64)[torch.clamp(picked, 0, max(n - 1, 0))
+                                .to(torch.int64)]
+    return bm[row], lengths[row], counts
+
+
+def string_minmax(bm, lengths, valid, seg_ids, n_segments: int, op: str,
+                  kernels: Optional[B.Kernels] = None):
+    """Per segment, the min or max (``op``) of a string column over its
+    valid rows, as the reference's rank encoding, on the hand-written
+    kernels: K1 sorts the strings, K4 scatters the row index into ranks,
+    K3 reduces the ranks of each segment (``seg_ids`` nondecreasing), K4
+    gathers the winning rows.  Returns (bytes[n_segments, w], lengths,
+    count of valid rows); a segment with none gets an arbitrary row and
+    a count of 0.  Strings that differ only in trailing NUL bytes rank
+    by length (ROADMAP C.6), where the reference ties them."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return string_minmax_plain(bm, lengths, valid, seg_ids, n_segments,
+                                   op)
+    counters = (SORT_LAUNCHES, SEGMENT_REDUCE_LAUNCHES, G.GATHER_LAUNCHES)
+    before = sum(c.count for c in counters)
+    n = bm.shape[0]
+    col = DeviceColumn(T.STRING, bm, valid, lengths)
+    order = lexsort_device([col], pad_valid=valid, kernels=kernels)
+    rank = G.invert_permutation(order, kernels)
+    picked, counts = segment_aggregate(rank, valid, seg_ids, n_segments, op,
+                                       kernels)
+    safe = torch.clamp(picked, 0, max(n - 1, 0)).to(torch.int32)
+    row = G.gather_array(order, safe, kernels)
+    out = (G.gather_array(bm, row, kernels),
+           G.gather_array(lengths.to(torch.int32), row, kernels), counts)
+    STRING_MINMAX_LAUNCHES.add(sum(c.count for c in counters) - before)
+    return out

@@ -1,22 +1,31 @@
-"""K8 — string comparison, K13 — string search, K15 — substring and K18 —
-concat, over the fixed-width byte-matrix encoding.
+"""K8 — string comparison, K13 — string search, K15 — substring, K18 —
+concat, K19 — case maps and length, K20 — trim and substring_index, and
+K21 — replace, over the fixed-width byte-matrix encoding.
 
 Counterpart of ``spark_rapids_tpu/ops/kernels/stringkernels.py``:
 ``equals`` (58) and ``compare`` (36) with the padding rule of ``_pad_to``
 (18) and ``_masked`` (28) as K8 (``csrc/strings.cu``); ``_find`` (134),
 ``contains`` (156), ``startswith`` (160), ``endswith`` (174) and
 ``locate_from`` (190) as K13 (``csrc/string_search.cu``), with the needle
-in the launch's parameters (at most ``MAX_NEEDLE_BYTES``); ``substring``
-(93) as K15 and ``concat`` (113) as K18 (both ``csrc/string_transform.cu``).  A string is
+in the launch's parameters (at most ``MAX_NEEDLE_BYTES``), and ``locate``
+(204) as K13 with one start for every row; ``substring``
+(93) as K15 and ``concat`` (113) as K18 (both ``csrc/string_transform.cu``);
+``_case_map`` (66) with ``upper`` (73) and ``lower`` (79), and
+``length`` (83) as K19 (``csrc/string_case.cu``); ``trim_ws`` (279) and
+``substring_index`` (216) as K20 (``csrc/string_transform.cu``, beside
+K15); ``replace_single`` (250) as K21 (``csrc/string_replace.cu``).  A string is
 ``(uint8[n, w] bytes, int32[n] lengths)``; either side of K8 may hold one
 row (a literal), which is read with a row stride of 0 instead of being
 copied ``n`` times.  The wrappers launch the kernels for CUDA tensors and
 take the plain PyTorch version only for CPU tensors, unless ``kernels=``
 names the libraries to launch.
 
-Left out, for later slices (ROADMAP B.20): ``upper``, ``lower``,
-``length``, ``locate`` (with a scalar start),
-``substring_index``, ``replace`` and ``trim``.
+Every output keeps the encoding's rule: bytes at or past a row's length
+are zero.  ``trim_ws`` removes spaces (0x20) only; ``substring_index``
+and ``replace_single`` take a single-byte delimiter or search byte (the
+expressions tag longer ones off the device, as the reference does);
+``length`` counts the bytes below the length that do not continue a
+UTF-8 sequence, NUL bytes included.
 """
 from __future__ import annotations
 
@@ -27,17 +36,23 @@ import torch
 
 from . import _build as B
 
-#: CUDA kernels launched by K8, K13, K15 and K18
+#: CUDA kernels launched by K8, K13, K15, K18, K19, K20 and K21
 STRING_COMPARE_LAUNCHES = B.LaunchCounter("string_compare")
 STRING_SEARCH_LAUNCHES = B.LaunchCounter("string_search")
 STRING_TRANSFORM_LAUNCHES = B.LaunchCounter("string_transform")
 STRING_CONCAT_LAUNCHES = B.LaunchCounter("string_concat")
+STRING_CASE_LAUNCHES = B.LaunchCounter("string_case")
+STRING_TRIM_LAUNCHES = B.LaunchCounter("string_trim")
+STRING_REPLACE_LAUNCHES = B.LaunchCounter("string_replace")
 
 #: the longest needle K13 takes in its launch parameters
 #: (``csrc/string_search.cu:NEEDLE_MAX``)
 MAX_NEEDLE_BYTES = 1024
 #: the most parts one K18 launch takes (``csrc/string_transform.cu``)
 MAX_CONCAT_PARTS = 64
+#: the longest replacement K21 takes in its launch parameters
+#: (``csrc/string_replace.cu:REPL_MAX``)
+MAX_REPLACE_BYTES = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +220,7 @@ def locate_from_plain(bm, lengths, needle: bytes,
 # K13: search — kernel
 # ---------------------------------------------------------------------------
 _SEARCH_MODES = {"contains": 0, "startswith": 1, "endswith": 2,
-                 "locate_from": 3}
+                 "locate_from": 3, "locate": 4}
 
 
 def _search(bm, lengths, needle: bytes, mode: str,
@@ -216,7 +231,7 @@ def _search(bm, lengths, needle: bytes, mode: str,
     n, w = bm.shape
     bm = bm.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(n, dtype=torch.int32 if mode == "locate_from"
+    out = torch.empty(n, dtype=torch.int32 if mode.startswith("locate")
                       else torch.bool, device=bm.device)
     if start is not None:
         start = start.to(torch.int32).contiguous()
@@ -263,6 +278,34 @@ def locate_from(bm, lengths, needle: bytes, start: torch.Tensor,
     if kernels is None:
         return locate_from_plain(bm, lengths, needle, start)
     return _search(bm, lengths, needle, "locate_from", kernels, start)
+
+
+def locate_plain(bm, lengths, needle: bytes, start_pos: int = 1
+                 ) -> torch.Tensor:
+    """The reference's ``locate``: the first match at a 0-based offset
+    >= ``start_pos - 1`` (every offset when that is negative)."""
+    start = torch.full((bm.shape[0],), _start0(start_pos),
+                       dtype=torch.int32, device=bm.device)
+    return locate_from_plain(bm, lengths, needle, start)
+
+
+def _start0(start_pos: int) -> int:
+    """``start_pos - 1`` clamped into the int range (a start before the
+    row searches it all, one past the width finds nothing)."""
+    return max(-1, min(int(start_pos) - 1, 2 ** 31 - 1))
+
+
+def locate(bm, lengths, needle: bytes, start_pos: int = 1,
+           kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+    """K13: int32[n], the 1-based position of the needle's first match
+    at or after the 1-based ``start_pos`` (one start for every row, in
+    K13's scalar mode); 0 if absent."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return locate_plain(bm, lengths, needle, start_pos)
+    start = torch.full((1,), _start0(start_pos), dtype=torch.int32,
+                       device=bm.device)
+    return _search(bm, lengths, needle, "locate", kernels, start)
 
 
 # ---------------------------------------------------------------------------
@@ -382,3 +425,257 @@ def concat(parts, kernels: Optional[B.Kernels] = None
                  k, n, out_w, B.ptr(out), B.ptr(out_len),
                  kernels.stream(parts[0][0]))
     return out, out_len
+
+
+# ---------------------------------------------------------------------------
+# K19: case maps and length
+# ---------------------------------------------------------------------------
+_CASE = {"upper": (ord("a"), ord("z"), -32), "lower": (ord("A"), ord("Z"), 32)}
+
+
+def case_map_plain(bm, lengths, which: str) -> torch.Tensor:
+    """The reference's ``_case_map``: the row masked by its length, each
+    ASCII letter of the other case moved by 32."""
+    lo, hi, delta = _CASE[which]
+    m = _masked(bm, lengths)
+    mapped = (m.to(torch.int16) + delta).to(torch.uint8)
+    return torch.where((m >= lo) & (m <= hi), mapped, m)
+
+
+def length_plain(bm, lengths) -> torch.Tensor:
+    """The reference's ``length``: the bytes below the length that are not
+    UTF-8 continuation bytes (``b & 0xC0 == 0x80``)."""
+    m = _masked(bm, lengths)
+    cont = (m & 0xC0) == 0x80
+    pos = torch.arange(bm.shape[1], dtype=torch.int32,
+                       device=bm.device)[None, :]
+    return ((pos < lengths[:, None]) & ~cont).sum(dim=1).to(torch.int32)
+
+
+def _case_map(bm, lengths, which: str, kernels: Optional[B.Kernels]):
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return case_map_plain(bm, lengths, which), lengths
+    n, w = bm.shape
+    bm = bm.contiguous()
+    out = torch.empty((n, w), dtype=torch.uint8, device=bm.device)
+    B.launch(STRING_CASE_LAUNCHES, kernels.library("string_case"),
+             "k19_case_map", B.ptr(bm),
+             B.ptr(lengths.to(torch.int32).contiguous()), w, n,
+             0 if which == "upper" else 1, B.ptr(out), kernels.stream(bm))
+    return out, lengths
+
+
+def upper(bm, lengths, kernels: Optional[B.Kernels] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K19: (uint8[n, w], the lengths): ASCII a-z raised, every other
+    byte kept, zeros past the length."""
+    return _case_map(bm, lengths, "upper", kernels)
+
+
+def lower(bm, lengths, kernels: Optional[B.Kernels] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K19: (uint8[n, w], the lengths): ASCII A-Z lowered, every other
+    byte kept, zeros past the length."""
+    return _case_map(bm, lengths, "lower", kernels)
+
+
+def length(bm, lengths, kernels: Optional[B.Kernels] = None
+           ) -> torch.Tensor:
+    """K19: int32[n], the characters of each row (UTF-8 lead and ASCII
+    bytes below the length)."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return length_plain(bm, lengths)
+    n, w = bm.shape
+    bm = bm.contiguous()
+    out = torch.empty(n, dtype=torch.int32, device=bm.device)
+    B.launch(STRING_CASE_LAUNCHES, kernels.library("string_case"),
+             "k19_length", B.ptr(bm),
+             B.ptr(lengths.to(torch.int32).contiguous()), w, n, B.ptr(out),
+             kernels.stream(bm))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K20: trim and substring_index
+# ---------------------------------------------------------------------------
+def _first_true(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int8).argmax(dim=1).to(torch.int32)
+
+
+def trim_ws_plain(bm, lengths, out_w: int, left: bool = True,
+                  right: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``trim_ws``: leading and trailing spaces (0x20)
+    counted with the positions past the length as spaces, the rest
+    gathered from the first kept byte into ``out_w`` columns."""
+    n, w = bm.shape
+    dev = bm.device
+    lengths = lengths.to(torch.int32)
+    m = _masked(bm, lengths)
+    pos = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    is_sp = (m == 0x20) | (pos >= lengths[:, None])
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    lead = torch.where((~is_sp).any(dim=1), _first_true(~is_sp), lengths) \
+        if left else zeros
+    if right:
+        rev = (~is_sp).flip(1)
+        from_end = torch.where(rev.any(dim=1), _first_true(rev),
+                               torch.full_like(lengths, w))
+        trail = torch.clamp(from_end - (w - lengths), min=0)
+    else:
+        trail = zeros
+    new_len = torch.clamp(lengths - lead - trail, min=0).to(torch.int32)
+    opos = torch.arange(out_w, dtype=torch.int32, device=dev)[None, :]
+    src = torch.clamp(lead[:, None] + opos, 0, w - 1).to(torch.int64)
+    out = torch.gather(m, 1, src)
+    return torch.where(opos < new_len[:, None], out,
+                       torch.zeros_like(out)), new_len
+
+
+def substring_index_plain(bm, lengths, delim: bytes, count: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``substring_index`` for a one-byte delimiter:
+    count > 0 keeps the bytes before the count-th delimiter, count < 0
+    those after the |count|-th from the right, too few delimiters keep
+    the row, count 0 gives ""."""
+    n, w = bm.shape
+    dev = bm.device
+    lengths = lengths.to(torch.int32)
+    if count == 0:
+        return torch.zeros_like(bm), torch.zeros_like(lengths)
+    match = find_plain(bm, lengths, delim)
+    cum = torch.cumsum(match.to(torch.int32), dim=1)
+    total = cum[:, -1]
+    if count > 0:
+        hit = (cum == count) & match
+        new_len = torch.where(total >= count, _first_true(hit), lengths)
+        return _masked(bm, new_len), new_len
+    k = -count
+    target = total - k + 1
+    hit = (cum == target[:, None]) & match
+    start = torch.where(total >= k, _first_true(hit) + len(delim),
+                        torch.zeros_like(lengths))
+    new_len = (lengths - start).to(torch.int32)
+    pos = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    src = torch.clamp(start[:, None] + pos, 0, max(w - 1, 0)
+                      ).to(torch.int64)
+    g = torch.gather(bm, 1, src)
+    return torch.where(pos < new_len[:, None], g, torch.zeros_like(g)), \
+        new_len
+
+
+def _span_launch(fn: str, bm, lengths, out_w: int, args,
+                 kernels: B.Kernels) -> Tuple[torch.Tensor, torch.Tensor]:
+    n, w = bm.shape
+    if out_w < 1:
+        raise ValueError(f"K20's out_w must be at least 1, not {out_w}")
+    bm = bm.contiguous()
+    dev = bm.device
+    starts = torch.empty(n, dtype=torch.int32, device=dev)
+    out = torch.empty((n, out_w), dtype=torch.uint8, device=dev)
+    new_len = torch.empty(n, dtype=torch.int32, device=dev)
+    B.launch(STRING_TRIM_LAUNCHES, kernels.library("string_transform"), fn,
+             B.ptr(bm), B.ptr(lengths.to(torch.int32).contiguous()), w, n,
+             *args, out_w, B.ptr(starts), B.ptr(out), B.ptr(new_len),
+             kernels.stream(bm))
+    return out, new_len
+
+
+def trim_ws(bm, lengths, out_w: int, left: bool = True, right: bool = True,
+            kernels: Optional[B.Kernels] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K20: (uint8[n, out_w], int32[n]), each row without its leading
+    (``left``) and trailing (``right``) spaces, copied to the front."""
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return trim_ws_plain(bm, lengths, out_w, left, right)
+    return _span_launch("k20_trim", bm, lengths, out_w,
+                        (int(left), int(right)), kernels)
+
+
+def _count_arg(count: int, w: int) -> int:
+    """``count`` clamped into [-w - 1, w + 1]: a row of width w holds at
+    most w delimiters, so the result is the same and fits an int."""
+    return max(-w - 1, min(int(count), w + 1))
+
+
+def substring_index(bm, lengths, delim: bytes, count: int,
+                    kernels: Optional[B.Kernels] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K20: (uint8[n, w], int32[n]), Spark's ``substring_index`` with a
+    one-byte delimiter (see ``substring_index_plain``)."""
+    if len(delim) != 1:
+        raise ValueError(f"K20's substring_index takes a one-byte "
+                         f"delimiter, not {delim!r}")
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return substring_index_plain(bm, lengths, delim, count)
+    w = bm.shape[1]
+    return _span_launch("k20_substring_index", bm, lengths, w,
+                        (delim[0], _count_arg(count, w)), kernels)
+
+
+# ---------------------------------------------------------------------------
+# K21: replace
+# ---------------------------------------------------------------------------
+def replace_width(w: int, k: int) -> int:
+    """The output width of a replacement of k bytes over a w-wide matrix
+    (the reference's ``max(w * max(k, 1), 1)``)."""
+    return max(w * max(k, 1), 1)
+
+
+def replace_single_plain(bm, lengths, search: bytes, replace: bytes
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``replace_single``: byte j of the row moves to
+    ``j + (k - 1) * (matches before j)``; a match writes the k bytes of
+    the replacement there.  Built by scatters into a dump column."""
+    n, w = bm.shape
+    dev = bm.device
+    k = len(replace)
+    lengths = lengths.to(torch.int32)
+    m = _masked(bm, lengths)
+    pos = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
+    in_str = pos < lengths[:, None]
+    match = (m == search[0]) & in_str
+    mi = match.to(torch.int64)
+    o = pos + (k - 1) * (torch.cumsum(mi, dim=1) - mi)
+    out_w = replace_width(w, k)
+    out = torch.zeros((n, out_w + 1), dtype=torch.uint8, device=dev)
+    keep = in_str & ~match
+    dump = torch.full_like(o, out_w)
+    out.scatter_(1, torch.where(keep, o, dump),
+                 torch.where(keep, m, torch.zeros_like(m)))
+    for t in range(k):
+        out.scatter_(1, torch.where(match, o + t, dump),
+                     torch.full_like(m, replace[t]))
+    new_len = (lengths + (k - 1) * mi.sum(dim=1)).to(torch.int32)
+    return out[:, :out_w].contiguous(), new_len
+
+
+def replace_single(bm, lengths, search: bytes, replace: bytes,
+                   kernels: Optional[B.Kernels] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K21: (uint8[n, replace_width(w, k)], int32[n]), every occurrence
+    of the one ``search`` byte replaced by the k bytes of ``replace``
+    (none: deleted)."""
+    if len(search) != 1:
+        raise ValueError(f"K21 replaces one search byte, not {search!r}")
+    if len(replace) > MAX_REPLACE_BYTES:
+        raise ValueError(f"K21 takes replacements of at most "
+                         f"{MAX_REPLACE_BYTES} bytes, not {len(replace)}")
+    kernels = B.kernels_for(bm, kernels)
+    if kernels is None:
+        return replace_single_plain(bm, lengths, search, replace)
+    n, w = bm.shape
+    bm = bm.contiguous()
+    out_w = replace_width(w, len(replace))
+    out = torch.empty((n, out_w), dtype=torch.uint8, device=bm.device)
+    new_len = torch.empty(n, dtype=torch.int32, device=bm.device)
+    buf = ctypes.create_string_buffer(replace, max(1, len(replace)))
+    B.launch(STRING_REPLACE_LAUNCHES, kernels.library("string_replace"),
+             "k21_replace", B.ptr(bm),
+             B.ptr(lengths.to(torch.int32).contiguous()), w, n, search[0],
+             buf, len(replace), out_w, B.ptr(out), B.ptr(new_len),
+             kernels.stream(bm))
+    return out, new_len

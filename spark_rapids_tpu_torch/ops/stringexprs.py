@@ -1,4 +1,5 @@
-"""String predicates with a literal needle or pattern, and substring.
+"""String predicates with a literal needle or pattern, and the string
+transforms.
 
 Counterpart of ``spark_rapids_tpu/ops/stringexprs.py:_NeedlePredicate``,
 ``Contains``, ``StartsWith``, ``EndsWith`` (272-330) and ``Like``
@@ -16,9 +17,20 @@ such a query raises ``NotImplementedError``.  A needle longer than K13's
 works on byte positions, as the reference's device path does (exact for
 ASCII; a multi-byte UTF-8 row is cut between bytes there too).
 ``ConcatStrings`` is null where any part is null; its bytes are the
-parts' bytes whatever their validity, as in the reference.  The other
-string functions (length, case maps, replace, trim, substring_index,
-locate with a scalar start) come with a later slice.
+parts' bytes whatever their validity, as in the reference.
+
+The transforms (reference ``ops/stringexprs.py:43-154, 200-270, 332-360``):
+``Upper`` and ``Lower`` map ASCII letters only (K19; their rules are
+incompatible, ``plan/overrides.py``), ``Length`` counts UTF-8
+characters (K19), ``StringTrim``/``StringTrimLeft``/``StringTrimRight``
+drop spaces (0x20) and keep the input's width (K20), ``SubstringIndex``
+(K20) and ``StringReplace`` (K21) take a one-byte delimiter or search
+string on the device and tag a longer one off it (the reference runs
+those on its host engine, which is not ported yet, so planning raises),
+and ``StringLocate`` is K13's search from one start for every row.
+Each passes its input's validity through.  ``InitCap`` and
+``RegExpReplace`` are not ported: the reference runs both on its host
+engine only.
 """
 from __future__ import annotations
 
@@ -215,3 +227,198 @@ class ConcatStrings(Expression):
         for c in cols:
             validity = validity & c.validity
         return DeviceColumn(T.STRING, bm, validity, ln)
+
+
+class _StrUnary(Expression):
+    """A string -> string function of one child; validity passes
+    through."""
+
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    def device_kernel(self, bm, lengths):
+        raise NotImplementedError
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        bm, ln = self.device_kernel(c.data, c.lengths)
+        return DeviceColumn(T.STRING, bm, c.validity, ln)
+
+
+class Upper(_StrUnary):
+    """ASCII upper case (K19); other bytes are kept, so a non-ASCII
+    letter keeps its case: incompatible with the host engine."""
+
+    def device_kernel(self, bm, lengths):
+        return sk.upper(bm, lengths)
+
+
+class Lower(_StrUnary):
+    """ASCII lower case (K19), incompatible as Upper is."""
+
+    def device_kernel(self, bm, lengths):
+        return sk.lower(bm, lengths)
+
+
+class StringTrim(_StrUnary):
+    """Spaces (0x20) dropped from both ends (K20); as wide as the input."""
+
+    side = "both"
+
+    @property
+    def left(self) -> bool:
+        return self.side in ("both", "left")
+
+    @property
+    def right(self) -> bool:
+        return self.side in ("both", "right")
+
+    def device_kernel(self, bm, lengths):
+        return sk.trim_ws(bm, lengths, bm.shape[1], left=self.left,
+                          right=self.right)
+
+
+class StringTrimLeft(StringTrim):
+    side = "left"
+
+
+class StringTrimRight(StringTrim):
+    side = "right"
+
+
+class Length(Expression):
+    """The characters of a string (K19): the bytes below the length that
+    do not continue a UTF-8 sequence."""
+
+    def __init__(self, child):
+        super().__init__([child])
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        return DeviceColumn(T.INT32, sk.length(c.data, c.lengths),
+                            c.validity)
+
+
+class SubstringIndex(Expression):
+    """substring_index(str, delim, count) (K20): on the device only for a
+    one-byte delimiter, which cannot overlap itself, so its matches are
+    ``str.split``'s."""
+
+    def __init__(self, child, delim: str, count: int):
+        super().__init__([child])
+        self.delim = delim
+        self.count = int(count)
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def delim_bytes(self) -> bytes:
+        return self.delim.encode("utf-8")
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        bm, ln = sk.substring_index(c.data, c.lengths, self.delim_bytes,
+                                    self.count)
+        return DeviceColumn(T.STRING, bm, c.validity, ln)
+
+    @property
+    def tpu_supported(self):
+        return len(self.delim_bytes) == 1
+
+    def unsupported_reason(self) -> str:
+        return (f"substring_index with the {len(self.delim_bytes)}-byte "
+                f"delimiter {self.delim!r}: the device takes one byte, the "
+                "reference runs the rest on its host engine, which is not "
+                "ported yet")
+
+
+class StringReplace(Expression):
+    """replace(str, search, replacement) (K21): on the device only for a
+    one-byte search string; the output is ``w * max(k, 1)`` bytes wide
+    for a k-byte replacement."""
+
+    def __init__(self, child, search: str, replace: str):
+        super().__init__([child])
+        self.search = search
+        self.replace = replace
+
+    @property
+    def dtype(self):
+        return T.STRING
+
+    @property
+    def search_bytes(self) -> bytes:
+        return self.search.encode("utf-8")
+
+    @property
+    def replace_bytes(self) -> bytes:
+        return self.replace.encode("utf-8")
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        bm, ln = sk.replace_single(c.data, c.lengths, self.search_bytes,
+                                   self.replace_bytes)
+        return DeviceColumn(T.STRING, bm, c.validity, ln)
+
+    @property
+    def tpu_supported(self):
+        return len(self.search_bytes) == 1 and \
+            len(self.replace_bytes) <= sk.MAX_REPLACE_BYTES
+
+    def unsupported_reason(self) -> str:
+        if len(self.search_bytes) != 1:
+            return (f"replace of the {len(self.search_bytes)}-byte search "
+                    f"string {self.search!r}: the device takes one byte, "
+                    "the reference runs the rest on its host engine, which "
+                    "is not ported yet")
+        return (f"a replacement longer than the {sk.MAX_REPLACE_BYTES} "
+                "bytes K21 takes")
+
+
+class StringLocate(Expression):
+    """locate(substr, str, pos): the 1-based byte position of the first
+    match at or after ``pos`` (K13, one start for every row), 0 when
+    absent; a ``pos`` of 0 or less searches the whole row, as the
+    reference's device path does."""
+
+    def __init__(self, substr: str, child, pos: int = 1):
+        super().__init__([child])
+        self.substr = substr
+        self.pos = int(pos)
+
+    @property
+    def dtype(self):
+        return T.INT32
+
+    @property
+    def needle(self) -> bytes:
+        return self.substr.encode("utf-8")
+
+    def eval_tpu(self, batch):
+        c = as_device_column(self.children[0].eval_tpu(batch),
+                             batch.padded_rows, batch.device)
+        return DeviceColumn(T.INT32, sk.locate(c.data, c.lengths,
+                                               self.needle, self.pos),
+                            c.validity)
+
+    @property
+    def tpu_supported(self):
+        return len(self.needle) <= sk.MAX_NEEDLE_BYTES
+
+    def unsupported_reason(self) -> str:
+        return (f"locate's needle is longer than the "
+                f"{sk.MAX_NEEDLE_BYTES} bytes K13 takes")

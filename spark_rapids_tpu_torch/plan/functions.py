@@ -6,9 +6,12 @@ Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
 comparison, boolean, alias, null-test and sort-order operators, ``cast``
 (a type name or a DType), ``isin`` with literal members and the string
 predicates ``contains``/``startswith``/``endswith``/``like``,
-``substring``, ``concat`` and ``year``.
-``isin`` with column members, ``when``/``otherwise``, and the other
-string, math and date functions come with later slices.
+``substring``, ``concat``, ``year``, and the string transforms
+``upper``, ``lower``, ``length``, ``trim``, ``ltrim``, ``rtrim``,
+``substring_index``, ``locate`` and ``replace``.
+``isin`` with column members, ``when``/``otherwise``, ``initcap`` and
+``regexp_replace`` (host-engine only in the reference), and the math
+and date functions come with later slices.
 """
 from __future__ import annotations
 
@@ -212,6 +215,33 @@ def substring(c, pos: int, length_: int) -> Column:
 
 def concat(*cols) -> Column:
     return Column(st.ConcatStrings([_col_e(c) for c in cols]))
+
+
+def _u(cls):
+    def fn(c):
+        return Column(cls(_col_e(c)))
+
+    return fn
+
+
+upper = _u(st.Upper)
+lower = _u(st.Lower)
+length = _u(st.Length)
+trim = _u(st.StringTrim)
+ltrim = _u(st.StringTrimLeft)
+rtrim = _u(st.StringTrimRight)
+
+
+def substring_index(c, delim: str, count_: int) -> Column:
+    return Column(st.SubstringIndex(_col_e(c), delim, count_))
+
+
+def locate(substr: str, c, pos: int = 1) -> Column:
+    return Column(st.StringLocate(substr, _col_e(c), pos))
+
+
+def replace(c, search: str, replacement: str) -> Column:
+    return Column(st.StringReplace(_col_e(c), search, replacement))
 
 
 def year(c) -> Column:

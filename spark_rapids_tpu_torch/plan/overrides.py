@@ -21,7 +21,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Type
 
-from ..config import TpuConf, register_op_enable_key
+from ..config import INCOMPATIBLE_OPS, TpuConf, register_op_enable_key
 from ..ops import aggregates as agg
 from ..ops.expression import Expression
 from . import physical as P
@@ -31,22 +31,33 @@ HOST_SOURCES = (P.LocalScanExec,)
 
 
 class ExprRule:
+    """``incompat`` names how the device result may differ from the
+    host engine's; such a rule's enable key defaults to off and it runs
+    on the device only while ``incompatibleOps.enabled`` is on, as in
+    the reference (``overrides.py:37-48``)."""
+
     def __init__(self, cls: Type[Expression],
-                 tag: Optional[Callable] = None):
+                 tag: Optional[Callable] = None,
+                 incompat: Optional[str] = None):
         self.tag = tag  # (ExprMeta) -> None: conf- or input-based reasons
+        self.incompat = incompat
         self.conf_entry = register_op_enable_key(
             "expr", cls.__name__,
-            f"enable expression {cls.__name__} on the device")
+            f"enable expression {cls.__name__} on the device",
+            default=incompat is None)
 
 
 class ExecRule:
     def __init__(self, cls: Type[P.PhysicalPlan], convert: Callable,
                  desc: str, tag: Optional[Callable] = None,
-                 exprs_of: Optional[Callable] = None):
+                 exprs_of: Optional[Callable] = None,
+                 incompat: Optional[str] = None):
         self.convert = convert  # (meta, device_children) -> TpuExec
         self.tag = tag
+        self.incompat = incompat
         self.exprs_of = exprs_of or (lambda plan: [])
-        self.conf_entry = register_op_enable_key("exec", cls.__name__, desc)
+        self.conf_entry = register_op_enable_key(
+            "exec", cls.__name__, desc, default=incompat is None)
 
 
 class RuleRegistry:
@@ -56,8 +67,9 @@ class RuleRegistry:
         self.expr_rules: Dict[type, ExprRule] = {}
         self.exec_rules: Dict[type, ExecRule] = {}
 
-    def register_expr(self, cls, tag: Optional[Callable] = None):
-        self.expr_rules[cls] = ExprRule(cls, tag)
+    def register_expr(self, cls, tag: Optional[Callable] = None,
+                      incompat: Optional[str] = None):
+        self.expr_rules[cls] = ExprRule(cls, tag, incompat)
 
     def register_exec(self, cls, convert, **kw):
         self.exec_rules[cls] = ExecRule(cls, convert, **kw)
@@ -119,6 +131,10 @@ class ExprMeta(BaseMeta):
             if not rule.conf_entry.get(dict(self.conf.items())):
                 self.will_not_work_on_tpu(
                     f"expression {name} disabled by {rule.conf_entry.key}")
+            if rule.incompat and not self.conf.get(INCOMPATIBLE_OPS):
+                self.will_not_work_on_tpu(
+                    f"{name} is incompatible ({rule.incompat}); enable "
+                    f"{INCOMPATIBLE_OPS.key} to allow")
             if rule.tag is not None:
                 rule.tag(self)
         if not e.tpu_supported:
@@ -179,9 +195,13 @@ class ExecMeta(BaseMeta):
         name = type(self.plan).__name__
         if self.rule is None:
             self.will_not_work_on_tpu(f"no device rule for operator {name}")
-        elif not self.rule.conf_entry.get(dict(self.conf.items())):
-            self.will_not_work_on_tpu(
-                f"operator disabled by {self.rule.conf_entry.key}")
+        else:
+            if not self.rule.conf_entry.get(dict(self.conf.items())):
+                self.will_not_work_on_tpu(
+                    f"operator disabled by {self.rule.conf_entry.key}")
+            if self.rule.incompat and not self.conf.get(INCOMPATIBLE_OPS):
+                self.will_not_work_on_tpu(
+                    f"{name} is incompatible ({self.rule.incompat})")
         for em in self.expr_metas:
             em.tag_for_tpu()
             if not em.can_expr_tree_be_replaced:
@@ -303,8 +323,14 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
                 pr.Or, pr.IsNull, pr.IsNotNull, pr.InSet):
         reg.register_expr(cls)
     reg.register_expr(cond.If)
-    for cls in (st.Contains, st.StartsWith, st.EndsWith, st.Like,
-                st.Substring, st.ConcatStrings):
+    # the reference's string rules (plan/overrides.py:419-425) that this
+    # engine ports: the case maps incompatible, the others plain
+    reg.register_expr(st.Upper, incompat="ASCII-only case mapping on device")
+    reg.register_expr(st.Lower, incompat="ASCII-only case mapping on device")
+    for cls in (st.Length, st.Substring, st.SubstringIndex,
+                st.StringReplace, st.StringTrim, st.StringTrimLeft,
+                st.StringTrimRight, st.Contains, st.StartsWith, st.EndsWith,
+                st.StringLocate, st.ConcatStrings, st.Like):
         reg.register_expr(cls)
     # the string directions conf-gated as in the reference
     # (plan/overrides.py:366-397)

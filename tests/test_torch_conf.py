@@ -157,7 +157,6 @@ UNREAD_KEYS = {
     "spark.rapids.tpu.sql.batchSizeRows",
     "spark.rapids.tpu.sql.concurrentTpuTasks",
     "spark.rapids.tpu.sql.exportColumnarRdd",
-    "spark.rapids.tpu.sql.incompatibleOps.enabled",
     "spark.rapids.tpu.sql.kernelCache.donation.enabled",
     "spark.rapids.tpu.sql.kernelCache.enabled",
     "spark.rapids.tpu.sql.kernelCache.maxEntries",
