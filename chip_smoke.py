@@ -90,6 +90,24 @@
    K19-K21, K13, K15 and K16 in every cell, as customer_clean does with
    fusion off; orders_profile's string min/max launches K1, K3 and K4
    (B.5); cold, warm and profiled walls;
+2h. the row-multiplying execs on TPCx-BB's SF1 tables (seed 99):
+   TPC-DS q67's rollup (``benchmarks/tpcxbb_rollup.py``: three joins, a
+   Project -> Expand of 8 grouping sets, a partial aggregate over ~6.4M
+   expanded rows, rank() within i_category, a sort and a limit) at two
+   partitions, at one, at two with fusion off (the Expand on K23 instead
+   of K12) and at two with ``batchSizeBytes`` 64 MiB (every Expand batch
+   reaches the partial aggregate alone: the chunked partial aggregate,
+   more than one input batch required; each partition's sort gets a
+   slice of each window output and merges them); the store_sales unpivot
+   (Project -> Generate with pos: 4,000,000 rows to 12,000,000, grouped
+   by store and pos) at two partitions and at two with fusion off (the
+   Generate on K22); TPCx-BB q24 (a semi and an anti join, two global
+   sums, a union, a sort) at two partitions and at one; each against a
+   numpy oracle (``tpcxbb_rollup.ORACLES``, ``tpcxbb.oracle_q24``: keys
+   exact, sums rel 1e-9, in order), with launch checks (K12 in the fused
+   cells, K22/K23 in the unfused ones and nowhere else), the partial
+   aggregate's input batches, placements, and cold, warm and profiled
+   walls;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -110,11 +128,17 @@
    customer_clean's segment; K13's locate with one start over o_comment;
    K19-K21 and the string min/max composition (B.5) on the calls phase
    2g's orders_profile at one partition and customer_clean with fusion
-   off made) and holds it against its plain PyTorch version
+   off made; K22 at the unpivot's shape and over item's two string
+   columns; K23 at q67's Expand input of one partition; K12 over q67's
+   Project -> Expand and the unpivot's Project -> Generate segments)
+   and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
    plain version and one PyTorch library call with CUDA events (median
-   of runs after warm-up);
+   of runs after warm-up; K22's and K23's ``ms`` is their device time,
+   the call enqueued behind a spin kernel so that the events leave the
+   host's enqueue out, with the plain event time, the enqueue time and
+   the profiler's kernel time beside it);
 4. prints the card's name and power limit, a ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -147,6 +171,12 @@ FUSED = (3, 12, 13, 14)      # the queries the reference fuses a segment in
 LATER = (2, 5, 7, 8, 9, 10, 11, 15, 16, 17, 18, 19, 20, 21, 22)
 BB_SF = 1.0                  # TPCx-BB scale of q30 and the clickstream
 BB_SEED = 99                 # the reference generator's default seed
+# the row-multiplying path (phase 2h): TPC-DS q67's rollup and the
+# store_sales unpivot (benchmarks/tpcxbb_rollup.py), TPCx-BB q24
+ROLLUP = ("q67", "store_unpivot", "q24")
+#: the chunked partial aggregate's cell: q67 at one partition with this
+#: batchSizeBytes, so every Expand batch reaches the aggregate alone
+CHUNK_BYTES = 64 << 20
 
 
 def log(*a):
@@ -239,6 +269,77 @@ def profile_query(label, run) -> None:
         log(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
+def enqueue_ms(fn, reps=10) -> float:
+    """Host milliseconds one call of ``fn`` takes to return, its work
+    enqueued but not waited for (median of ``reps`` after a warm-up, the
+    card drained between calls): where this is close to the CUDA-event
+    time, the host sets the pace and the kernel's own time is below it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+#: GPU clock cycles of the spin that holds the card in ``device_ms``
+#: (~60 ms at an H100's clocks, longer than any call's enqueue here)
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """Median device milliseconds of one call of ``fn``, its host enqueue
+    left out: a spin kernel holds the card while the call is enqueued
+    behind it, so the events bracket the call's device work alone.  None
+    where the spin ended before the enqueue did (the call waited on the
+    card, or its enqueue outlasted the spin)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        if start.query():
+            torch.cuda.synchronize()
+            return None
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def profiled_kernel_ms(fn, kernel, reps=10):
+    """Device milliseconds of one launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn`` after
+    a warm-up (their device time over the launches it recorded), and
+    the launches it recorded; (None, 0) where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    seen = sum(e.count for e in rows)
+    total = sum(e.self_device_time_total for e in rows)
+    return (total / seen / 1e3 if seen else None), seen
+
+
 # --------------------------------------------------------------------------
 # independent numpy answers: TPC-H in benchmarks/tpch_oracle.py (imported
 # in main, with the package), TPCx-BB q30 and the clickstream windows here
@@ -325,7 +426,8 @@ def main() -> int:
                                                    tpch_datagen,
                                                    tpch_oracle as O,
                                                    tpch_text as TT,
-                                                   tpcxbb, tpcxbb_datagen)
+                                                   tpcxbb, tpcxbb_datagen,
+                                                   tpcxbb_rollup as RU)
     from spark_rapids_tpu_torch.data import strings as dstrings
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
                                                     HostBatch, HostColumn,
@@ -340,6 +442,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops.kernels import castkernels as CK
     from spark_rapids_tpu_torch.ops.kernels import fused as FK
     from spark_rapids_tpu_torch.ops.kernels import gather as G
+    from spark_rapids_tpu_torch.ops.kernels import generate as GK
     from spark_rapids_tpu_torch.ops.kernels import join as J
     from spark_rapids_tpu_torch.ops.kernels import segment as S
     from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
@@ -386,6 +489,14 @@ def main() -> int:
         f" rows x {len(export_hb.schema)} columns, expected lines "
         f"{want_lines[0].shape[1]} bytes wide at most, "
         f"{int(want_lines[1].sum())} bytes in all")
+    t0 = time.perf_counter()
+    bb_gen = tpcxbb_datagen.generate(BB_SF, BB_SEED)
+    rollup_host = {q: RU.query_tables(bb_gen, q) for q in ROLLUP}
+    log(f"TPCx-BB SF{BB_SF:g} (seed {BB_SEED}) generated in "
+        f"{time.perf_counter() - t0:.1f} s; the rollup path's tables: "
+        + "; ".join(f"{q} " + ", ".join(
+            f"{t} {b.num_rows} x {len(b.schema)}" for t, b in ts.items())
+            for q, ts in rollup_host.items()))
     sess = Session()
     torch.zeros(1, device=sess.device)  # CUDA context outside the timings
     tables = {1: {"lineitem": sess.create_dataframe(hb, n_partitions=1)}}
@@ -428,6 +539,14 @@ def main() -> int:
                         clean_host[name], n_partitions=n_part)).plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (name, p.program))
+    for q in ROLLUP:
+        for n_part in (1, 2):
+            tabs = {t: planner.create_dataframe(b, n_partitions=n_part)
+                    for t, b in rollup_host[q].items()}
+            query = tpcxbb.q24 if q == "q24" else RU.QUERIES[q]
+            for p in walk_plan(planner.physical_plan(query(tabs).plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    segments.setdefault(p.program.key, (q, p.program))
     require({"text q1", "text q6", "export"} <=
             {q for q, _p in segments.values()},
             "the text ingest or export planned no fused segment")
@@ -471,12 +590,16 @@ def main() -> int:
                 "K19": [SK.STRING_CASE_LAUNCHES],
                 "K20": [SK.STRING_TRIM_LAUNCHES],
                 "K21": [SK.STRING_REPLACE_LAUNCHES],
-                "B.5": [S.STRING_MINMAX_LAUNCHES]}
+                "B.5": [S.STRING_MINMAX_LAUNCHES],
+                "K22": [GK.EXPLODE_LAUNCHES],
+                "K23": [GK.EXPAND_LAUNCHES]}
     # the string transforms and string min/max run in phase 2g alone
+    # (and the explode and expand kernels in phase 2h alone)
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
                     SK.STRING_CONCAT_LAUNCHES, SK.STRING_CASE_LAUNCHES,
                     SK.STRING_TRIM_LAUNCHES, SK.STRING_REPLACE_LAUNCHES,
-                    S.STRING_MINMAX_LAUNCHES]
+                    S.STRING_MINMAX_LAUNCHES, GK.EXPLODE_LAUNCHES,
+                    GK.EXPAND_LAUNCHES]
     all_counters = [c for cs in counters.values() for c in cs]
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
@@ -769,8 +892,8 @@ def main() -> int:
 
     # ---- 2c. TPCx-BB q30 and the clickstream windows ----------------------
     t0 = time.perf_counter()
-    bb_host = tpcxbb_datagen.tables(BB_SF, BB_SEED,
-                                    names=("web_clickstreams", "item"))
+    bb_host = tpcxbb_datagen.tables_of(bb_gen,
+                                       names=("web_clickstreams", "item"))
     bb_sizes = {}
     want30 = numpy_q30(bb_host, bb_sizes)
     clicks_host = bb_host["web_clickstreams"]
@@ -1327,6 +1450,143 @@ def main() -> int:
     for cell, fn in clean_runs.items():
         profile_query(cell, fn)
 
+    # ---- 2h. row-multiplying execs: q67's rollup, the unpivot, q24 ------
+    t0 = time.perf_counter()
+    want_rollup = {q: (tpcxbb.oracle_q24 if q == "q24" else RU.ORACLES[q])(
+        rollup_host[q]) for q in ROLLUP}
+    log(f"rollup path answered in numpy in {time.perf_counter() - t0:.1f} "
+        f"s: q67 {len(want_rollup['q67'])} rows (first "
+        f"{want_rollup['q67'][:2]}), store_unpivot "
+        f"{len(want_rollup['store_unpivot'])} groups, q24 "
+        f"{want_rollup['q24']}")
+    c = {f.name: col for f, col in zip(
+        rollup_host["q67"]["store_sales"].schema,
+        rollup_host["q67"]["store_sales"].columns)}
+    log(f"q67 table sizes (numpy): store_sales in {RU.YEAR} "
+        f"{int(((c['ss_sold_date_sk'].data // 365) == RU.YEAR - 2001).sum())}"
+        f" of {rollup_host['q67']['store_sales'].num_rows} rows, expanded "
+        f"x{len(RU.KEYS) + 1}")
+    no_fusion = {"spark.rapids.tpu.sql.fusion.enabled": False}
+    chunk_conf = {"spark.rapids.tpu.sql.batchSizeBytes": CHUNK_BYTES}
+    rollup_cells = [("q67/2", "q67", 2, {}), ("q67/1", "q67", 1, {}),
+                    ("q67/2 fusion off", "q67", 2, no_fusion),
+                    ("q67/2 64 MiB", "q67", 2, chunk_conf),
+                    ("store_unpivot/2", "store_unpivot", 2, {}),
+                    ("store_unpivot/2 fusion off", "store_unpivot", 2,
+                     no_fusion),
+                    ("q24/2", "q24", 2, {}), ("q24/1", "q24", 1, {})]
+    rollup_runs = {}      # cell -> callable
+    rollup_launches = {}  # cell -> kernel -> CUDA kernels in its cold run
+    rollup_batches = {}   # cell -> the partial aggregate's input batches
+    for cell, q, n_part, conf in rollup_cells:
+        rsess = Session(conf)
+        tabs = {t: rsess.create_dataframe(b, n_partitions=n_part)
+                for t, b in rollup_host[q].items()}
+        df = tpcxbb.q24(tabs) if q == "q24" else RU.QUERIES[q](tabs)
+        rollup_runs[cell] = df.collect
+        torch.cuda.synchronize()
+        for cnt in all_counters:
+            cnt.reset()
+        t0 = time.perf_counter()
+        rows = df.collect()
+        cold[cell] = time.perf_counter() - t0
+        rollup_launches[cell] = {k: sum(x.count for x in cs)
+                                 for k, cs in counters.items()}
+        log(f"{cell} launches: {rollup_launches[cell]} "
+            f"{ {x.name: x.count for x in all_counters} }")
+        # fused, q67's Project -> Expand and the unpivot's Project ->
+        # Generate run in K12; unfused, on K23 and K22
+        fused = "fusion off" not in cell
+        want_k = {"K22": q == "store_unpivot" and not fused,
+                  "K23": q == "q67" and not fused}
+        for k, on in want_k.items():
+            require((rollup_launches[cell][k] > 0) == on,
+                    f"{cell}: {k} launched {rollup_launches[cell][k]} "
+                    "kernels")
+        require((FK.FUSED_LAUNCHES.count > 0) == fused,
+                f"{cell}: K12 launched {FK.FUSED_LAUNCHES.count} kernels")
+        for x in (S.SORT_LAUNCHES, S.SEGMENT_REDUCE_LAUNCHES,
+                  G.GATHER_LAUNCHES):
+            require(x.count > 0, f"{cell}: wrapper {x.name} launched no "
+                    "kernel")
+        require((W.WINDOW_LAUNCHES.count > 0) == (q == "q67"),
+                f"{cell}: the window kernel (K14) launched "
+                f"{W.WINDOW_LAUNCHES.count} kernels")
+        for x in text_kernels[:-2]:
+            require(x.count == 0, f"{cell}: wrapper {x.name} launched")
+        m = rsess.last_metrics
+        rollup_batches[cell] = m.get(
+            "TpuHashAggregateExec[partial].numInputBatches")
+        log(f"{cell} batches: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(m.items()) if "Batches" in k))
+        if cell == "q67/2 64 MiB":
+            require(rollup_batches[cell] > n_part,
+                    f"{cell}: the partial aggregate got "
+                    f"{rollup_batches[cell]} batch(es); the chunked path "
+                    "did not run")
+        for pl in rsess.last_placements:
+            log(f"{cell} placement {pl['exchange']}: rows written "
+                f"{pl['rows_written']}, per partition "
+                f"{pl['partition_rows']}")
+            require(sum(pl["partition_rows"]) == pl["rows_written"],
+                    f"{cell}: {pl['exchange']} lost or duplicated rows")
+        check_rows(rows, want_rollup[q], cell)
+        log(f"{cell} rows match numpy: {len(rows)} rows, first {rows[:2]}")
+    for q in ("q67", "store_unpivot"):
+        ps = Session()
+        log(f"{q}/2 device plan:\n" + str(ps.physical_plan(
+            RU.QUERIES[q]({t: ps.create_dataframe(b) for t, b in
+                           rollup_host[q].items()}).plan)))
+
+    # one more run of the unfused cells keeping K22's and K23's first
+    # calls, and of the fused ones keeping the first input of each
+    # segment with an Expand or Generate member, for phase 3
+    rollup_calls = {}
+    rollup_seg_inputs = {}
+    explode_impl, expand_impl = GK.explode, GK.expand
+
+    def rec_explode(*args, **kw):
+        rollup_calls.setdefault("explode", (args, kw))
+        return explode_impl(*args, **kw)
+
+    def rec_expand(*args, **kw):
+        rollup_calls.setdefault("expand", (args, kw))
+        return expand_impl(*args, **kw)
+
+    def recording_rollup_segment(self, batch):
+        if any(type(mm).__name__ in ("TpuExpandExec", "TpuGenerateExec")
+               for mm in self.members):
+            rollup_seg_inputs.setdefault(self.program.key,
+                                         (self.program, batch))
+        return seg_impl(self, batch)
+
+    GK.explode, GK.expand = rec_explode, rec_expand
+    TpuFusedSegmentExec._compute = recording_rollup_segment
+    try:
+        for cell in ("q67/2 fusion off", "store_unpivot/2 fusion off",
+                     "q67/2", "store_unpivot/2"):
+            rollup_runs[cell]()
+    finally:
+        GK.explode, GK.expand = explode_impl, expand_impl
+        TpuFusedSegmentExec._compute = seg_impl
+    require(set(rollup_calls) == {"explode", "expand"} and
+            len(rollup_seg_inputs) == 2,
+            "phase 2h recorded no K22/K23 call or no segment input")
+
+    for cell, fn in rollup_runs.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        log(f"{cell} SF{BB_SF:g} wall: cold {cold[cell] * 1e3:.1f} ms, "
+            f"warm {warm[cell] * 1e3:.1f} ms (median of 3), partial "
+            f"aggregate input batches {rollup_batches[cell]}, on {card}")
+    for cell, fn in rollup_runs.items():
+        profile_query(cell, fn)
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -1376,7 +1636,10 @@ def main() -> int:
                           if c.startswith("export/")}],
                  "K19": [clean_launches], "K20": [clean_launches],
                  "K21": [clean_launches], "B.5": [clean_launches],
+                 "K22": [rollup_launches], "K23": [rollup_launches],
                  }.get(k, [launches])
+        if k == "K12":
+            mains.append(rollup_launches)
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              # summed over the cold runs of the queries
@@ -1389,6 +1652,8 @@ def main() -> int:
                                        text_launches.items()},
              "launches_by_clean_cell": {c: v[k] for c, v in
                                         clean_launches.items()},
+             "launches_by_rollup_cell": {c: v[k] for c, v in
+                                         rollup_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -1772,30 +2037,51 @@ def main() -> int:
         key, prog = next((k, p) for k, (qq, p) in segments.items()
                          if qq == what and k in text_seg_inputs)
         k12_cases[what.replace(" ", "_")] = (prog, text_seg_inputs[key])
+    # the rollup path's segments: q67's Project -> Expand (8 branches) and
+    # the unpivot's Project -> Generate (k = 3), on a partition's input
+    for prog, kb in rollup_seg_inputs.values():
+        name = "q67_expand" if prog.describe().endswith(
+            "TpuExpand[8 projections]") else "unpivot_generate"
+        k12_cases[name] = (prog, kb)
+    require({"q67_expand", "unpivot_generate"} <= set(k12_cases),
+            "the rollup path's segments were not recorded")
     k12 = {}
     for case, (prog, kb) in k12_cases.items():
-        got, gkeep = FK.run_segment(prog, kb)
-        ref, rkeep = FK.segment_plain(prog, kb)
-        require((gkeep is None and rkeep is None) or
-                torch.equal(gkeep, rkeep),
-                f"K12 {case} keep mask differs from the plain composition")
-        for g, r in zip(got.columns, ref.columns):
-            require(torch.equal(g.validity, r.validity) and
-                    torch.equal(g.data.contiguous(), r.data.contiguous()) and
-                    (r.lengths is None or torch.equal(
-                        g.lengths.contiguous(), r.lengths.contiguous())),
-                    f"K12 {case} differs from the plain composition in a "
-                    f"{r.dtype} column")
+        got_l = FK.run_segment(prog, kb)
+        ref_l = FK.segment_plain(prog, kb)
+        require(len(got_l) == len(ref_l) == len(prog.mults),
+                f"K12 {case}: {len(got_l)} output batches, plain "
+                f"{len(ref_l)}")
+        for (got, gkeep), (ref, rkeep) in zip(got_l, ref_l):
+            require((gkeep is None and rkeep is None) or
+                    torch.equal(gkeep, rkeep),
+                    f"K12 {case} keep mask differs from the plain "
+                    "composition")
+            require(torch.equal(got.num_rows, ref.num_rows),
+                    f"K12 {case} row count differs")
+            for g, r in zip(got.columns, ref.columns):
+                require(torch.equal(g.validity, r.validity) and
+                        torch.equal(g.data.contiguous(),
+                                    r.data.contiguous()) and
+                        (r.lengths is None or torch.equal(
+                            g.lengths.contiguous(), r.lengths.contiguous())),
+                        f"K12 {case} differs from the plain composition in "
+                        f"a {r.dtype} column")
         k12[case] = dict(
             ms=cuda_ms(lambda: FK.run_segment(prog, kb)),
+            dev=device_ms(lambda: FK.run_segment(prog, kb)),
             plain=cuda_ms(lambda: FK.segment_plain(prog, kb)),
+            enq=enqueue_ms(lambda: FK.run_segment(prog, kb)),
             bytes=prog.bytes_moved(kb), rows=kb.padded_rows,
-            kept=int(gkeep.sum()) if gkeep is not None
-            else int(kb.num_rows))
+            batches=len(got_l),
+            kept=sum(int(k.sum()) if k is not None else int(b.num_rows)
+                     for b, k in got_l))
         log(f"K12 {case} segment ({prog.describe()[:120]}): "
             f"{int(kb.num_rows)} rows ({kb.padded_rows} padded), "
             f"{k12[case]['kept']} kept, {k12[case]['bytes']} bytes moved; "
-            f"kernel {k12[case]['ms']:.3f} ms, plain "
+            f"kernel {k12[case]['ms']:.3f} ms (enqueue "
+            f"{k12[case]['enq']:.3f} ms; device "
+            f"{_ms_text(k12[case]['dev'])}), plain "
             f"{k12[case]['plain']:.3f} ms")
     first = k12["q12"]
     log("K12 over the text path's segments checked against their plain "
@@ -1813,7 +2099,11 @@ def main() -> int:
           bound_ms_by_segment={c: bound(v["bytes"], v["rows"],
                                         FP32_PER_S)[0]
                                for c, v in k12.items()},
-          rows_by_segment={c: v["rows"] for c, v in k12.items()})
+          rows_by_segment={c: v["rows"] for c, v in k12.items()},
+          output_batches_by_segment={c: v["batches"]
+                                     for c, v in k12.items()},
+          enqueue_ms_by_segment={c: v["enq"] for c, v in k12.items()},
+          device_ms_by_segment={c: v["dev"] for c, v in k12.items()})
 
     # K13: Q14's like (startswith 'PROMO' over p_type, 200,000 parts), and
     # contains / endswith / locate_from over Q13's o_comment (1,500,000)
@@ -2297,6 +2587,117 @@ def main() -> int:
           rows=head["rows"], width_by_op={o: v["width"]
                                           for o, v in minmax.items()})
 
+    # K22: the unpivot's explode as its unfused two-partition run called
+    # it (a partition's 2,000,000 store sales, 2,097,152 padded rows, four
+    # pass-through columns, k = 3 float64 elements), and an explode of
+    # item's i_category and i_class (string elements) over its 100,000
+    # rows, each against its plain version
+    (xcols, xnr, xelems, xdt, xpos), _kw = rollup_calls["explode"]
+    got = GK.explode(xcols, xnr, xelems, xdt, xpos)
+    prm = torch.arange(xelems[0].validity.shape[0], dtype=torch.int32,
+                       device=dev) < xnr
+    ref = GK.explode_plain(xcols, prm, xelems, xdt, xpos)
+
+    def same_cols(a, b):
+        return all(g.dtype == r.dtype and torch.equal(g.validity, r.validity)
+                   and torch.equal(g.data, r.data) and
+                   (r.lengths is None or torch.equal(g.lengths, r.lengths))
+                   for g, r in zip(a, b)) and len(a) == len(b)
+
+    require(same_cols(got, ref), "K22 differs from its plain version at "
+            "the unpivot's shape")
+    k22_bytes = GK.explode_bytes(xcols, xelems, got)
+    k = len(xelems)
+
+    def k22_library():
+        outs = [torch.repeat_interleave(c.data, k) for c in xcols]
+        outs.append(torch.stack([e.data for e in xelems], 1).reshape(-1))
+        return outs
+
+    k22 = dict(ms=cuda_ms(lambda: GK.explode(xcols, xnr, xelems, xdt,
+                                              xpos)),
+               dev=device_ms(lambda: GK.explode(xcols, xnr, xelems, xdt,
+                                                xpos)),
+               prof=profiled_kernel_ms(lambda: GK.explode(
+                   xcols, xnr, xelems, xdt, xpos), "explode_kernel"),
+               enq=enqueue_ms(lambda: GK.explode(xcols, xnr, xelems, xdt,
+                                                xpos)),
+               plain=cuda_ms(lambda: GK.explode_plain(xcols, prm, xelems,
+                                                      xdt, xpos)),
+               lib=cuda_ms(k22_library), bytes=k22_bytes,
+               rows=xelems[0].validity.shape[0])
+    log(f"K22 explode at the unpivot's shape: {k22['rows']} padded rows x "
+        f"{k}, {len(xcols)} pass-through columns, {k22_bytes} bytes; call "
+        f"{k22['ms']:.3f} ms (enqueue {k22['enq']:.3f} ms; device "
+        f"{_ms_text(k22['dev'])}; profiler's explode_kernel "
+        f"{_ms_text(k22['prof'][0])} a launch, {k22['prof'][1]} of 10 "
+        "launches recorded), plain "
+        f"{k22['plain']:.3f} ms, repeat_interleave + stack "
+        f"{k22['lib']:.3f} ms")
+    ib = host_to_device(bb_host["item"], 128, dev)
+    icols = {f.name: col for f, col in zip(ib.schema, ib.columns)}
+    s_elems = [icols["i_category"], icols["i_class"]]
+    got = GK.explode(ib.columns, ib.num_rows, s_elems, STRING, True)
+    ref = GK.explode_plain(ib.columns, ib.row_mask(), s_elems, STRING, True)
+    require(same_cols(got, ref), "K22 differs from its plain version on "
+            "string elements")
+    k22_str = dict(ms=cuda_ms(lambda: GK.explode(
+        ib.columns, ib.num_rows, s_elems, STRING, True)),
+        plain=cuda_ms(lambda: GK.explode_plain(
+            ib.columns, ib.row_mask(), s_elems, STRING, True)),
+        bytes=GK.explode_bytes(ib.columns, s_elems, got))
+    log(f"K22 explode of i_category, i_class over item ({ib.padded_rows} "
+        f"padded rows, {k22_str['bytes']} bytes): kernel "
+        f"{k22_str['ms']:.3f} ms, plain {k22_str['plain']:.3f} ms")
+    entry("K22 explode", "spark_rapids_tpu_torch/csrc/generate.cu",
+          "spark_rapids_tpu/exec/generate.py:47",
+          k22["ms"] if k22["dev"] is None else k22["dev"], k22["plain"],
+          k22["lib"], k22_bytes, k22["rows"] * k, FP32_PER_S, 0.0,
+          library_call="torch.repeat_interleave of each pass-through column "
+          "+ torch.stack of the elements", enqueue_ms=k22["enq"],
+          event_ms=k22["ms"], device_ms=k22["dev"],
+          profiler_kernel_ms=k22["prof"][0],
+          profiler_launches_of_10=k22["prof"][1],
+          ms_string_elements=k22_str["ms"],
+          plain_ms_string_elements=k22_str["plain"],
+          bound_ms_string_elements=k22_str["bytes"] / HBM_BYTES_PER_S * 1e3)
+
+    # K23: q67's expand as its unfused two-partition run called it (a
+    # partition's joined rows, 8 projection lists x 9 columns)
+    (esrc, enr, eops), _kw = rollup_calls["expand"]
+    got = GK.expand(esrc, enr, eops)
+    erm = torch.arange(esrc[0].validity.shape[0], dtype=torch.int32,
+                       device=dev) < enr
+    ref = GK.expand_plain(esrc, erm, eops)
+    require(len(got) == len(ref) and all(same_cols(a, b)
+                                         for a, b in zip(got, ref)),
+            "K23 differs from its plain version at q67's shape")
+    k23_bytes = GK.expand_bytes(esrc, eops, got)
+    n_ops = sum(len(o) for o in eops)
+    k23 = dict(ms=cuda_ms(lambda: GK.expand(esrc, enr, eops)),
+               dev=device_ms(lambda: GK.expand(esrc, enr, eops)),
+               prof=profiled_kernel_ms(lambda: GK.expand(esrc, enr, eops),
+                                       "expand_kernel"),
+               enq=enqueue_ms(lambda: GK.expand(esrc, enr, eops)),
+               plain=cuda_ms(lambda: GK.expand_plain(esrc, erm, eops)),
+               rows=esrc[0].validity.shape[0])
+    log(f"K23 expand at q67's shape: {k23['rows']} padded rows ("
+        f"{int(enr)} logical), {len(eops)} projections, {n_ops} ops, "
+        f"{k23_bytes} bytes; call {k23['ms']:.3f} ms (enqueue "
+        f"{k23['enq']:.3f} ms; device {_ms_text(k23['dev'])}; profiler's "
+        f"expand_kernel {_ms_text(k23['prof'][0])} a launch, "
+        f"{k23['prof'][1]} of 10 launches recorded), plain "
+        f"{k23['plain']:.3f} ms")
+    entry("K23 expand", "spark_rapids_tpu_torch/csrc/expand.cu",
+          "spark_rapids_tpu/exec/basic.py:223",
+          k23["ms"] if k23["dev"] is None else k23["dev"], k23["plain"],
+          None, k23_bytes, k23["rows"] * n_ops, FP32_PER_S, 0.0,
+          library_call="none: no PyTorch call writes several projected "
+          "batches of literals, nulls and masked references at once",
+          enqueue_ms=k23["enq"], event_ms=k23["ms"], device_ms=k23["dev"],
+          profiler_kernel_ms=k23["prof"][0],
+          profiler_launches_of_10=k23["prof"][1])
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -2314,6 +2715,11 @@ def main() -> int:
                       "clean": {cell: {"cold_s": cold[cell],
                                        "warm_s": warm[cell]}
                                 for cell in clean_runs},
+                      "rollup": {cell: {"cold_s": cold[cell],
+                                        "warm_s": warm[cell],
+                                        "partial_input_batches":
+                                            rollup_batches[cell]}
+                                 for cell in rollup_runs},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -1,9 +1,12 @@
 """TPCx-BB-like queries as DataFrame code.
 
 Counterpart of ``spark_rapids_tpu/benchmarks/tpcxbb.py`` for the queries
-this engine runs: ``q30`` (``:541-562``), the windowed top-N of category
-affinity.  The other 29 need unions, explode, string functions or casts,
-which come with later slices.
+this engine runs: ``q24`` (``:449-461``), the quantity sold of cheap and
+of pricey items (a semi and an anti join with the cheap items, two
+global sums, a union), and ``q30`` (``:541-562``), the windowed top-N of
+category affinity.  The other 28 need functions of later slices (math,
+``CaseWhen``, more string and date functions).  ``oracle_q24`` computes
+q24's rows with numpy alone.
 
 ``clickstream_windows`` is no reference query: it is shaped like the
 clickstream sessionization of TPCx-BB's Q2, Q3, Q4 and Q8 (every click
@@ -18,11 +21,42 @@ Usage::
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..ops.windowexprs import over, row_number, window
 from ..plan import functions as F
 
 col = F.col
 lit = F.lit
+
+
+def q24(t):
+    """Sales before/after an item price threshold (elasticity shape)."""
+    cheap = t["item"].filter(col("i_current_price") < lit(50.0)) \
+        .select(col("i_item_sk").alias("ci"))
+    j = t["store_sales"].join(cheap, on=(["ss_item_sk"], ["ci"]),
+                              how="semi")
+    k = t["store_sales"].join(cheap, on=(["ss_item_sk"], ["ci"]),
+                              how="anti")
+    a = j.agg(F.sum("ss_quantity").alias("q")).select(
+        lit("cheap").alias("bucket"), col("q"))
+    b = k.agg(F.sum("ss_quantity").alias("q")).select(
+        lit("pricey").alias("bucket"), col("q"))
+    return a.union(b).sort("bucket")
+
+
+def oracle_q24(tables):
+    """q24's two rows with numpy: the quantity of the store sales whose
+    item costs under 50, and of the others."""
+    from ..interop import to_reference_arrays
+
+    c = {}
+    for b in tables.values():
+        c.update(to_reference_arrays(b)[1])
+    cheap = np.unique(c["i_item_sk"][c["i_current_price"] < 50.0])
+    hit = np.isin(c["ss_item_sk"], cheap)
+    q = c["ss_quantity"].astype(np.int64)
+    return [("cheap", int(q[hit].sum())), ("pricey", int(q[~hit].sum()))]
 
 
 def q30(t):
@@ -50,7 +84,7 @@ def q30(t):
             .sort("cat_a", "rn"))
 
 
-QUERIES = {30: q30}
+QUERIES = {24: q24, 30: q30}
 
 
 def clickstream_windows(t):

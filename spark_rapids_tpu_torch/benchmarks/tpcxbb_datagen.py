@@ -323,8 +323,14 @@ def generate(sf: float = 0.001, seed: int = 99):
 def tables(sf: float = 0.001, seed: int = 99,
            names: Optional[Iterable[str]] = None) -> Dict[str, HostBatch]:
     """The generated tables (all, or ``names``) as host batches."""
+    return tables_of(generate(sf, seed), names)
+
+
+def tables_of(generated, names: Optional[Iterable[str]] = None
+              ) -> Dict[str, HostBatch]:
+    """``generate``'s output (all tables, or ``names``) as host batches."""
     out = {}
-    for name, (schema, cols) in generate(sf, seed).items():
+    for name, (schema, cols) in generated.items():
         if names is None or name in names:
             out[name] = from_reference_arrays(
                 [(f.name, f.dtype.sql_name) for f in schema],

@@ -103,6 +103,11 @@ class HostColumn:
         if any(c.validity is not None for c in cols):
             validity = np.concatenate([c.is_valid() for c in cols])
         if dtype.is_string:
+            # a column of type NULL (an Expand's untyped null in a string
+            # field) joins as nulls, as the reference's host concat takes
+            # it
+            cols = [c if c.dtype.is_string else
+                    HostColumn.nulls(c.num_rows, dtype) for c in cols]
             w = max(c.data.shape[1] for c in cols)
             data = np.concatenate([dstrings.pad_width(c.data, w)
                                    for c in cols])
@@ -280,6 +285,29 @@ class DeviceBatch:
     def __repr__(self):  # pragma: no cover
         return (f"DeviceBatch(padded={self.padded_rows}, "
                 f"schema={self.schema})")
+
+
+def slice_device_batch(batch: DeviceBatch, start: int, stop: int,
+                       min_bucket_rows: int = 128) -> DeviceBatch:
+    """Rows [start, stop) of a device batch, re-bucketed to their own
+    padded size (a plain data move; cuts sorted runs into tiles)."""
+    n = stop - start
+    padded = bucket_rows(n, min_bucket_rows)
+    dev = batch.device
+    cols: List[DeviceColumn] = []
+    for c in batch.columns:
+        validity = torch.zeros(padded, dtype=torch.bool, device=dev)
+        validity[:n] = c.validity[start:stop]
+        data = torch.zeros((padded,) + tuple(c.data.shape[1:]),
+                           dtype=c.data.dtype, device=dev)
+        data[:n] = c.data[start:stop]
+        lengths = None
+        if c.lengths is not None:
+            lengths = torch.zeros(padded, dtype=c.lengths.dtype, device=dev)
+            lengths[:n] = c.lengths[start:stop]
+        cols.append(DeviceColumn(c.dtype, data, validity, lengths))
+    return DeviceBatch(batch.schema, cols,
+                       torch.tensor(n, dtype=torch.int32, device=dev))
 
 
 # --------------------------------------------------------------------------

@@ -7,15 +7,19 @@ segment (K3) with a static segment count (the row bucket), then apply
 the finalize expressions.  Modes partial and final, as the planner
 emits them.
 
-A final aggregate whose partition arrives as several batches (the
-slices a multi-partition exchange hands it) merges them as the
-reference's ``_agg_chunked`` (``:322-381``) does for that mode: the
-running buffers concatenated with each next batch and merged, then one
-merge that finalizes; the reference's spill parking and split-and-retry
-around it are not ported.  A partial aggregate over several input
-batches raises ``NotImplementedError`` (its per-batch update comes with
-the SF10 slice).  The number of input batches is recorded in the
-context's metrics as ``TpuHashAggregateExec[<mode>].numInputBatches``.
+A partition that arrives as several batches is aggregated as the
+reference's ``_agg_chunked`` (``:322-381``) does: each batch in buffer
+form (a partial aggregate updates it, ``_compute(b, "update",
+"buffers")``; a final one takes the exchange's buffers as they are),
+the running buffers concatenated with each next batch's and merged
+(``_compute(..., "merge", "buffers")``), and, in the final mode, one
+merge that finalizes.  Its bodies run on K1-K4 like the one-batch path;
+the running merge sums floats in another order than one pass over all
+rows would (the batch boundaries are the reference's: the same coalesce
+goals).  The reference's spill parking of the running buffers and its
+split-and-retry around each step come with the memory tiers (ROADMAP
+A6).  The number of input batches is recorded in the context's metrics
+as ``TpuHashAggregateExec[<mode>].numInputBatches``.
 
 Min and Max over a string column (the reference's
 ``_string_minmax_device``, ``:32-52``, ``:247-257``) reduce through
@@ -215,15 +219,23 @@ class TpuHashAggregateExec(TpuExec):
             bi += nbuf
         return DeviceBatch(self._schema, out_cols, n_real)
 
-    def _merge_chunks(self, batches: List[DeviceBatch]) -> DeviceBatch:
-        """A final aggregate over several batches of buffers: the
-        running merged buffers concatenated with each next batch and
-        merged, then one merge that finalizes (re-merging the grouped
-        result is the identity on every buffer)."""
-        running = batches[0]
-        for part in batches[1:]:
+    def _agg_chunked(self, batches: List[DeviceBatch]) -> DeviceBatch:
+        """Several input batches: each in buffer form, merged into the
+        running buffers; the partial mode returns them, the final mode
+        merges once more to finalize (re-merging the grouped result is
+        the identity on every buffer)."""
+        def to_buffers(b):
+            if self.mode == "final":
+                return b
+            return self._compute(b, "update", "buffers")
+
+        running = to_buffers(batches[0])
+        for nxt in batches[1:]:
             running = self._compute(
-                concat_device_batches([running, part]), "merge", "buffers")
+                concat_device_batches([running, to_buffers(nxt)]), "merge",
+                "buffers")
+        if self.mode == "partial":
+            return running
         return self._compute(running, "merge", "final")
 
     # ------------------------------------------------------------------
@@ -246,14 +258,8 @@ class TpuHashAggregateExec(TpuExec):
                         device=ctx.device)]
                 if len(batches) == 1:
                     yield self.compute_batch(batches[0])
-                elif self.mode == "final":
-                    yield self._merge_chunks(batches)
                 else:
-                    raise NotImplementedError(
-                        f"partition {pid} reached the {self.mode} aggregate "
-                        f"as {len(batches)} batches; the chunked aggregate "
-                        "is not ported yet (raise spark.rapids.tpu.sql."
-                        "batchSizeBytes)")
+                    yield self._agg_chunked(batches)
             return it
 
         return DevicePartitionedData(

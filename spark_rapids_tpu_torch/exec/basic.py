@@ -1,10 +1,14 @@
-"""Basic device operators: Project, Filter and the limits.
+"""Basic device operators: Project, Filter, Union, the limits and Expand.
 
-Counterpart of ``spark_rapids_tpu/exec/basic.py:22-121,141-190``.  The
-filter compacts with K4 (``ops/kernels/gather.py:compact``).  A limit
-reads each batch's row count on the host, as the reference does, and
-turns the rows past the limit into padding through validity.  Union
-and Expand come with later slices.
+Counterpart of ``spark_rapids_tpu/exec/basic.py``.  The filter compacts
+with K4 (``ops/kernels/gather.py:compact``).  A union hands on its
+children's partitions one after another.  A limit reads each batch's row
+count on the host, as the reference does, and turns the rows past the
+limit into padding through validity.  An expand (grouping sets) yields
+one batch per projection list per input batch, as the reference's
+``TpuExpandExec`` (``:191-256``): K23 (``ops/kernels/generate.py:expand``)
+writes all of them in one launch, after the torch ops evaluate the
+entries that are neither column references nor literals.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import torch
 
 from .. import types as T
 from ..data.column import DeviceBatch, DeviceColumn
-from ..ops.expression import (Expression, as_device_column,
-                              bind_references, output_name)
+from ..ops.expression import (BoundReference, Expression, Literal,
+                              as_device_column, bind_references,
+                              output_name, unalias)
+from ..ops.kernels import generate as GK
 from ..ops.kernels.gather import compact
 from .base import DevicePartitionedData, TpuExec
 
@@ -101,6 +107,24 @@ class TpuFilterExec(TpuExec):
         return f"TpuFilter[{self.condition.sql()}]"
 
 
+class TpuUnionExec(TpuExec):
+    def __init__(self, children):
+        super().__init__(children)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+    def execute_columnar(self, ctx):
+        parts = []
+        for ch in self.children:
+            parts.extend(ch.execute_columnar(ctx).parts)
+        return DevicePartitionedData(parts)
+
+    def describe(self):
+        return "TpuUnion"
+
+
 class TpuLocalLimitExec(TpuExec):
     def __init__(self, child, n: int):
         super().__init__([child])
@@ -149,6 +173,80 @@ class TpuGlobalLimitExec(TpuLocalLimitExec):
         return f"TpuGlobalLimit[{self.n}]"
 
 
+class TpuExpandExec(TpuExec):
+    """One projected batch per projection list per input batch; each
+    field takes the first projection's type and is nullable."""
+
+    def __init__(self, child, projections: List[List[Expression]],
+                 output_names: List[str]):
+        super().__init__([child])
+        self.projections = [[bind_references(e, child.schema) for e in ps]
+                            for ps in projections]
+        self._schema = T.Schema([T.Field(n, b.dtype, True) for n, b in
+                                 zip(output_names, self.projections[0])])
+        n_in = len(child.schema)
+        #: entries evaluated by torch before K23, in order
+        self.evaluated: List[Expression] = []
+        self.ops: List[List[GK.ExpandOp]] = []
+        for ps in self.projections:
+            ops = []
+            for f, e in zip(self._schema, ps):
+                u = unalias(e)
+                if isinstance(u, BoundReference):
+                    ops.append(GK.ExpandOp("ref", f.dtype, u.ordinal))
+                elif isinstance(u, Literal):
+                    if u.value is None and u.dtype.id is not \
+                            T.TypeId.NULL:
+                        ops.append(GK.ExpandOp("null", f.dtype))
+                    else:
+                        ops.append(GK.ExpandOp("lit", f.dtype, value=u.value,
+                                               lit_dtype=u.dtype))
+                else:
+                    ops.append(GK.ExpandOp("ref", f.dtype,
+                                           n_in + len(self.evaluated)))
+                    self.evaluated.append(e)
+            self.ops.append(ops)
+        self.spec = GK.ExpandSpec(self.ops)
+
+    @property
+    def schema(self):
+        return self._schema
+
+    @property
+    def coalesce_after(self):
+        return True
+
+    def _compute(self, batch: DeviceBatch, plain: bool = False
+                 ) -> List[DeviceBatch]:
+        """The projected batches, on K23 (or, with ``plain``, on its
+        plain version: a fused segment's plain composition)."""
+        n, dev = batch.padded_rows, batch.device
+        sources = list(batch.columns) + [
+            as_device_column(e.eval_tpu(batch), n, dev)
+            for e in self.evaluated]
+        if plain:
+            out = GK.expand_plain(sources, batch.row_mask(), self.ops)
+        else:
+            out = GK.expand(sources, batch.num_rows, self.spec)
+        return [DeviceBatch(self._schema, cols, batch.num_rows)
+                for cols in out]
+
+    def execute_columnar(self, ctx):
+        child = self.children[0].execute_columnar(ctx)
+
+        def make(pid):
+            def it():
+                for db in child.iterator(pid):
+                    yield from self._compute(db)
+            return it
+
+        return DevicePartitionedData(
+            [make(i) for i in range(child.n_partitions)])
+
+    def describe(self):
+        return f"TpuExpand[{len(self.projections)} projections]"
+
+
 def register(register_exec):
     from ..plan import physical as P
 
@@ -163,6 +261,16 @@ def register(register_exec):
         convert=lambda meta, ch: TpuFilterExec(ch[0], meta.plan.condition),
         desc="columnar filter with stream compaction on the device",
         exprs_of=lambda plan: [plan.condition])
+    register_exec(
+        P.UnionExec,
+        convert=lambda meta, ch: TpuUnionExec(ch),
+        desc="columnar union")
+    register_exec(
+        P.ExpandExec,
+        convert=lambda meta, ch: TpuExpandExec(
+            ch[0], meta.plan.projections, meta.plan.schema.names),
+        desc="grouping-sets expand on device",
+        exprs_of=lambda plan: [e for ps in plan.projections for e in ps])
     register_exec(
         P.GlobalLimitExec,
         convert=lambda meta, ch: TpuGlobalLimitExec(ch[0], meta.plan.n),

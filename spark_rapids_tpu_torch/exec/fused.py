@@ -7,15 +7,18 @@ members' expressions.  Project members evaluate theirs; Filter members
 do not compact: their keep mask threads through the segment, and the
 surviving rows compact once at segment exit (K4), so results are
 bit-identical to the unfused plan — same rows, same order, same padded
-bucket.  On CPU tensors the exec runs the plain composition, the
-members' own torch bodies with the compaction deferred.
+bucket.  An Expand member branches the segment into one stream per
+projection list and a Generate member repeats each row (and its keep
+mask) ``k`` times (``_apply_member``, ``:93-112``), so one input batch
+gives one output batch per stream, each compacted on its own.  On CPU
+tensors the exec runs the plain composition, the members' own torch
+bodies with the compaction deferred.
 
-Left out: Expand and Generate members (they come with those execs,
-ROADMAP B.23), the kernel cache's shared executables (K12's library is
-built once per distinct source and shared by every exec and process
-that generates it), and input donation (PyTorch has none).  Each input
-batch adds one to ``TpuFusedSegmentExec.numInputBatches`` in the
-context's metrics.
+Left out: the kernel cache's shared executables (K12's library is built
+once per distinct source and shared by every exec and process that
+generates it), and input donation (PyTorch has none).  Each input batch
+adds one to ``TpuFusedSegmentExec.numInputBatches`` in the context's
+metrics.
 """
 from __future__ import annotations
 
@@ -48,19 +51,19 @@ class TpuFusedSegmentExec(TpuExec):
 
     @property
     def coalesce_after(self):
-        # a filter anywhere in the segment can shrink output batches
-        # exactly like the unfused member
+        # a filter, expand or generate anywhere in the segment can shrink
+        # or fragment output batches exactly like the unfused member
         return any(m.coalesce_after for m in self.members)
 
     @property
     def children_coalesce_goal(self):
         return self.members[0].children_coalesce_goal
 
-    def _compute(self, batch: DeviceBatch) -> DeviceBatch:
-        out, keep = run_segment(self.program, batch)
-        # ONE compaction at segment exit — the deferred form of each
-        # member filter's compact()
-        return out if keep is None else compact(out, keep)
+    def _compute(self, batch: DeviceBatch) -> List[DeviceBatch]:
+        # ONE compaction per output batch at segment exit — the deferred
+        # form of each member filter's compact()
+        return [out if keep is None else compact(out, keep)
+                for out, keep in run_segment(self.program, batch)]
 
     def execute_columnar(self, ctx):
         child = self.children[0].execute_columnar(ctx)
@@ -69,7 +72,7 @@ class TpuFusedSegmentExec(TpuExec):
             def it():
                 for db in child.iterator(pid):
                     ctx.add_metric(_BATCHES)
-                    yield self._compute(db)
+                    yield from self._compute(db)
             return it
 
         return DevicePartitionedData(

@@ -221,6 +221,13 @@ class Alias(Expression):
         return f"{self.child.sql()} AS {self.alias}"
 
 
+def unalias(e: Expression) -> Expression:
+    """``e`` without the aliases around it."""
+    while isinstance(e, Alias):
+        e = e.child
+    return e
+
+
 def output_name(expr: Expression, i: int) -> str:
     if isinstance(expr, Alias):
         return expr.alias

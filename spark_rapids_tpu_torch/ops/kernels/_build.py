@@ -130,6 +130,12 @@ KERNELS: Dict[str, tuple] = {
     "range_partition": ("range_partition.cu", {
         "k11_range_pids": ([P, I, Q, P, I, P, P], 1),
     }),
+    "generate": ("generate.cu", {
+        "k22_explode": ([P, I, I, Q, P, P], 1),
+    }),
+    "expand": ("expand.cu", {
+        "k23_expand": ([P, I, Q, P, P], 1),
+    }),
     "window": ("window.cu", {
         "k14_bounds": ([P, P, P, P, Q, P, P, P, P, P], 3),
         "k14_rank": ([I, P, P, P, P, P, Q, P, P, P], 1),

@@ -2,11 +2,17 @@
 
 Counterpart of the ``jit_kernel`` composition of
 ``spark_rapids_tpu/exec/fused.py:93-121`` (``TpuFusedSegmentExec._compute``
-and ``_apply_member``), for Project and Filter members: Project members
-evaluate their expressions, Filter members do not compact but AND their
-keep mask (``data & validity``) into the segment's mask, and one
-compaction (K4) at segment exit gives the unfused plan's rows, order and
-padded bucket.
+and ``_apply_member``), for Project, Filter, Expand and Generate
+members: Project members evaluate their expressions, Filter members do
+not compact but AND their keep mask (``data & validity``) into the
+segment's mask, and one compaction (K4) at segment exit gives the
+unfused plan's rows, order and padded bucket.  An Expand member branches
+the segment into one stream per projection list (the members after it
+are generated once per stream; each stream writes an output batch of
+its own, a number computed before the branch is written once and shared
+by the batches), and a Generate member makes the thread of row ``r``
+write the output rows ``r * k + j`` of a batch ``k`` times as long, its
+keep mask repeated (``SegmentProgram``).
 
 ``SegmentProgram`` turns a chain of members into one CUDA C++ kernel:
 one thread per row (grid-stride) reads the row's referenced input
@@ -29,8 +35,8 @@ headers) happens when a plan is built, for all of its segments at once.
 The code generator covers every expression the engine registers
 (``plan/overrides.py``): BoundReference, Literal, Alias, Add, Subtract,
 Multiply, Divide, the five comparisons on numbers, dates and strings,
-Not, And, Or, IsNull, IsNotNull, If, InSet, Contains, StartsWith,
-EndsWith, Like, Substring, Year, Cast (every direction the device
+Not, And, Or, IsNull, IsNotNull, If, Coalesce, NaNvl, InSet, Contains,
+StartsWith, EndsWith, Like, Substring, Year, Cast (every direction the device
 takes), ConcatStrings, NormalizeNaNAndZero,
 KnownFloatingPointNormalized, Upper, Lower, Length, StringLocate,
 StringTrim (both, left, right), SubstringIndex and StringReplace, each
@@ -90,9 +96,11 @@ from .. import arithmetic as ar
 from .. import cast as cst
 from .. import conditional as cond
 from .. import datetimeexprs as dte
+from .. import nullexprs as ne
 from .. import predicates as pr
 from .. import stringexprs as st
-from ..expression import Alias, BoundReference, Expression, Literal
+from ..expression import (Alias, BoundReference, Expression, Literal,
+                          unalias)
 from . import _build as B
 from . import castkernels
 
@@ -192,12 +200,6 @@ class Output:
 def _decl_type(line: str) -> str:
     """The type of a ``const <type> <name> = ...;`` line."""
     return line[len("const "):].rsplit(" = ", 1)[0].rsplit(" ", 1)[0]
-
-
-def _unalias(e: Expression) -> Expression:
-    while isinstance(e, Alias):
-        e = e.child
-    return e
 
 
 def _is_filter(m) -> bool:
@@ -362,6 +364,10 @@ class _Codegen:
             return _Val(T.BOOL, "true", d=self.let("bool", c.v))
         if isinstance(e, cond.If):
             return self.if_(e, syms)
+        if isinstance(e, ne.Coalesce):
+            return self.coalesce(e, syms)
+        if isinstance(e, ne.NaNvl):
+            return self.nanvl(e, syms)
         if isinstance(e, pr.InSet):
             return self.inset(e, syms)
         if isinstance(e, st._NeedlePredicate):
@@ -453,6 +459,46 @@ class _Codegen:
         ct = ctype(out)
         return _Val(out, v, d=self.let(
             ct, f"{c} ? {self.cast(t, out)} : {self.cast(f, out)}"))
+
+    def null_of(self, dt: T.DType) -> _Val:
+        return self.string_literal(None) if dt.is_string else \
+            _Val(dt, "false", d=c_literal(None, dt))
+
+    def coalesce(self, e, syms) -> _Val:
+        """The first valid child, converted to the promoted type, folded
+        from a null of that type (zeros where no child is valid, as the
+        torch body leaves them); a child of type NULL is never valid."""
+        out = e.dtype
+        acc = self.null_of(out)
+        for ch in reversed(e.children):
+            if ch.dtype.id is T.TypeId.NULL:
+                continue
+            c = self.gen(ch, syms)
+            v = self.let("bool", f"{c.v} || {acc.v}")
+            if out.is_string:
+                cw = self.let("int", f"{c.v} ? {c.copy_width} : "
+                              f"{acc.copy_width}") if c.cw or acc.cw else ""
+                acc = _Val(out, v,
+                           p=self.let("uint8_t*", f"{c.v} ? {c.p} : {acc.p}"),
+                           w=self.let("int", f"{c.v} ? {c.w} : {acc.w}"),
+                           l=self.let("int", f"{c.v} ? {c.l} : {acc.l}"),
+                           wspec=("max", c.wspec, acc.wspec), cw=cw)
+            else:
+                acc = _Val(out, v, d=self.let(
+                    ctype(out), f"{c.v} ? {self.cast(c, out)} : {acc.d}"))
+        return acc
+
+    def nanvl(self, e, syms) -> _Val:
+        """``b`` where ``a`` is a valid NaN, else ``a`` (both converted to
+        the promoted type)."""
+        out = e.dtype
+        ct = ctype(out)
+        a, b = self.gen(e.children[0], syms), self.gen(e.children[1], syms)
+        ad = self.let(ct, self.cast(a, out))
+        bd = self.let(ct, self.cast(b, out))
+        use_b = self.let("bool", f"{a.v} && ({ad} != {ad})")
+        return _Val(out, self.let("bool", f"{use_b} ? {b.v} : {a.v}"),
+                    d=self.let(ct, f"{use_b} ? {bd} : {ad}"))
 
     def inset(self, e, syms) -> _Val:
         c = self.gen(e.children[0], syms)
@@ -714,10 +760,42 @@ class _Codegen:
         return _Val(T.BOOL, c.v, d=self.let("bool", ok))
 
 
+@dataclass
+class _Stream:
+    """One stream of rows through the segment: the columns between two
+    members, the keep mask so far (a C variable, or None before any
+    filter), the output batch it writes and the output row it writes
+    (a C expression of ``row``)."""
+
+    syms: List[_Sym]
+    keep: Optional[str]
+    batch: int
+    row: str
+
+
+def _kind(m) -> str:
+    if _is_filter(m):
+        return "filter"
+    if hasattr(m, "projections"):
+        return "expand"
+    if hasattr(m, "elements"):
+        return "generate"
+    return "project"
+
+
 class SegmentProgram:
     """The generated kernel of one segment and how to bind a batch to
-    it.  ``members`` are the segment's Project and Filter execs in
-    execution order, over an input of ``input_schema``."""
+    it.  ``members`` are the segment's Project, Filter, Expand and
+    Generate execs in execution order, over an input of
+    ``input_schema``.
+
+    An Expand member branches every stream into one stream per
+    projection list, each writing an output batch of its own; a Generate
+    member turns each stream into ``k`` streams that write the rows
+    ``row * k + j`` of one output batch ``k`` times as long.  The members
+    after either are generated once per stream, and one launch writes
+    every stream's outputs: ``outputs[b]`` and ``mults[b]`` (its rows are
+    ``mults[b]`` times the input's) describe output batch ``b``."""
 
     def __init__(self, input_schema: T.Schema, members: List):
         self.input_schema = input_schema
@@ -726,60 +804,35 @@ class SegmentProgram:
         self.has_filter = any(_is_filter(m) for m in members)
         g = _Codegen(input_schema)
         # only the input columns a member references are loaded
-        syms = [_Sym(None, i, False) for i in range(len(input_schema))]
+        streams = [_Stream([_Sym(None, i, False)
+                            for i in range(len(input_schema))], None, 0,
+                           "row")]
+        self.mults = [1]
         for m in self.members:
-            if _is_filter(m):
-                c = g.gen(m.condition, syms)
-                if "bool keep = rm;" not in g.body:
-                    g.body.append("bool keep = rm;")
-                g.body.append(f"keep = keep && ({c.d} && {c.v});")
-                continue
-            new = []
-            for e in m.exprs:
-                val = g.gen(e, syms)
-                pv = _Val(**{**val.__dict__,
-                             "v": g.let("bool", f"{val.v} && rm")})
-                inner = _unalias(e)
-                src = syms[inner.ordinal].src \
-                    if isinstance(inner, BoundReference) else None
-                new.append(_Sym(pv, src, True))
-            syms = new
-        self.outputs: List[Output] = []
-        for j, s in enumerate(syms):
-            dt = self.schema[j].dtype
-            if s.src is not None and not s.projected:
-                self.outputs.append(Output("raw", dt, s.src))
-                continue
-            g.ptr_fields.append((f"bool* ov{j}", f"ov{j}", ("out_valid", j)))
-            g.body.append(f"a.ov{j}[row] = {s.val.v};")
-            if s.src is not None:
-                self.outputs.append(Output("valid", dt, s.src))
-            elif s.val.scratch is not None:  # the scratch matrix itself
-                g.ptr_fields.append((f"int* ol{j}", f"ol{j}",
-                                     ("out_len", j)))
-                g.body.append(f"a.ol{j}[row] = {s.val.l};")
-                self.outputs.append(Output("scratch", dt, None, s.val.wspec,
-                                           s.val.scratch))
-            elif dt.is_string:
-                g.ptr_fields.append((f"uint8_t* o{j}", f"o{j}",
-                                     ("out_data", j)))
-                g.ptr_fields.append((f"int* ol{j}", f"ol{j}",
-                                     ("out_len", j)))
-                g.int_fields.append((f"ow{j}", ("out_width", j)))
-                g.body.append(
-                    f"{{ uint8_t* dst = a.o{j} + row * (long long)a.ow{j}; "
-                    f"for (int q = 0; q < a.ow{j}; ++q) dst[q] = q < "
-                    f"{s.val.copy_width} ? {s.val.p}[q] : 0; }}")
-                g.body.append(f"a.ol{j}[row] = {s.val.l};")
-                self.outputs.append(Output("str", dt, None, s.val.wspec))
+            kind = _kind(m)
+            if kind == "filter":
+                for st in streams:
+                    c = g.gen(m.condition, st.syms)
+                    st.keep = g.let("bool", f"{st.keep or 'rm'} && "
+                                    f"({c.d} && {c.v})")
+            elif kind == "project":
+                for st in streams:
+                    st.syms = [self._projected(g, e, e.dtype, st.syms)
+                               for e in m.exprs]
+            elif kind == "expand":
+                streams = self._expand(g, m, streams)
             else:
-                g.ptr_fields.append((f"{ctype(dt)}* o{j}", f"o{j}",
-                                     ("out_data", j)))
-                g.body.append(f"a.o{j}[row] = {s.val.d};")
-                self.outputs.append(Output("num", dt))
-        if self.has_filter:
-            g.ptr_fields.append(("bool* keep", "keep", ("keep",)))
-            g.body.append("a.keep[row] = keep;")
+                streams = self._generate(g, m, streams)
+        self.outputs: List[List[Output]] = []
+        shared: Dict[str, Tuple[int, int]] = {}
+        for b in range(len(self.mults)):
+            mine = [st for st in streams if st.batch == b]
+            self.outputs.append(self._outputs(g, b, mine, shared))
+            if self.has_filter:
+                g.ptr_fields.append((f"bool* keep{b}", f"keep{b}",
+                                     ("keep", b)))
+                for st in mine:
+                    g.body.append(f"a.keep{b}[{st.row}] = {st.keep};")
         g.prune_loads()
         self.scratch = list(g.scratch)
         self._ptr_binds = [("num_rows",)] + [b for _d, _n, b in
@@ -787,6 +840,143 @@ class SegmentProgram:
         self._int_binds = [("n",)] + [b for _n, b in g.int_fields]
         self.source = _render(g, self.describe())
         self.key = B.generated_key(self.source)
+
+    # ---- members -----------------------------------------------------
+    @staticmethod
+    def _projected(g: _Codegen, e: Expression, dtype: T.DType,
+                   syms: List[_Sym]) -> _Sym:
+        """``e`` over ``syms`` as a column of type ``dtype`` (a numeric
+        value widened to it), valid on the logical rows only; a column
+        reference keeps its input ordinal."""
+        val = g.gen(e, syms)
+        cast = val.dtype != dtype and not val.dtype.is_string \
+            and not dtype.is_string
+        if cast:
+            val = _Val(dtype, val.v, d=g.let(ctype(dtype),
+                                             g.cast(val, dtype)))
+        pv = _Val(**{**val.__dict__, "v": g.let("bool", f"{val.v} && rm")})
+        inner = unalias(e)
+        src = syms[inner.ordinal].src \
+            if isinstance(inner, BoundReference) and not cast else None
+        return _Sym(pv, src, True)
+
+    def _expand(self, g: _Codegen, m, streams: List[_Stream]
+                ) -> List[_Stream]:
+        """One stream per (stream, projection list), each writing the
+        batch of its (batch, projection), batches numbered in that
+        order."""
+        ids = {}
+        mults = []
+        for b, mult in enumerate(self.mults):
+            for i in range(len(m.projections)):
+                ids[(b, i)] = len(mults)
+                mults.append(mult)
+        self.mults = mults
+        out = []
+        for st in streams:
+            for i, ps in enumerate(m.projections):
+                syms = [self._projected(g, e, f.dtype, st.syms)
+                        for f, e in zip(m.schema, ps)]
+                out.append(_Stream(syms, st.keep, ids[(st.batch, i)],
+                                   st.row))
+        return out
+
+    def _generate(self, g: _Codegen, m, streams: List[_Stream]
+                  ) -> List[_Stream]:
+        """``k`` streams per stream: the pass-through columns (valid on
+        the logical rows), ``pos`` = j and element j, at ``row * k + j``
+        of a batch ``k`` times as long."""
+        k = len(m.elements)
+        out_dt = m.schema.fields[-1].dtype
+        self.mults = [mult * k for mult in self.mults]
+        out = []
+        for st in streams:
+            passed = []
+            for s in st.syms:
+                val = s.val if s.val is not None else g.load(s.src)
+                passed.append(_Sym(_Val(**{**val.__dict__, "v": g.let(
+                    "bool", f"{val.v} && rm")}), s.src, True))
+            elems = []
+            for e in m.elements:
+                if e.dtype.id is T.TypeId.NULL:
+                    val = g.string_literal(None) if out_dt.is_string else \
+                        _Val(out_dt, "false", d=c_literal(None, out_dt))
+                else:
+                    val = g.gen(e, st.syms)
+                    if not out_dt.is_string and val.dtype != out_dt:
+                        val = _Val(out_dt, val.v, d=g.let(
+                            ctype(out_dt), g.cast(val, out_dt)))
+                elems.append(_Val(**{**val.__dict__, "v": g.let(
+                    "bool", f"{val.v} && rm")}))
+            for j, val in enumerate(elems):
+                syms = list(passed)
+                if m.position:
+                    syms.append(_Sym(_Val(T.INT32, "rm",
+                                          d=f"((int32_t){j})"), None, True))
+                syms.append(_Sym(val, None, True))
+                out.append(_Stream(syms, st.keep, st.batch,
+                                   f"({st.row}) * {k} + {j}"))
+        return out
+
+    # ---- outputs -----------------------------------------------------
+    def _outputs(self, g: _Codegen, b: int, streams: List[_Stream],
+                 shared: Dict[str, Tuple[int, int]]) -> List[Output]:
+        """The output columns of batch ``b`` and the code writing them.
+        A batch as long as the input (one stream) passes columns through
+        and keeps scratch matrices as its columns; a longer one writes
+        every column of every stream at the stream's row.  A number
+        another batch already writes is shared with it."""
+        outs: List[Output] = []
+        one = len(streams) == 1
+        for j in range(len(self.schema)):
+            s0 = streams[0].syms[j]
+            dt = self.schema[j].dtype if s0.val is None else s0.val.dtype
+            if one and s0.src is not None and not s0.projected:
+                outs.append(Output("raw", dt, s0.src))
+                continue
+            g.ptr_fields.append((f"bool* ov{b}_{j}", f"ov{b}_{j}",
+                                 ("out_valid", b, j)))
+            for st in streams:
+                g.body.append(f"a.ov{b}_{j}[{st.row}] = {st.syms[j].val.v};")
+            val = s0.val
+            if one and s0.src is not None:
+                outs.append(Output("valid", dt, s0.src))
+            elif one and val.scratch is not None:  # the scratch itself
+                g.ptr_fields.append((f"int* ol{b}_{j}", f"ol{b}_{j}",
+                                     ("out_len", b, j)))
+                g.body.append(f"a.ol{b}_{j}[row] = {val.l};")
+                outs.append(Output("scratch", dt, None, val.wspec,
+                                   val.scratch))
+            elif dt.is_string:
+                wspec = val.wspec
+                for st in streams[1:]:
+                    wspec = ("max", wspec, st.syms[j].val.wspec)
+                g.ptr_fields.append((f"uint8_t* o{b}_{j}", f"o{b}_{j}",
+                                     ("out_data", b, j)))
+                g.ptr_fields.append((f"int* ol{b}_{j}", f"ol{b}_{j}",
+                                     ("out_len", b, j)))
+                g.int_fields.append((f"ow{b}_{j}", ("out_width", b, j)))
+                for st in streams:
+                    v = st.syms[j].val
+                    g.body.append(
+                        f"{{ uint8_t* dst = a.o{b}_{j} + ({st.row}) * "
+                        f"(long long)a.ow{b}_{j}; for (int q = 0; q < "
+                        f"a.ow{b}_{j}; ++q) dst[q] = q < {v.copy_width} ? "
+                        f"{v.p}[q] : 0; }}")
+                    g.body.append(f"a.ol{b}_{j}[{st.row}] = {v.l};")
+                outs.append(Output("str", dt, None, wspec))
+            elif one and val.d in shared:
+                outs.append(Output("shared", dt, shared[val.d]))
+            else:
+                g.ptr_fields.append((f"{ctype(dt)}* o{b}_{j}", f"o{b}_{j}",
+                                     ("out_data", b, j)))
+                for st in streams:
+                    g.body.append(f"a.o{b}_{j}[{st.row}] = "
+                                  f"{st.syms[j].val.d};")
+                if one:
+                    shared[val.d] = (b, j)
+                outs.append(Output("num", dt))
+        return outs
 
     def describe(self) -> str:
         return " -> ".join(m.describe() for m in self.members)
@@ -818,52 +1008,68 @@ class SegmentProgram:
                 t = {"in_valid": c.validity, "in_data": c.data,
                      "in_len": c.lengths}[kind]
                 total += t.numel() * t.element_size()
-            elif kind == "out_data":
-                o = self.outputs[b[1]]
-                total += n * (self._width(o.wspec, batch) if o.kind == "str"
-                              else torch.empty(0, dtype=o.dtype.torch_dtype
-                                               ).element_size())
+                continue
+            rows = n * self.mults[b[1]] if kind != "scratch" else n
+            if kind == "out_data":
+                o = self.outputs[b[1]][b[2]]
+                total += rows * (
+                    self._width(o.wspec, batch) if o.kind == "str"
+                    else torch.empty(0, dtype=o.dtype.torch_dtype
+                                     ).element_size())
             elif kind == "out_len":
-                total += 4 * n
+                total += 4 * rows
             elif kind == "scratch":
                 total += n * self._width(self.scratch[b[1]], batch)
-            else:  # a validity or the keep mask
-                total += n
+            else:  # a validity or a keep mask
+                total += rows
         return total
 
     def launch(self, batch: DeviceBatch, kernels: B.Kernels
-               ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
+               ) -> List[Tuple[DeviceBatch, Optional[torch.Tensor]]]:
         n, dev = batch.padded_rows, batch.device
         ins = batch.columns
         scratch = [torch.empty((n, self._width(spec, batch)),
                                dtype=torch.uint8, device=dev)
                    for spec in self.scratch]
-        cols: List[DeviceColumn] = []
-        for o in self.outputs:
-            if o.kind == "raw":
-                cols.append(ins[o.src])
-                continue
-            validity = torch.empty(n, dtype=torch.bool, device=dev)
-            if o.kind == "scratch":
-                cols.append(DeviceColumn(
-                    o.dtype, scratch[o.scratch], validity,
-                    torch.empty(n, dtype=torch.int32, device=dev)))
-            elif o.kind == "valid":
-                src = ins[o.src]
-                cols.append(DeviceColumn(o.dtype, src.data, validity,
-                                         src.lengths))
-            elif o.kind == "str":
-                w = self._width(o.wspec, batch)
-                cols.append(DeviceColumn(
-                    o.dtype, torch.empty((n, w), dtype=torch.uint8,
-                                         device=dev),
-                    validity, torch.empty(n, dtype=torch.int32,
-                                          device=dev)))
-            else:
-                cols.append(DeviceColumn(o.dtype, torch.empty(
-                    n, dtype=o.dtype.torch_dtype, device=dev), validity))
-        keep = torch.empty(n, dtype=torch.bool, device=dev) \
-            if self.has_filter else None
+        batches: List[List[DeviceColumn]] = []
+        for b, outs in enumerate(self.outputs):
+            rows = n * self.mults[b]
+            # one allocation for the batch's new validities
+            valids = iter(torch.empty(
+                (sum(o.kind != "raw" for o in outs), rows),
+                dtype=torch.bool, device=dev))
+            cols: List[DeviceColumn] = []
+            for o in outs:
+                if o.kind == "raw":
+                    cols.append(ins[o.src])
+                    continue
+                validity = next(valids)
+                if o.kind == "scratch":
+                    cols.append(DeviceColumn(
+                        o.dtype, scratch[o.scratch], validity,
+                        torch.empty(rows, dtype=torch.int32, device=dev)))
+                elif o.kind == "valid":
+                    src = ins[o.src]
+                    cols.append(DeviceColumn(o.dtype, src.data, validity,
+                                             src.lengths))
+                elif o.kind == "shared":
+                    ob, oj = o.src
+                    cols.append(DeviceColumn(o.dtype, batches[ob][oj].data,
+                                             validity))
+                elif o.kind == "str":
+                    w = self._width(o.wspec, batch)
+                    cols.append(DeviceColumn(
+                        o.dtype, torch.empty((rows, w), dtype=torch.uint8,
+                                             device=dev),
+                        validity, torch.empty(rows, dtype=torch.int32,
+                                              device=dev)))
+                else:
+                    cols.append(DeviceColumn(o.dtype, torch.empty(
+                        rows, dtype=o.dtype.torch_dtype, device=dev),
+                        validity))
+            batches.append(cols)
+        keeps = [torch.empty(n * mult, dtype=torch.bool, device=dev)
+                 if self.has_filter else None for mult in self.mults]
         num_rows = batch.num_rows.to(torch.int32).contiguous()
         keepalive = []
 
@@ -890,15 +1096,15 @@ class SegmentProgram:
             elif kind == "in_len":
                 ptrs.append(arg(ins[b[1]].lengths.to(torch.int32)))
             elif kind == "out_valid":
-                ptrs.append(cols[b[1]].validity.data_ptr())
+                ptrs.append(batches[b[1]][b[2]].validity.data_ptr())
             elif kind == "out_data":
-                ptrs.append(cols[b[1]].data.data_ptr())
+                ptrs.append(batches[b[1]][b[2]].data.data_ptr())
             elif kind == "out_len":
-                ptrs.append(cols[b[1]].lengths.data_ptr())
+                ptrs.append(batches[b[1]][b[2]].lengths.data_ptr())
             elif kind == "scratch":
                 ptrs.append(scratch[b[1]].data_ptr())
             else:  # keep
-                ptrs.append(keep.data_ptr())
+                ptrs.append(keeps[b[1]].data_ptr())
         ints = []
         for b in self._int_binds:
             if b[0] == "n":
@@ -908,13 +1114,16 @@ class SegmentProgram:
             elif b[0] == "scratch_width":
                 ints.append(int(scratch[b[1]].shape[1]))
             else:  # out_width
-                ints.append(int(cols[b[1]].data.shape[1]))
+                ints.append(int(batches[b[1]][b[2]].data.shape[1]))
         lib = kernels.generated(self.key, self.source)
         B.launch(FUSED_LAUNCHES, lib, "k12_segment",
                  (ctypes.c_void_p * len(ptrs))(*ptrs),
                  (ctypes.c_longlong * len(ints))(*ints),
                  kernels.stream(batch.num_rows), launched=1)
-        return DeviceBatch(self.schema, cols, batch.num_rows), keep
+        return [(DeviceBatch(self.schema, cols,
+                             batch.num_rows if mult == 1
+                             else batch.num_rows * mult), keep)
+                for cols, mult, keep in zip(batches, self.mults, keeps)]
 
 
 def _render(g: _Codegen, what: str) -> str:
@@ -977,28 +1186,41 @@ SRT_API int k12_segment(void* const* ptrs, const long long* ints,
 # wrapper and plain composition
 # ---------------------------------------------------------------------------
 def segment_plain(program: SegmentProgram, batch: DeviceBatch
-                  ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
-    """The members' torch bodies in order, each filter's keep mask ANDed
-    into the segment's instead of compacting (``exec/fused.py:113-121``);
-    the mask is ANDed with the row mask at exit."""
-    keep = None
-    b = batch
+                  ) -> List[Tuple[DeviceBatch, Optional[torch.Tensor]]]:
+    """The members' torch bodies in order over (batch, keep) streams
+    (``exec/fused.py:93-121``): each filter's keep mask ANDed into its
+    stream's instead of compacting, an expand branching every stream
+    into one per projection list, a generate repeating the keep mask
+    ``k`` times (both on their plain versions, not K23/K22, on any
+    device); each mask is ANDed with its batch's row mask at exit."""
+    streams: List[Tuple[DeviceBatch, Optional[torch.Tensor]]] = \
+        [(batch, None)]
     for m in program.members:
-        if _is_filter(m):
-            k = m._keep(b)
-            keep = k if keep is None else keep & k
-        else:
-            b = m._compute(b)
-    if keep is not None:
-        keep = keep & batch.row_mask()
-    return DeviceBatch(program.schema, b.columns, b.num_rows), keep
+        kind = _kind(m)
+        out = []
+        for b, keep in streams:
+            if kind == "filter":
+                k = m._keep(b)
+                out.append((b, k if keep is None else keep & k))
+            elif kind == "expand":
+                out.extend((nb, keep) for nb in m._compute(b, plain=True))
+            elif kind == "generate":
+                k = len(m.elements)
+                out.append((m._compute(b, plain=True), None if keep is None
+                            else torch.repeat_interleave(keep, k)))
+            else:
+                out.append((m._compute(b), keep))
+        streams = out
+    return [(DeviceBatch(program.schema, b.columns, b.num_rows),
+             None if keep is None else keep & b.row_mask())
+            for b, keep in streams]
 
 
 def run_segment(program: SegmentProgram, batch: DeviceBatch,
                 kernels: Optional[B.Kernels] = None
-                ) -> Tuple[DeviceBatch, Optional[torch.Tensor]]:
-    """K12: the segment's output columns before compaction and its keep
-    mask (None when no member filters)."""
+                ) -> List[Tuple[DeviceBatch, Optional[torch.Tensor]]]:
+    """K12: each output batch's columns before compaction and its keep
+    mask (None when no member filters), one pair per output batch."""
     kernels = B.kernels_for(batch.num_rows, kernels)
     if kernels is None:
         return segment_plain(program, batch)

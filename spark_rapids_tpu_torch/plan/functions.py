@@ -1,7 +1,7 @@
 """User-facing column expression API.
 
 Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
-``col``, ``lit``, ``if_``, the aggregates ``sum``/``count``/``avg``/
+``col``, ``lit``, ``if_``, ``coalesce``, ``nanvl``, the aggregates ``sum``/``count``/``avg``/
 ``min``/``max``/``first``/``last``, and ``Column`` with arithmetic,
 comparison, boolean, alias, null-test and sort-order operators, ``cast``
 (a type name or a DType), ``isin`` with literal members and the string
@@ -23,6 +23,7 @@ from ..ops import arithmetic as ar
 from ..ops import cast as cst
 from ..ops import conditional as cond
 from ..ops import datetimeexprs as dte
+from ..ops import nullexprs as ne
 from ..ops import predicates as pred
 from ..ops import stringexprs as st
 from ..ops.expression import (Alias, Expression, Literal,
@@ -167,6 +168,14 @@ def lit(v: Any, dtype=None) -> Column:
 
 def if_(c, t, f) -> Column:
     return Column(cond.If(_e(c), _e(t), _e(f)))
+
+
+def coalesce(*cols) -> Column:
+    return Column(ne.Coalesce([_col_e(c) for c in cols]))
+
+
+def nanvl(a, b) -> Column:
+    return Column(ne.NaNvl(_col_e(a), _col_e(b)))
 
 
 class AggColumn(Column):

@@ -11,19 +11,21 @@ cancellation and before coalesce insertion, as the reference does.
 Fusion stops at anything not row-local (exchanges, aggregates, sorts,
 joins, limits, coalesces, transitions), at nondeterministic expressions,
 and at ``fusion.maxSegmentExecs`` members (a longer chain becomes
-several segments).  The row-local execs are Project and Filter; Expand
-and Generate join them with those execs (ROADMAP B.23).  The reference's
-input donation has no counterpart.
+several segments).  The row-local execs are Project, Filter, Expand
+and Generate (``fusion.py:36-49``).  The reference's input donation has
+no counterpart.
 """
 from __future__ import annotations
 
 from ..config import FUSION_ENABLED, FUSION_MAX_SEGMENT_EXECS, TpuConf
-from ..exec.basic import TpuFilterExec, TpuProjectExec
+from ..exec.basic import TpuExpandExec, TpuFilterExec, TpuProjectExec
 from ..exec.fused import TpuFusedSegmentExec
+from ..exec.generate import TpuGenerateExec
 from . import physical as P
 
 #: the row-local execs whose compute bodies compose
-_ROW_LOCAL = (TpuProjectExec, TpuFilterExec)
+_ROW_LOCAL = (TpuProjectExec, TpuFilterExec, TpuExpandExec,
+              TpuGenerateExec)
 
 
 def _member_exprs(node):
@@ -31,6 +33,10 @@ def _member_exprs(node):
         return node.exprs
     if isinstance(node, TpuFilterExec):
         return [node.condition]
+    if isinstance(node, TpuExpandExec):
+        return [e for ps in node.projections for e in ps]
+    if isinstance(node, TpuGenerateExec):
+        return node.elements
     return []
 
 

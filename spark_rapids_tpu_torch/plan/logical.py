@@ -2,13 +2,15 @@
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
 ported so far: ``LocalRelation``, ``Filter``, ``Project``,
-``Aggregate``, ``Join``, ``Sort``, ``Limit``, ``Repartition`` and
-``Window``, and a ``DataFrame`` with ``filter``, ``with_column``,
-``with_column_renamed``, ``select``, ``drop``, ``group_by().agg``,
-``agg``, ``join``, ``sort``, ``limit``, ``repartition``, ``distinct``,
-``with_window``, ``collect`` and ``explain``.  Unions, explode,
-``sort_within_partitions``, file scans and writes come with later
-slices.
+``Aggregate``, ``Join``, ``Sort``, ``Limit``, ``Union``, ``Repartition``,
+``Expand``, ``Generate`` and ``Window``, and a ``DataFrame`` with
+``filter``, ``with_column``, ``with_column_renamed``, ``select``,
+``drop``, ``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
+``union``/``unionAll``, ``repartition``, ``distinct``, ``explode``,
+``with_window``, ``collect`` and ``explain``.  Grouping sets are an
+``Expand`` node built by the caller (the reference's DataFrame has no
+``rollup`` either); ``sort_within_partitions``, file scans and writes
+come with later slices.
 """
 from __future__ import annotations
 
@@ -171,6 +173,18 @@ class Limit(LogicalPlan):
         return f"Limit[{self.n}]"
 
 
+class Union(LogicalPlan):
+    """The children's partitions one after another (Spark's UNION ALL);
+    the schema is the first child's."""
+
+    def __init__(self, children: List[LogicalPlan]):
+        super().__init__(children)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
 class Repartition(LogicalPlan):
     """Hash partitioning on ``keys``, or round robin without keys."""
 
@@ -186,6 +200,57 @@ class Repartition(LogicalPlan):
 
     def describe(self):
         return f"Repartition[{self.n}]"
+
+
+class Expand(LogicalPlan):
+    """Grouping-sets style row expansion: every input row once per
+    projection list.  Each field takes its type from the first
+    projection and is nullable."""
+
+    def __init__(self, child: LogicalPlan,
+                 projections: List[List[Expression]],
+                 output_names: List[str]):
+        super().__init__([child])
+        self.projections = projections
+        self.output_names = output_names
+
+    @property
+    def schema(self):
+        child_schema = self.children[0].schema
+        first = [bind_references(e, child_schema)
+                 for e in self.projections[0]]
+        return T.Schema([T.Field(n, b.dtype, True)
+                         for n, b in zip(self.output_names, first)])
+
+    def describe(self):
+        return f"Expand[{len(self.projections)} projections]"
+
+
+class Generate(LogicalPlan):
+    """explode over per-row element expressions: every input row once per
+    element, the child's columns, then ``pos`` (INT32, not null) when
+    ``position`` is set, then the element as ``output_name`` (the first
+    element's type, nullable)."""
+
+    def __init__(self, child: LogicalPlan, elements: List[Expression],
+                 output_name_: str, position: bool = False):
+        super().__init__([child])
+        self.elements = elements
+        self.output_name = output_name_
+        self.position = position
+
+    @property
+    def schema(self):
+        child_schema = self.children[0].schema
+        b = bind_references(self.elements[0], child_schema)
+        fields = list(child_schema.fields)
+        if self.position:
+            fields.append(T.Field("pos", T.INT32, False))
+        fields.append(T.Field(self.output_name, b.dtype, True))
+        return T.Schema(fields)
+
+    def describe(self):
+        return f"Generate[{len(self.elements)} elements]"
 
 
 class Window(LogicalPlan):
@@ -305,6 +370,12 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self.session, Limit(self.plan, n))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL: this frame's rows, then ``other``'s."""
+        return DataFrame(self.session, Union([self.plan, other.plan]))
+
+    unionAll = union
+
     def distinct(self) -> "DataFrame":
         """The distinct rows: a group-by on every column with no
         aggregate."""
@@ -320,6 +391,12 @@ class DataFrame:
         exprs = [Alias(UnresolvedAttribute(n), new) if n == old
                  else UnresolvedAttribute(n) for n in self.columns]
         return DataFrame(self.session, Project(self.plan, exprs))
+
+    def explode(self, elements, name: str = "col") -> "DataFrame":
+        """Every row once per element expression, the element in column
+        ``name`` (row-major: a row's elements are consecutive)."""
+        return DataFrame(self.session, Generate(
+            self.plan, [_to_expr(e) for e in elements], name))
 
     def with_window(self, name: str, window_expr) -> "DataFrame":
         """Add column ``name`` = ``window_expr`` (``over(...)``); each

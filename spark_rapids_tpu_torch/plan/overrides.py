@@ -310,6 +310,7 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
     from ..ops import conditional as cond
     from ..ops import datetimeexprs as dte
     from ..ops import expression as ex
+    from ..ops import nullexprs as ne
     from ..ops import predicates as pr
     from ..ops import stringexprs as st
 
@@ -322,7 +323,8 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
                 pr.GreaterThan, pr.GreaterThanOrEqual, pr.Not, pr.And,
                 pr.Or, pr.IsNull, pr.IsNotNull, pr.InSet):
         reg.register_expr(cls)
-    reg.register_expr(cond.If)
+    for cls in (cond.If, ne.Coalesce, ne.NaNvl):
+        reg.register_expr(cls)
     # the reference's string rules (plan/overrides.py:419-425) that this
     # engine ports: the case maps incompatible, the others plain
     reg.register_expr(st.Upper, incompat="ASCII-only case mapping on device")
@@ -343,7 +345,8 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
 
 
 def _register_exec_rules(reg: RuleRegistry) -> None:
-    from ..exec import aggregate, basic, exchange, joins, sort, window
+    from ..exec import (aggregate, basic, exchange, generate, joins, sort,
+                        window)
 
-    for mod in (basic, aggregate, exchange, joins, sort, window):
+    for mod in (basic, generate, aggregate, exchange, joins, sort, window):
         mod.register(reg.register_exec)

@@ -194,6 +194,57 @@ class GlobalLimitExec(LocalLimitExec):
         return f"GlobalLimit[{self.n}]"
 
 
+class UnionExec(PhysicalPlan):
+    """The children's partitions one after another."""
+
+    def __init__(self, children: List[PhysicalPlan]):
+        super().__init__(children)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+class ExpandExec(PhysicalPlan):
+    """One output batch per projection list per input batch; each field
+    takes its type from the first projection and is nullable."""
+
+    def __init__(self, child: PhysicalPlan,
+                 projections: List[List[Expression]],
+                 output_names: List[str]):
+        super().__init__([child])
+        self.projections = [[bind_references(e, child.schema) for e in ps]
+                            for ps in projections]
+        self._schema = T.Schema([T.Field(n, b.dtype, True) for n, b in
+                                 zip(output_names, self.projections[0])])
+
+    @property
+    def schema(self):
+        return self._schema
+
+
+class GenerateExec(PhysicalPlan):
+    """explode over per-row element expressions: the child's columns,
+    ``pos`` (INT32, not null) when ``position`` is set, and the element
+    (the first element's type, nullable)."""
+
+    def __init__(self, child: PhysicalPlan, elements: List[Expression],
+                 out_name: str, position: bool = False):
+        super().__init__([child])
+        self.elements = [bind_references(e, child.schema)
+                         for e in elements]
+        self.position = position
+        fields = list(child.schema.fields)
+        if position:
+            fields.append(T.Field("pos", T.INT32, False))
+        fields.append(T.Field(out_name, self.elements[0].dtype, True))
+        self._schema = T.Schema(fields)
+
+    @property
+    def schema(self):
+        return self._schema
+
+
 class HashJoinExec(PhysicalPlan):
     """Equi-join, build = right side; inner/left/right/full/semi/anti with
     an optional residual condition (the device join takes none yet).

@@ -10,7 +10,8 @@ hash join over hash exchanges on the keys (``:151-170``), decided from
 the same estimate as the reference's (``:186-240``); a global sort over
 more than one partition sorts each partition of a range exchange
 (``:72-78``); a repartition is a hash exchange on its keys, or round
-robin without keys (``:64-70``); a window over more than one partition
+robin without keys (``:64-70``); a union, an expand and a generate map
+one to one (``:55,80,84``); a window over more than one partition
 hash-exchanges by its partition keys when every spec has the same ones,
 else gathers into a single partition (``:93-112``).
 """
@@ -52,6 +53,17 @@ class Planner:
 
     def _plan_Filter(self, node: L.Filter):
         return P.FilterExec(self.plan(node.children[0]), node.condition)
+
+    def _plan_Union(self, node: L.Union):
+        return P.UnionExec([self.plan(c) for c in node.children])
+
+    def _plan_Expand(self, node: L.Expand):
+        return P.ExpandExec(self.plan(node.children[0]), node.projections,
+                            node.output_names)
+
+    def _plan_Generate(self, node: L.Generate):
+        return P.GenerateExec(self.plan(node.children[0]), node.elements,
+                              node.output_name, node.position)
 
     def _plan_Limit(self, node: L.Limit):
         child = self.plan(node.children[0])

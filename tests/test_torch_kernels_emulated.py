@@ -535,9 +535,9 @@ def _segment(sess, df):
 def _check_segment(emu, seg, batch):
     from spark_rapids_tpu_torch.ops.kernels import fused as FK
 
-    want, want_keep = FK.segment_plain(seg.program, batch)
+    [(want, want_keep)] = FK.segment_plain(seg.program, batch)
     FK.FUSED_LAUNCHES.reset()
-    got, got_keep = FK.run_segment(seg.program, batch, kernels=emu)
+    [(got, got_keep)] = FK.run_segment(seg.program, batch, kernels=emu)
     assert FK.FUSED_LAUNCHES.count == 1
     assert (got_keep is None) == (want_keep is None)
     if want_keep is not None:
@@ -654,8 +654,8 @@ def test_k12_year_with_truncating_division_differs(emu):
     prog = copy.copy(seg.program)
     prog.source = with_truncating_fdiv(prog.source)
     prog.key = B.generated_key(prog.source)
-    want, _k = FK.segment_plain(prog, batch)
-    got, _k = FK.run_segment(prog, batch, kernels=emu)
+    [(want, _k)] = FK.segment_plain(prog, batch)
+    [(got, _k)] = FK.run_segment(prog, batch, kernels=emu)
     for name in ("y", "yt"):
         j = [f.name for f in prog.schema].index(name)
         assert not torch.equal(got.columns[j].data, want.columns[j].data)

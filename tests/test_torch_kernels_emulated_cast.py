@@ -342,9 +342,9 @@ def test_k12_cast_rules_match_plain(emu):
     sess, df, batch = _cast_frame()
     seg = _segment(sess, df)
     assert len(seg.program.members) == 3
-    want, want_keep = FK.segment_plain(seg.program, batch)
+    [(want, want_keep)] = FK.segment_plain(seg.program, batch)
     FK.FUSED_LAUNCHES.reset()
-    got, got_keep = FK.run_segment(seg.program, batch, kernels=emu)
+    [(got, got_keep)] = FK.run_segment(seg.program, batch, kernels=emu)
     assert FK.FUSED_LAUNCHES.count == 1
     _same(got_keep, want_keep)
     assert 0 < int(want_keep.sum()) < int(batch.num_rows)
@@ -354,7 +354,7 @@ def test_k12_cast_rules_match_plain(emu):
         _same(g.data.contiguous(), w.data.contiguous())
         if w.lengths is not None:
             _same(g.lengths.contiguous(), w.lengths.contiguous())
-    kinds = {o.kind for o in seg.program.outputs}
+    kinds = {o.kind for o in seg.program.outputs[0]}
     assert "scratch" in kinds and "str" in kinds
 
 
@@ -366,8 +366,8 @@ def test_k12_casts_with_truncating_division_differ(emu):
     prog = copy.copy(_segment(sess, df).program)
     prog.source = with_truncating_fdiv(prog.source)
     prog.key = B.generated_key(prog.source)
-    want, _k = FK.segment_plain(prog, batch)
-    got, _k = FK.run_segment(prog, batch, kernels=emu)
+    [(want, _k)] = FK.segment_plain(prog, batch)
+    [(got, _k)] = FK.run_segment(prog, batch, kernels=emu)
     names = [f.name for f in prog.schema]
     for name in ("si_bigint", "sd_date", "st_timestamp", "ts_string",
                  "ts_date", "dt_string"):

@@ -248,12 +248,12 @@ def test_k12_string_transform_rules_match_plain(emu):
     assert len(found) == 1
     prog = found[0].program
     assert len(prog.members) == 2
-    want, want_keep = FK.segment_plain(prog, batch)
+    [(want, want_keep)] = FK.segment_plain(prog, batch)
     counters = (SK.STRING_CASE_LAUNCHES, SK.STRING_TRIM_LAUNCHES,
                 SK.STRING_REPLACE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES)
     for c in counters + (FK.FUSED_LAUNCHES,):
         c.reset()
-    got, got_keep = FK.run_segment(prog, batch, kernels=emu)
+    [(got, got_keep)] = FK.run_segment(prog, batch, kernels=emu)
     assert FK.FUSED_LAUNCHES.count == 1
     assert all(c.count == 0 for c in counters)
     _same(got_keep, want_keep)
@@ -264,5 +264,5 @@ def test_k12_string_transform_rules_match_plain(emu):
         _same(g.data.contiguous(), w.data.contiguous())
         if w.lengths is not None:
             _same(g.lengths.contiguous(), w.lengths.contiguous())
-    kinds = {o.kind for o in prog.outputs}
+    kinds = {o.kind for o in prog.outputs[0]}
     assert {"scratch", "str", "num"} <= kinds

@@ -91,14 +91,24 @@ def test_device_plan_shape_matches_reference(frames):
 
 
 def test_partial_aggregate_refuses_a_second_batch():
-    """This slice aggregates one batch per partition; a partition split
-    into several batches must fail loudly, not merge wrongly."""
-    sess = Session({"spark.rapids.tpu.sql.reader.batchSizeRows": 4096,
-                    "spark.rapids.tpu.sql.batchSizeBytes": 1},
-                   device="cpu")
+    """A partition split into several batches must not merge wrongly:
+    since the chunked partial aggregate (ROADMAP B.25) it is merged batch
+    by batch, and Q6 over 4,096-row batches gives the one-batch answer
+    (floats rel 1e-12: the running merge sums in another order)."""
+    conf = {"spark.rapids.tpu.sql.reader.batchSizeRows": 4096,
+            "spark.rapids.tpu.sql.batchSizeBytes": 1}
+    sess = Session(conf, device="cpu")
     tables = tpch_datagen.dataframes(sess, n_rows=10_000, seed=1)
-    with pytest.raises(NotImplementedError, match="chunked aggregate"):
-        tpch.q6(tables).collect()
+    got = tpch.q6(tables).collect()
+    assert sess.last_metrics[
+        "TpuHashAggregateExec[partial].numInputBatches"] > 2
+    one = Session(device="cpu")
+    want = tpch.q6(tpch_datagen.dataframes(one, n_rows=10_000,
+                                           seed=1)).collect()
+    assert one.last_metrics[
+        "TpuHashAggregateExec[partial].numInputBatches"] == 2
+    assert len(got) == len(want) == 1
+    assert got[0][0] == pytest.approx(want[0][0], rel=1e-12)
 
 
 def test_int_keys_min_max_count_star():
