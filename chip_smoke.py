@@ -108,6 +108,17 @@
    cells, K22/K23 in the unfused ones and nowhere else), the partial
    aggregate's input batches, placements, and cold, warm and profiled
    walls;
+2i. the distributed runner (``parallel/runner.py:run_distributed``): TPC-H
+   Q1, Q3, Q5, Q16 and Q18 at SF1 over ``make_mesh(4, device="cuda")``
+   (four shards sharing the card) and Q1 and Q5 over ``make_mesh(1)``
+   (this machine's real mesh), every table with as many partitions as
+   shards, each against ``tpch_oracle``'s answer (in order where the
+   query orders), with the launches by kernel (K4, K9, K10, K24 and K1
+   required), every collective's rows each shard sent and got, its
+   capacity and the bytes moved between shards, all shards together (the
+   rows must add up), the number of exchanges and ``collectiveTimeNs``, and cold, warm
+   and profiled walls; then one more run of Q3 and Q18 on four shards
+   keeping the largest K24 call (a hash exchange of lineitem) for phase 3;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -130,7 +141,10 @@
    2g's orders_profile at one partition and customer_clean with fusion
    off made; K22 at the unpivot's shape and over item's two string
    columns; K23 at q67's Expand input of one partition; K12 over q67's
-   Project -> Expand and the unpivot's Project -> Generate segments)
+   Project -> Expand and the unpivot's Project -> Generate segments;
+   K24 at the largest hash exchange of Q3 and of Q18 on four shards, on
+   every lane, with its device, event, enqueue, plain and
+   ``index_select`` times)
    and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
@@ -177,6 +191,12 @@ ROLLUP = ("q67", "store_unpivot", "q24")
 #: the chunked partial aggregate's cell: q67 at one partition with this
 #: batchSizeBytes, so every Expand batch reaches the aggregate alone
 CHUNK_BYTES = 64 << 20
+# the distributed runner (phase 2i): these queries over four shards on the
+# card, and the (query, shards) cells
+DIST = (1, 3, 5, 16, 18)
+DIST_CELLS = tuple((q, 4) for q in DIST) + ((1, 1), (5, 1))
+#: the cells whose largest hash exchange K24 is checked and timed at
+DIST_K24 = ((3, 4), (18, 4))
 
 
 def log(*a):
@@ -448,6 +468,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
     from spark_rapids_tpu_torch.ops.kernels import window as W
     from spark_rapids_tpu_torch.exec import exchange as EX
+    from spark_rapids_tpu_torch.parallel.mesh import make_mesh
+    from spark_rapids_tpu_torch.parallel.runner import run_distributed
     from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
     from spark_rapids_tpu_torch.utils import hashing as H
 
@@ -539,6 +561,15 @@ def main() -> int:
                         clean_host[name], n_partitions=n_part)).plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (name, p.program))
+    dist_host = {q: {"lineitem": hb} if q == 1 else host[q] for q in DIST}
+    for q, n_part in DIST_CELLS:
+        tabs = {t: planner.create_dataframe(b, n_partitions=n_part)
+                for t, b in dist_host[q].items()}
+        for p in walk_plan(planner.physical_plan(
+                tpch.QUERIES[q](tabs).plan)):
+            if isinstance(p, TpuFusedSegmentExec):
+                segments.setdefault(p.program.key, (f"distributed q{q}",
+                                                    p.program))
     for q in ROLLUP:
         for n_part in (1, 2):
             tabs = {t: planner.create_dataframe(b, n_partitions=n_part)
@@ -592,7 +623,8 @@ def main() -> int:
                 "K21": [SK.STRING_REPLACE_LAUNCHES],
                 "B.5": [S.STRING_MINMAX_LAUNCHES],
                 "K22": [GK.EXPLODE_LAUNCHES],
-                "K23": [GK.EXPAND_LAUNCHES]}
+                "K23": [GK.EXPAND_LAUNCHES],
+                "K24": [DS.TILE_LAUNCHES]}
     # the string transforms and string min/max run in phase 2g alone
     # (and the explode and expand kernels in phase 2h alone)
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
@@ -1587,6 +1619,91 @@ def main() -> int:
     for cell, fn in rollup_runs.items():
         profile_query(cell, fn)
 
+    # ---- 2i. the distributed runner: four shards on the card, and one ---
+    # every table with as many partitions as shards, so that the leaves
+    # deal one source partition to each shard
+    t_dist = time.perf_counter()
+    meshes = {4: make_mesh(4, device="cuda"), 1: make_mesh(1)}
+    dist_runs, dist_launches, dist_info = {}, {}, {}
+    for q, n in DIST_CELLS:
+        tabs = {t: sess.create_dataframe(b, n_partitions=n)
+                for t, b in dist_host[q].items()}
+        dist_runs[f"q{q}/{n} shards"] = (
+            q, lambda df=tpch.QUERIES[q](tabs), n=n: run_distributed(
+                sess, df, mesh=meshes[n]).to_rows())
+    # the exchange kernels of the path (K9 where it hash-partitions, K10's
+    # build, K24's tiles, K4's compaction) and the queries' own
+    dist_must = [DS.BUILD_LAUNCHES, DS.TILE_LAUNCHES, G.COMPACT_LAUNCHES,
+                 H.HASH_LAUNCHES, S.SORT_LAUNCHES]
+    for cell, (q, fn) in dist_runs.items():
+        torch.cuda.synchronize()
+        for c in all_counters:
+            c.reset()
+        t0 = time.perf_counter()
+        rows = fn()
+        cold[cell] = time.perf_counter() - t0
+        dist_launches[cell] = {k: sum(c.count for c in cs)
+                                for k, cs in counters.items()}
+        log(f"{cell} launches: {dist_launches[cell]} "
+            f"{ {c.name: c.count for c in all_counters} }")
+        for c in dist_must:
+            require(c.count > 0, f"{cell}: wrapper {c.name} launched no "
+                    "kernel")
+        places = sess.last_placements
+        swaps = [p for p in places if p["capacity"] is not None]
+        for pl in places:
+            log(f"{cell} {pl['exchange']}: rows each shard got "
+                f"{pl['partition_rows']}, sent {pl['rows_sent']}, capacity "
+                f"{pl['capacity']}, bytes swapped {pl['bytes_swapped']}")
+            if pl["capacity"] is not None:
+                require(sum(pl["partition_rows"]) == pl["rows_written"],
+                        f"{cell}: {pl['exchange']} lost or duplicated rows")
+        dist_info[cell] = {
+            "exchanges": len(swaps), "replicates": len(places) - len(swaps),
+            "bytes_swapped": sum(p["bytes_swapped"] for p in places),
+            "collective_ns": sess.last_metrics["shuffle.collectiveTimeNs"]}
+        check_rows(rows, want[q], cell, ordered=q not in O.UNORDERED)
+        log(f"{cell} rows match numpy: {len(rows)} rows, first {rows[:2]}; "
+            f"{dist_info[cell]}")
+    for cell, (q, fn) in dist_runs.items():
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        log(f"{cell} SF{SF:g} wall: cold {cold[cell] * 1e3:.1f} ms, warm "
+            f"{warm[cell] * 1e3:.1f} ms (median of 3), on {card}")
+    for cell, (q, fn) in dist_runs.items():
+        profile_query(cell, fn)
+
+    # one more run of the cells K24 is checked at, keeping the K24 call on
+    # four destinations with the largest capacity (a hash exchange of
+    # lineitem)
+    tile_calls = {}
+    tiles_impl = DS.exchange_tiles
+
+    def recording_tiles(batch, order, starts, counts, capacity,
+                        widths=None, kernels=None):
+        if counts.shape[0] == 4:
+            best = tile_calls.get(current["cell"])
+            if best is None or capacity > best[4]:
+                tile_calls[current["cell"]] = (batch, order, starts, counts,
+                                               capacity, widths)
+        return tiles_impl(batch, order, starts, counts, capacity, widths,
+                          kernels)
+
+    DS.exchange_tiles = recording_tiles
+    try:
+        for q, n in DIST_K24:
+            current["cell"] = f"q{q}/{n} shards"
+            dist_runs[current["cell"]][1]()
+    finally:
+        DS.exchange_tiles = tiles_impl
+    require(len(tile_calls) == len(DIST_K24), "phase 2i recorded no K24 call")
+    log(f"phase 2i (distributed) took {time.perf_counter() - t_dist:.1f} s")
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -1637,6 +1754,7 @@ def main() -> int:
                  "K19": [clean_launches], "K20": [clean_launches],
                  "K21": [clean_launches], "B.5": [clean_launches],
                  "K22": [rollup_launches], "K23": [rollup_launches],
+                 "K24": [dist_launches],
                  }.get(k, [launches])
         if k == "K12":
             mains.append(rollup_launches)
@@ -1654,6 +1772,8 @@ def main() -> int:
                                         clean_launches.items()},
              "launches_by_rollup_cell": {c: v[k] for c, v in
                                          rollup_launches.items()},
+             "launches_by_distributed_cell": {c: v[k] for c, v in
+                                              dist_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -2698,6 +2818,67 @@ def main() -> int:
           profiler_kernel_ms=k23["prof"][0],
           profiler_launches_of_10=k23["prof"][1])
 
+    # K24: the tiles of Q3's and Q18's largest hash exchange on four
+    # shards, as phase 2i called it
+    def same_bytes(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    k24 = {}
+    for cell, (tb, to, ts, tc, cap, tw) in tile_calls.items():
+        got, lane = DS.exchange_tiles(tb, to, ts, tc, cap, tw)
+        ref, ref_lane = DS.exchange_tiles_plain(tb, to, ts, tc, cap, tw)
+        require(torch.equal(lane, ref_lane), f"K24 lane mask differs from "
+                f"its plain version at {cell}")
+        for g, r in zip(got, ref):
+            require(same_bytes(g.data[ref_lane], r.data[ref_lane]) and
+                    torch.equal(g.validity, r.validity) and
+                    (r.lengths is None or
+                     torch.equal(g.lengths[ref_lane], r.lengths[ref_lane])),
+                    f"K24 differs from its plain version in a {r.dtype} "
+                    f"column at {cell}")
+        flat = DS.tile_rows_plain(to, ts, tc, cap)[0].reshape(-1)
+
+        def k24_library(tb=tb, flat=flat):
+            return [t.index_select(0, flat) for c in tb.columns
+                    for t in (c.data, c.validity, c.lengths)
+                    if t is not None]
+
+        def call(tb=tb, to=to, ts=ts, tc=tc, cap=cap, tw=tw):
+            return DS.exchange_tiles(tb, to, ts, tc, cap, tw)
+
+        k24[cell] = dict(
+            ms=cuda_ms(call), dev=device_ms(call), enq=enqueue_ms(call),
+            plain=cuda_ms(lambda tb=tb, to=to, ts=ts, tc=tc, cap=cap, tw=tw:
+                          DS.exchange_tiles_plain(tb, to, ts, tc, cap, tw)),
+            lib=cuda_ms(k24_library),
+            bytes=DS.exchange_tiles_bytes(tb, got, ts, tc, cap),
+            lanes=lane.shape[0], rows=int(tb.num_rows), capacity=cap,
+            columns=[str(c.dtype) for c in tb.columns])
+        v = k24[cell]
+        log(f"K24 exchange_tiles at {cell}'s largest hash exchange: "
+            f"{v['rows']} rows ({tb.padded_rows} padded), {len(tb.columns)} "
+            f"columns {v['columns']}, capacity {cap}, {v['lanes']} lanes, "
+            f"{v['bytes']} bytes (bound "
+            f"{v['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms); device "
+            f"{_ms_text(v['dev'])}, event {v['ms']:.3f} ms, enqueue "
+            f"{v['enq']:.3f} ms, plain {v['plain']:.3f} ms, index_select "
+            f"{v['lib']:.3f} ms")
+    a, b = (k24[f"q{q}/{n} shards"] for q, n in DIST_K24)
+    entry("K24 exchange_tiles", "spark_rapids_tpu_torch/csrc/shuffle.cu",
+          "spark_rapids_tpu/parallel/exchange.py:47",
+          a["ms"] if a["dev"] is None else a["dev"], a["plain"], a["lib"],
+          a["bytes"], a["lanes"], FP32_PER_S, 0.0,
+          library_call="torch.index_select of each column's data, validity "
+          "and lengths by the plain version's rows",
+          shape=f"q3/4 shards' largest hash exchange: {a['rows']} rows, "
+          f"{a['lanes']} lanes", enqueue_ms=a["enq"], event_ms=a["ms"],
+          device_ms=a["dev"], q18_device_ms=b["dev"], q18_event_ms=b["ms"],
+          q18_enqueue_ms=b["enq"], q18_plain_ms=b["plain"],
+          q18_library_ms=b["lib"],
+          q18_bound_ms=b["bytes"] / HBM_BYTES_PER_S * 1e3,
+          q18_rows=b["rows"], q18_lanes=b["lanes"])
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -2720,6 +2901,10 @@ def main() -> int:
                                         "partial_input_batches":
                                             rollup_batches[cell]}
                                  for cell in rollup_runs},
+                      "distributed": {cell: {"cold_s": cold[cell],
+                                             "warm_s": warm[cell],
+                                             **dist_info[cell]}
+                                      for cell in dist_runs},
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -35,6 +35,30 @@
 //     validity and lengths of a row in one pass with 1/2/4/8-byte element
 //     copies or a byte loop for string matrices.  The index is computed in
 //     the kernel; no index tensor is built.
+//
+// K24 — the distributed exchange's tiles.
+//
+// Replaces spark_rapids_tpu/parallel/exchange.py:bucket_rows (47) and
+// _gather_tiles (74).  From K10's stable build of a shard's rows by
+// destination (order, starts, counts) it writes every column's
+// [n_parts * capacity] tile: lane l of destination d carries row
+// order[clip(starts[d] + l, 0, n - 1)] with validity AND l < counts[d],
+// and the lane mask itself (l < counts[d]) once.  A lane past counts[d]
+// carries the clipped row's data, as the reference's; rows past the
+// capacity are dropped, as there.  A string tile is written at the width
+// given for it (the widest of every shard's), the bytes past the source
+// width zero.
+//
+// Bound on this card: bytes.  Each row that some lane reads is read once
+// (its 4-byte order entry and each column's data, validity and lengths):
+// a lane past counts[d] reads a row of destination d + 1, so only the
+// last destination's clipped lanes add rows.  Every lane writes its tile
+// entries and the mask (device_shuffle.py:exchange_tiles_bytes;
+// chip_smoke.py computes it at Q3's and Q18's hash exchanges on four
+// shards).  Design: one launch for up to 32
+// columns (K10's column table, blockIdx.y the column), one thread a lane
+// computing its row from order/starts/counts (no rows tensor is built),
+// 1/2/4/8-byte element copies or a byte loop for string rows.
 #include "common.cuh"
 
 namespace {
@@ -145,6 +169,7 @@ struct SliceCol {
   const int* src_len;  // strings only, else NULL
   int* dst_len;
   int row_bytes;
+  int dst_row_bytes;  // K24's string tiles may be wider than the source
 };
 
 struct SliceCols {
@@ -178,6 +203,49 @@ __global__ void slice_cols(SliceCols cols, long long padded, long long start,
   }
   c.dst_valid[lane] = c.src_valid[k] && lane < count;
   if (c.src_len != nullptr) c.dst_len[lane] = c.src_len[k];
+}
+
+// K24: lane t of the [n_parts * cap] tiles; blockIdx.y picks the column
+// (y == 0 also writes the lane mask; ncols == 0 writes only the mask)
+__global__ void exchange_tiles(SliceCols cols, int ncols,
+                               const int* __restrict__ order,
+                               const int* __restrict__ starts,
+                               const int* __restrict__ counts, long long n,
+                               long long cap, long long total,
+                               bool* __restrict__ lane_valid) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long d = t / cap;
+  const long long lane = t - d * cap;
+  long long k = (long long)starts[d] + lane;
+  if (k > n - 1) k = n - 1;
+  if (k < 0) k = 0;
+  const long long row = order[k];
+  const bool in = lane < (long long)counts[d];
+  if (blockIdx.y == 0 && lane_valid != nullptr) lane_valid[t] = in;
+  if ((int)blockIdx.y >= ncols) return;
+  const SliceCol& c = cols.c[blockIdx.y];
+  if (c.row_bytes == c.dst_row_bytes) {
+    switch (c.row_bytes) {
+      case 1: copy_elem<uint8_t>(c.src, c.dst, row, t); break;
+      case 2: copy_elem<uint16_t>(c.src, c.dst, row, t); break;
+      case 4: copy_elem<uint32_t>(c.src, c.dst, row, t); break;
+      case 8: copy_elem<unsigned long long>(c.src, c.dst, row, t); break;
+      default: {
+        const uint8_t* s = c.src + row * c.row_bytes;
+        uint8_t* o = c.dst + t * c.row_bytes;
+        for (int j = 0; j < c.row_bytes; ++j) o[j] = s[j];
+      }
+    }
+  } else {
+    const uint8_t* s = c.src + row * c.row_bytes;
+    uint8_t* o = c.dst + t * c.dst_row_bytes;
+    int j = 0;
+    for (; j < c.row_bytes; ++j) o[j] = s[j];
+    for (; j < c.dst_row_bytes; ++j) o[j] = 0;
+  }
+  c.dst_valid[t] = c.src_valid[row] && in;
+  if (c.src_len != nullptr) c.dst_len[t] = c.src_len[row];
 }
 
 }  // namespace
@@ -240,10 +308,43 @@ SRT_API int k10_slice(const long long* table, int ncols, long long padded,
     cols.c[c].src_len = (const int*)d[4];
     cols.c[c].dst_len = (int*)d[5];
     cols.c[c].row_bytes = (int)d[6];
+    cols.c[c].dst_row_bytes = (int)d[6];
   }
   if (padded <= 0) return (int)cudaSuccess;
   dim3 grid(srt::blocks_for(padded, BLOCK), (unsigned)ncols);
   slice_cols<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(cols, padded, start,
                                                        count);
+  return (int)cudaGetLastError();
+}
+
+// K24.  table: per column eight int64 (src data, dst tile, src validity,
+// dst validity, src lengths or 0, dst lengths or 0, source bytes a row,
+// tile bytes a row); sources have n >= 1 rows, tiles n_parts * capacity.
+// order: int32[n], starts, counts: int32[n_parts] (K10's build);
+// lane_valid: bool[n_parts * capacity] or NULL (not written).
+SRT_API int k24_tiles(const long long* table, int ncols, long long n,
+                      const void* order, const void* starts,
+                      const void* counts, int n_parts, long long capacity,
+                      void* lane_valid, void* stream) {
+  if (ncols < 0 || ncols > MAX_SLICE_COLS || n < 1 || n_parts < 1 ||
+      capacity < 1)
+    return (int)cudaErrorInvalidValue;
+  SliceCols cols;
+  for (int c = 0; c < ncols; ++c) {
+    const long long* d = table + 8 * c;
+    cols.c[c].src = (const uint8_t*)d[0];
+    cols.c[c].dst = (uint8_t*)d[1];
+    cols.c[c].src_valid = (const bool*)d[2];
+    cols.c[c].dst_valid = (bool*)d[3];
+    cols.c[c].src_len = (const int*)d[4];
+    cols.c[c].dst_len = (int*)d[5];
+    cols.c[c].row_bytes = (int)d[6];
+    cols.c[c].dst_row_bytes = (int)d[7];
+  }
+  const long long total = (long long)n_parts * capacity;
+  dim3 grid(srt::blocks_for(total, BLOCK), (unsigned)(ncols > 0 ? ncols : 1));
+  exchange_tiles<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      cols, ncols, (const int*)order, (const int*)starts,
+      (const int*)counts, n, capacity, total, (bool*)lane_valid);
   return (int)cudaGetLastError();
 }

@@ -126,6 +126,7 @@ KERNELS: Dict[str, tuple] = {
         "k10_build": ([P, P, Q, I, P, P, P, P, P], 3),
         "k10_counts_wide": ([P, P, Q, I, P, P, P, P], 2),
         "k10_slice": ([P, I, Q, Q, Q, P], 1),
+        "k24_tiles": ([P, I, Q, P, P, P, I, Q, P, P], 1),
     }),
     "range_partition": ("range_partition.cu", {
         "k11_range_pids": ([P, I, Q, P, I, P, P], 1),

@@ -78,6 +78,23 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert _build.CUDA.libs == {}  # nothing was built or loaded
 
 
+def test_distributed_runner_on_cpu_shards_counts_no_launch():
+    from spark_rapids_tpu_torch import f
+    from spark_rapids_tpu_torch.parallel.mesh import make_mesh
+    from spark_rapids_tpu_torch.parallel.runner import run_distributed
+    from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
+
+    counters = [DS.BUILD_LAUNCHES, DS.TILE_LAUNCHES, G.COMPACT_LAUNCHES]
+    before = [c.count for c in counters]
+    sess = Session(device="cpu")
+    df = sess.create_dataframe({"k": [2, 1, 2], "v": [1.0, 2.0, 3.0]})
+    q = df.group_by("k").agg(f.sum("v").alias("s")).sort("k")
+    assert run_distributed(sess, q, mesh=make_mesh(3, device="cpu")) \
+        .to_rows() == [(1, 2.0), (2, 4.0)]
+    assert [c.count for c in counters] == before
+    assert _build.CUDA.libs == {}
+
+
 def test_wrappers_refuse_other_devices():
     col = DeviceColumn(T.INT32, torch.zeros(4, dtype=torch.int32,
                                             device="meta"),

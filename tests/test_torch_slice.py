@@ -90,7 +90,7 @@ def test_device_plan_shape_matches_reference(frames):
     assert names(got) == names(want)
 
 
-def test_partial_aggregate_refuses_a_second_batch():
+def test_partial_aggregate_merges_several_batches():
     """A partition split into several batches must not merge wrongly:
     since the chunked partial aggregate (ROADMAP B.25) it is merged batch
     by batch, and Q6 over 4,096-row batches gives the one-batch answer
