@@ -119,6 +119,20 @@
    rows must add up), the number of exchanges and ``collectiveTimeNs``, and cold, warm
    and profiled walls; then one more run of Q3 and Q18 on four shards
    keeping the largest K24 call (a hash exchange of lineitem) for phase 3;
+2j. TPC-H at SF10 (``tpch_datagen.draw_all(10.0, 42)``: 60,000,000
+   lines, 15,000,000 orders): Q1, Q3, Q6, Q9, Q18 and Q21 at the default
+   two partitions and 512 MiB ``batchSizeBytes``, and Q3 and Q21 again at
+   64 MiB, each against ``tpch_oracle``'s answer, with cold, warm and
+   profiled walls (busy, idle share, H2D copies and ms), the launches,
+   the peak device memory and each shuffled join's batches a side,
+   bucket pairs, buckets and deepest level (the grace join: every join
+   partition whose side brings several batches must take it, some query
+   must at 512 MiB and each 64 MiB cell must; these checks raise at the
+   end of the script, after the ``kernels`` line); one SF10 reader batch
+   of lineitem's Q1 columns uploaded packed (one pinned buffer, one
+   copy) and per array, bit for bit, with both calls' event, device and
+   host times; the warm runs keep the largest K25 split and seeded K9
+   hash of Q21 (of any cell if Q21 took no grace path) for phase 3;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -144,7 +158,8 @@
    Project -> Expand and the unpivot's Project -> Generate segments;
    K24 at the largest hash exchange of Q3 and of Q18 on four shards, on
    every lane, with its device, event, enqueue, plain and
-   ``index_select`` times)
+   ``index_select`` times; K25 and K9 from a grace seed at phase 2j's
+   largest Q21 split, with the same times)
    and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
@@ -195,6 +210,11 @@ CHUNK_BYTES = 64 << 20
 # card, and the (query, shards) cells
 DIST = (1, 3, 5, 16, 18)
 DIST_CELLS = tuple((q, 4) for q in DIST) + ((1, 1), (5, 1))
+# TPC-H at SF10 (phase 2j): these queries at the default two partitions
+# and 512 MiB batch target, and the grace cells again at 64 MiB
+SF10 = 10.0
+SF10_QUERIES = (1, 3, 6, 9, 18, 21)
+SF10_CHUNKED = (3, 21)
 #: the cells whose largest hash exchange K24 is checked and timed at
 DIST_K24 = ((3, 4), (18, 4))
 
@@ -258,10 +278,12 @@ def walk_plan(plan):
         yield from walk_plan(c)
 
 
-def profile_query(label, run) -> None:
+def profile_query(label, run):
     """Device busy time of one warm run under torch.profiler: the sum of
     device time over kernels and copies, the idle share of the wall, and
-    the top entries by device time."""
+    the top entries by device time.  Returns ``{"wall_ms", "busy_ms",
+    "idle_share", "h2d_copies", "h2d_ms"}``, or None where the profiler
+    saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -281,12 +303,19 @@ def profile_query(label, run) -> None:
     if not rows:
         log(f"{label} profile: the profiler saw no device activity; device "
             "time not measured")
-        return
+        return None
+    h2d = [(dev_us, count) for dev_us, count, key in rows if "HtoD" in key]
+    out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1 - busy / wall_us,
+           "h2d_copies": sum(c for _u, c in h2d),
+           "h2d_ms": sum(u for u, _c in h2d) / 1e3}
     log(f"{label} profile (one warm run, profiler on): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.2f} ms, idle "
-        f"share {1 - busy / wall_us:.3f}")
+        f"share {1 - busy / wall_us:.3f}, H2D {out['h2d_copies']} copies "
+        f"{out['h2d_ms']:.3f} ms")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         log(f"  {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    return out
 
 
 def enqueue_ms(fn, reps=10) -> float:
@@ -449,6 +478,8 @@ def main() -> int:
                                                    tpcxbb, tpcxbb_datagen,
                                                    tpcxbb_rollup as RU)
     from spark_rapids_tpu_torch.data import strings as dstrings
+    from spark_rapids_tpu_torch.config import BATCH_SIZE_BYTES
+    from spark_rapids_tpu_torch.data import column as C
     from spark_rapids_tpu_torch.data.column import (DeviceColumn,
                                                     HostBatch, HostColumn,
                                                     bucket_rows,
@@ -624,7 +655,8 @@ def main() -> int:
                 "B.5": [S.STRING_MINMAX_LAUNCHES],
                 "K22": [GK.EXPLODE_LAUNCHES],
                 "K23": [GK.EXPAND_LAUNCHES],
-                "K24": [DS.TILE_LAUNCHES]}
+                "K24": [DS.TILE_LAUNCHES],
+                "K25": [DS.SPLIT_LAUNCHES]}
     # the string transforms and string min/max run in phase 2g alone
     # (and the explode and expand kernels in phase 2h alone)
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
@@ -883,9 +915,9 @@ def main() -> int:
     range_impl = EX.range_pids_from_bounds
     current = {}
 
-    def rec_hash(cols, n_out, kernels=None):
+    def rec_hash(cols, n_out, kernels=None, seed=H.SEED):
         recorded["hash"].append((current["q"], cols, n_out))
-        return hash_impl(cols, n_out, kernels)
+        return hash_impl(cols, n_out, kernels, seed)
 
     def rec_build(batch, pids, n_out, kernels=None):
         recorded["build"].append((current["q"], batch, pids, n_out))
@@ -1704,6 +1736,220 @@ def main() -> int:
     require(len(tile_calls) == len(DIST_K24), "phase 2i recorded no K24 call")
     log(f"phase 2i (distributed) took {time.perf_counter() - t_dist:.1f} s")
 
+    # ---- 2j. SF10: the grace join and the packed upload ------------------
+    # the default conf (two partitions, 512 MiB batches): a partition of
+    # SF10 lineitem is 30,000,000 rows, so the join sides reach the join as
+    # several batches and join bucket by bucket; Q3 and Q21 again at 64 MiB
+    t_sf10 = time.perf_counter()
+    t0 = time.perf_counter()
+    cols10 = tpch_datagen.draw_all(SF10, SEED)
+    log(f"SF{SF10:g}: every column drawn in {time.perf_counter() - t0:.1f} "
+        f"s ({sum(c.data.nbytes for c in cols10.values())} bytes of data)")
+    sf10_launches, sf10_info, upload = {}, {}, {}
+    # K25's and the seeded K9's largest calls, kept from the warm runs for
+    # phase 3: Q21's at the default conf ("q21"), and the largest of
+    # any cell ("any") where Q21 took no grace path
+    split_impl, seeded_impl = DS.bucket_split, H.hash_pids
+    k25_calls = {"q21": {}, "any": {}}
+    k9_seeded_calls = {"q21": {}, "any": {}}
+    # the grace path's checks, raised at the end of the script so that one
+    # run reports every cell
+    late = []
+
+    def require_late(cond, what):
+        if not cond:
+            late.append(what)
+            log(f"FAILED (raised at the end): {what}")
+
+    def keep_largest(calls, rows, args):
+        for key in ("any", "q21"):
+            if key == "q21" and current.get("cell") != \
+                    f"q21 SF{SF10:g} default":
+                continue
+            if rows > calls[key].get("rows", -1):
+                calls[key].update(rows=rows, args=args,
+                                  cell=current.get("cell"))
+
+    def recording_split(batch, order, counts, kernels=None,
+                        min_bucket_rows=128):
+        keep_largest(k25_calls, sum(counts), (batch, order, list(counts)))
+        return split_impl(batch, order, counts, kernels, min_bucket_rows)
+
+    def recording_hash(cols, n_out, kernels=None, seed=H.SEED):
+        if seed != H.SEED:
+            keep_largest(k9_seeded_calls, cols[0].data.shape[0],
+                         (cols, n_out, seed))
+        return seeded_impl(cols, n_out, kernels, seed)
+
+    def join_summary(records):
+        """Each shuffled join's batches and grace figures over its
+        partitions, in plan order."""
+        out = {}
+        for r in records:
+            j = out.setdefault(r["exec"], {
+                "join": r["join"], "left_batches": 0, "right_batches": 0,
+                "left_bytes": 0, "right_bytes": 0, "grace_pairs": 0,
+                "grace_buckets": 0, "grace_max_level": None})
+            for k in ("left_batches", "right_batches", "left_bytes",
+                      "right_bytes", "grace_pairs", "grace_buckets"):
+                j[k] += r[k]
+            if r["grace_max_level"] is not None:
+                j["grace_max_level"] = max(j["grace_max_level"] or 0,
+                                           r["grace_max_level"])
+        return list(out.values())
+
+    for q in SF10_QUERIES:
+        t0 = time.perf_counter()
+        host10 = tpch_datagen.tables(q, SF10, SEED, cols=cols10)
+        sizes10 = {}
+        want10 = O.answer(q, host10, sizes10)
+        log(f"Q{q} SF{SF10:g}: tables " + ", ".join(
+            f"{t} {b.num_rows} x {len(b.schema)}" for t, b in host10.items())
+            + f"; numpy answer ({len(want10)} rows) in "
+            f"{time.perf_counter() - t0:.1f} s; sizes {sizes10}")
+        if q == 1:
+            # one reader batch of lineitem's Q1 columns, packed (one pinned
+            # buffer, one copy) against one copy per array, bit for bit
+            rb10 = host10["lineitem"].slice(0, READER_ROWS)
+            arrays = C._upload_arrays(rb10, bucket_rows(rb10.num_rows))
+            packed = host_to_device(rb10, 128, sess.device)
+            flat = [t for c in packed.columns
+                    for t in (c.data, c.validity, c.lengths)
+                    if t is not None]
+            per_array = [C._staged(a, shape[0], sess.device, valid)
+                         for a, shape, valid in arrays]
+            require(len(flat) == len(per_array) and all(
+                p.dtype == a.dtype and p.shape == a.shape and torch.equal(
+                    p.contiguous().view(torch.uint8),
+                    a.contiguous().view(torch.uint8))
+                for p, a in zip(flat, per_array)) and
+                int(packed.num_rows) == rb10.num_rows,
+                "the packed upload differs from the per-array upload")
+            upload.update({
+                "rows": rb10.num_rows, "arrays": len(arrays),
+                "bytes": sum(int(np.prod(shape)) * a.dtype.itemsize
+                             for a, shape, _v in arrays),
+            })
+
+            def packed_fn(rb10=rb10):
+                return host_to_device(rb10, 128, sess.device)
+
+            def per_array_fn(arrays=arrays):
+                return [C._staged(a, shape[0], sess.device, valid)
+                        for a, shape, valid in arrays]
+
+            for name, fn in (("packed", packed_fn),
+                             ("per_array", per_array_fn)):
+                upload[f"{name}_ms"] = cuda_ms(fn)
+                upload[f"{name}_device_ms"] = device_ms(fn)
+                upload[f"{name}_enqueue_ms"] = enqueue_ms(fn)
+            log(f"packed upload of one SF{SF10:g} reader batch of "
+                f"lineitem's Q1 columns ({upload['rows']} rows, "
+                f"{upload['arrays']} arrays, {upload['bytes']} bytes) "
+                f"equals the per-array upload bit for bit; call "
+                f"{upload['packed_ms']:.3f} ms (1 copy; device "
+                f"{_ms_text(upload['packed_device_ms'])}, host enqueue "
+                f"{upload['packed_enqueue_ms']:.3f} ms) against "
+                f"{upload['per_array_ms']:.3f} ms ({upload['arrays']} "
+                f"copies; device {_ms_text(upload['per_array_device_ms'])}"
+                f", host enqueue {upload['per_array_enqueue_ms']:.3f} ms), "
+                f"events, on {card}")
+            del packed, flat, per_array
+        cells = [("default", {})]
+        if q in SF10_CHUNKED:
+            cells.append(("64 MiB", {
+                "spark.rapids.tpu.sql.batchSizeBytes": CHUNK_BYTES}))
+        for cname, conf in cells:
+            cell = f"q{q} SF{SF10:g} {cname}"
+            s10 = Session(conf)
+            target = s10.conf.get(BATCH_SIZE_BYTES)
+            tabs10 = {t: s10.create_dataframe(b) for t, b in host10.items()}
+
+            def run10(q=q, tabs10=tabs10):
+                return tpch.QUERIES[q](tabs10).collect()
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in all_counters:
+                c.reset()
+            t0 = time.perf_counter()
+            rows = run10()
+            cold[cell] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            sf10_launches[cell] = {k: sum(c.count for c in cs)
+                                   for k, cs in counters.items()}
+            log(f"{cell} launches: {sf10_launches[cell]} "
+                f"{ {c.name: c.count for c in all_counters} }")
+            check_rows(rows, want10, cell, ordered=q not in O.UNORDERED)
+            joins = join_summary(s10.last_joins)
+            for r in s10.last_joins:
+                if r["left_batches"] > 1 or r["right_batches"] > 1:
+                    require(r["grace_pairs"] > 0, f"{cell}: {r['join']} "
+                            f"partition {r['partition']} brought several "
+                            f"batches and took no grace path: {r}")
+                elif max(r["left_bytes"], r["right_bytes"]) > target:
+                    log(f"{cell}: {r['join']} partition {r['partition']} "
+                        f"joins one batch a side, {r['left_bytes']} / "
+                        f"{r['right_bytes']} bytes, over the {target}-byte "
+                        "target (joined directly, as the reference does)")
+            if any(j["grace_pairs"] for j in joins):
+                require(DS.SPLIT_LAUNCHES.count > 0 and
+                        H.HASH_LAUNCHES.count > 0,
+                        f"{cell}: the grace path launched no K25 or K9")
+            if cname != "default":
+                # every join with a side over the target in several
+                # batches took the grace path (the records above); one a
+                # side joins directly, as in the reference (Q21's join
+                # with its late-supplier counts: an aggregate's output,
+                # one batch a partition)
+                require_late(any(j["grace_pairs"] for j in joins),
+                             f"{cell}: no join took the grace path: "
+                             f"{joins}")
+            for j in joins:
+                log(f"{cell} {j['join']}: numLeftBatches "
+                    f"{j['left_batches']}, numRightBatches "
+                    f"{j['right_batches']}, side bytes {j['left_bytes']} / "
+                    f"{j['right_bytes']}, numGracePairs {j['grace_pairs']}, "
+                    f"graceMaxLevel {j['grace_max_level']}, "
+                    f"numGraceBuckets {j['grace_buckets']}")
+            for pl in s10.last_placements:
+                require(sum(pl["partition_rows"]) == pl["rows_written"],
+                        f"{cell}: {pl['exchange']} lost or duplicated rows")
+            current["cell"] = cell
+            H.hash_pids, DS.bucket_split = recording_hash, recording_split
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run10()
+                warm[cell] = time.perf_counter() - t0
+            finally:
+                H.hash_pids, DS.bucket_split = seeded_impl, split_impl
+            prof = profile_query(cell, run10)
+            sf10_info[cell] = {
+                "cold_s": cold[cell], "warm_s": warm[cell],
+                "peak_device_bytes": peak, "joins": joins,
+                "profile": prof,
+                "hand_kernel_launches": sum(sf10_launches[cell].values())}
+            log(f"{cell} rows match numpy: {len(rows)} rows, first "
+                f"{rows[:2]}; wall: cold {cold[cell] * 1e3:.1f} ms, warm "
+                f"{warm[cell] * 1e3:.1f} ms (one run); peak device memory "
+                f"{peak} bytes; hand-kernel launches "
+                f"{sf10_info[cell]['hand_kernel_launches']}; on {card}")
+            del tabs10, s10, rows
+        del host10, want10
+    require_late(any(j["grace_pairs"] for c, v in sf10_info.items()
+                     if c.endswith("default") for j in v["joins"]),
+                 "no SF10 query took the grace path at the default conf")
+    k25_call = k25_calls["q21"] or k25_calls["any"]
+    k9_seeded_call = k9_seeded_calls["q21"] or k9_seeded_calls["any"]
+    require("args" in k25_call and "args" in k9_seeded_call,
+            "phase 2j recorded no K25 or seeded K9 call")
+    log(f"K25 and K9 are checked at the largest split of "
+        f"{k25_call['cell']} and the largest seeded hash of "
+        f"{k9_seeded_call['cell']}")
+    del cols10, k25_calls, k9_seeded_calls
+    log(f"phase 2j (SF{SF10:g}) took {time.perf_counter() - t_sf10:.1f} s")
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -1755,6 +2001,7 @@ def main() -> int:
                  "K21": [clean_launches], "B.5": [clean_launches],
                  "K22": [rollup_launches], "K23": [rollup_launches],
                  "K24": [dist_launches],
+                 "K25": [sf10_launches],
                  }.get(k, [launches])
         if k == "K12":
             mains.append(rollup_launches)
@@ -1774,6 +2021,8 @@ def main() -> int:
                                          rollup_launches.items()},
              "launches_by_distributed_cell": {c: v[k] for c, v in
                                               dist_launches.items()},
+             "launches_by_sf10_cell": {c: v[k] for c, v in
+                                       sf10_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -2879,6 +3128,73 @@ def main() -> int:
           q18_bound_ms=b["bytes"] / HBM_BYTES_PER_S * 1e3,
           q18_rows=b["rows"], q18_lanes=b["lanes"])
 
+    # K25: the grace join's largest bucket split of Q21 at SF10 (default
+    # conf; of any SF10 cell where that took no grace path), as phase 2j's
+    # warm run called it
+    sb, so, sc = k25_call["args"]
+    got = DS.bucket_split(sb, so, sc)
+    ref = DS.bucket_split_plain(sb, so, sc)
+    require(len(got) == len(ref) and all(
+        (g is None) == (r is None) and (r is None or (
+            int(g.num_rows) == int(r.num_rows) and all(
+                same_bytes(a.data, b.data) and
+                torch.equal(a.validity, b.validity) and
+                (b.lengths is None or torch.equal(a.lengths, b.lengths))
+                for a, b in zip(g.columns, r.columns))))
+        for g, r in zip(got, ref)),
+        "K25 differs from its plain version at Q21's largest split")
+    layout = DS.bucket_layout(sc)
+    k25_idx = [so[start:start + cnt].to(torch.int64)
+               for _b, start, cnt, _cap in layout]
+
+    def k25_library():
+        return [t.index_select(0, i) for i in k25_idx for c in sb.columns
+                for t in (c.data, c.validity, c.lengths) if t is not None]
+
+    def k25_fn():
+        return DS.bucket_split(sb, so, sc)
+
+    k25 = dict(ms=cuda_ms(k25_fn), dev=device_ms(k25_fn),
+               enq=enqueue_ms(k25_fn),
+               plain=cuda_ms(lambda: DS.bucket_split_plain(sb, so, sc)),
+               lib=cuda_ms(k25_library),
+               bytes=DS.bucket_split_bytes(sb, sc),
+               lanes=sum(cap for _b, _s, _c, cap in layout))
+    log(f"K25 bucket_split at {k25_call['cell']}'s largest split: "
+        f"{int(sb.num_rows)} rows ({sb.padded_rows} padded), "
+        f"{len(sb.columns)} columns {[str(c.dtype) for c in sb.columns]}, "
+        f"{len(sc)} buckets ({len(layout)} non-empty), {k25['lanes']} output "
+        f"rows, {k25['bytes']} bytes (bound "
+        f"{k25['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms); device "
+        f"{_ms_text(k25['dev'])}, event {k25['ms']:.3f} ms, enqueue "
+        f"{k25['enq']:.3f} ms, plain {k25['plain']:.3f} ms, index_select "
+        f"{k25['lib']:.3f} ms")
+    # K9 from the grace seed at the same run's largest seeded call
+    kc, km, kseed = k9_seeded_call["args"]
+    require(torch.equal(H.hash_device_batch(kc, seed=kseed),
+                        H.hash_batch_plain(kc, kseed)) and
+            torch.equal(H.hash_pids(kc, km, seed=kseed),
+                        H.pmod(H.hash_batch_plain(kc, kseed), km)),
+            f"K9 from seed {kseed} differs from its plain version")
+    k9_seeded = dict(seed=kseed, m=km, rows=kc[0].data.shape[0],
+                     ms=cuda_ms(lambda: H.hash_pids(kc, km, seed=kseed)),
+                     plain=cuda_ms(lambda: H.pmod(
+                         H.hash_batch_plain(kc, kseed), km)))
+    log(f"K9 from seed {kseed} (pmod {km}) over {k9_seeded['rows']} rows "
+        f"equals its plain version; {k9_seeded['ms']:.3f} ms, plain "
+        f"{k9_seeded['plain']:.3f} ms")
+    entry("K25 bucket_split", "spark_rapids_tpu_torch/csrc/bucket.cu",
+          "spark_rapids_tpu/exec/joins.py:108",
+          k25["ms"] if k25["dev"] is None else k25["dev"], k25["plain"],
+          k25["lib"], k25["bytes"], k25["lanes"] * len(sb.columns),
+          FP32_PER_S, 0.0,
+          library_call="torch.index_select of each column's data, "
+          "validity and lengths by each bucket's slice of the order",
+          shape=f"{k25_call['cell']}'s largest grace split: "
+          f"{int(sb.num_rows)} rows, {len(sb.columns)} columns, "
+          f"{len(sc)} buckets", enqueue_ms=k25["enq"], event_ms=k25["ms"],
+          device_ms=k25["dev"], k9_seeded=k9_seeded)
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -2905,9 +3221,11 @@ def main() -> int:
                                              "warm_s": warm[cell],
                                              **dist_info[cell]}
                                       for cell in dist_runs},
+                      "sf10": sf10_info, "packed_upload": upload,
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))
+    require(not late, "phase 2j: " + "; ".join(late))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,9 +49,10 @@ def numpy_q1(hb):
     tax = c["l_tax"].data[keep]
     rf = c["l_returnflag"].data[keep, 0]
     ls = c["l_linestatus"].data[keep, 0]
+    codes = rf.astype(np.int64) * 256 + ls
     rows = []
-    for code in sorted(set((rf.astype(np.int64) * 256 + ls).tolist())):
-        g = (rf.astype(np.int64) * 256 + ls) == code
+    for code in np.unique(codes).tolist():
+        g = codes == code
         n = int(g.sum())
         dp = price[g] * (1.0 - disc[g])
         rows.append((chr(code // 256), chr(code % 256),
@@ -216,10 +217,25 @@ def _index(keys: np.ndarray, unique_keys: np.ndarray
     if len(unique_keys) == 0:
         return np.zeros(len(keys), np.int64), np.zeros(len(keys), bool)
     order = np.argsort(unique_keys, kind="stable")
-    pos = np.clip(np.searchsorted(unique_keys, keys, sorter=order), 0,
+    # search a sorted copy, not through the permutation (``sorter=``):
+    # one random read a step of the search instead of two
+    pos = np.clip(np.searchsorted(unique_keys[order], keys), 0,
                   len(unique_keys) - 1)
     at = order[pos]
     return at, unique_keys[at] == keys
+
+
+def _sorted_unique(a: np.ndarray, return_counts: bool = False):
+    """``np.unique(a)`` (and the counts) by one sort: NumPy 2.3's
+    hash-table ``unique`` is slow over tens of millions of distinct
+    values, such as SF10's 60,000,000 (order, supplier) pairs."""
+    s = np.sort(a)
+    first = np.ones(len(s), dtype=bool)
+    first[1:] = s[1:] != s[:-1]
+    if not return_counts:
+        return s[first]
+    starts = np.flatnonzero(first)
+    return s[first], np.diff(np.append(starts, len(s)))
 
 
 def _codes(*cols) -> np.ndarray:
@@ -611,9 +627,8 @@ def numpy_q21(tables, sizes):
     span = int(sk.max()) + 1 if len(sk) else 1
 
     def distinct_suppliers(rows):
-        pairs = np.unique(ok[rows] * span + sk[rows])
-        keys, n = np.unique(pairs // span, return_counts=True)
-        return keys, n
+        pairs = _sorted_unique(ok[rows] * span + sk[rows])
+        return _sorted_unique(pairs // span, return_counts=True)
 
     k_all, n_all = distinct_suppliers(np.ones(len(ok), bool))
     k_late, n_late = distinct_suppliers(late)

@@ -1,5 +1,6 @@
-// K9 — Spark's Murmur3 (x86_32, seed 42) of a batch's key columns, and
-// the hash partition id pmod(hash, n_out).
+// K9 — Spark's Murmur3 (x86_32) of a batch's key columns from a seed (42
+// for the exchanges, the grace join's per-level seeds for its buckets),
+// and the hash partition id pmod(hash, n_out).
 //
 // Replaces spark_rapids_tpu/utils/hashing.py:hash_int_jnp (200),
 // hash_long_jnp (207), hash_bytes_jnp (217), hash_device_column (242),
@@ -130,12 +131,12 @@ __device__ __forceinline__ uint32_t fold(const HashCol& col, long long i,
   }
 }
 
-__global__ void murmur3(HashCols cols, long long n, int n_out,
-                        int* __restrict__ hash_out,
+__global__ void murmur3(HashCols cols, long long n, uint32_t seed,
+                        int n_out, int* __restrict__ hash_out,
                         int* __restrict__ pid_out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t h = 42u;
+  uint32_t h = seed;
   for (int c = 0; c < cols.n; ++c) h = fold(cols.c[c], i, h);
   if (hash_out != nullptr) hash_out[i] = (int)h;
   if (pid_out != nullptr) {
@@ -147,11 +148,11 @@ __global__ void murmur3(HashCols cols, long long n, int n_out,
 }  // namespace
 
 // table: per column five int64 (data, validity, lengths or 0, dtype
-// code, string width); hash_out and/or pid_out may be NULL (pid_out
-// needs n_out >= 1)
+// code, string width); seed: the hash's starting value (its low 32
+// bits); hash_out and/or pid_out may be NULL (pid_out needs n_out >= 1)
 SRT_API int k9_murmur3(const long long* table, int ncols, long long n,
-                       int n_out, void* hash_out, void* pid_out,
-                       void* stream) {
+                       long long seed, int n_out, void* hash_out,
+                       void* pid_out, void* stream) {
   if (ncols < 1 || ncols > MAX_COLS ||
       (pid_out != nullptr && n_out < 1))
     return (int)cudaErrorInvalidValue;
@@ -170,7 +171,7 @@ SRT_API int k9_murmur3(const long long* table, int ncols, long long n,
   }
   if (n <= 0) return (int)cudaSuccess;
   murmur3<<<srt::blocks_for(n, srt::BLOCK), srt::BLOCK, 0,
-            (cudaStream_t)stream>>>(cols, n, n_out, (int*)hash_out,
-                                    (int*)pid_out);
+            (cudaStream_t)stream>>>(cols, n, (uint32_t)seed, n_out,
+                                    (int*)hash_out, (int*)pid_out);
   return (int)cudaGetLastError();
 }

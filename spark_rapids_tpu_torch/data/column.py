@@ -1,8 +1,14 @@
 """Columnar data plane.
 
-Counterpart of ``spark_rapids_tpu/data/column.py`` without pytrees and
-without the packed single-transfer upload (a JAX answer to remote-TPU
-round trips; a local card takes one asynchronous copy per array).
+Counterpart of ``spark_rapids_tpu/data/column.py`` without pytrees.
+An upload to a CUDA device is packed as the reference's is
+(``_pack_host``, ``packed_upload``): every array of the batch at an
+8-byte-aligned offset of one pinned host buffer, sent with one
+non-blocking copy, each column's tensors views of the device buffer
+(the reference's ``_unpack_fn`` slices and bitcasts; a torch view needs
+no kernel, so no layout cache and no byte-order self-check either).  The
+batch's row count rides at the end of the same buffer.  An upload to the
+CPU takes each array as it is staged, with no copy.
 
   * A host column is numpy data + optional validity (True = valid); a
     STRING host column holds a ``uint8[rows, width]`` byte matrix and
@@ -338,14 +344,97 @@ def _torch_of(np_dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=np_dtype)).dtype
 
 
+def _upload_arrays(batch: HostBatch, padded: int) -> List[tuple]:
+    """The arrays of an upload in the reference's order (a string
+    column's bytes, validity and lengths; any other column's data and
+    validity), each as ``(host array, padded shape, valid rows whose
+    complement is zeroed or None)``."""
+    out = []
+    for c in batch.columns:
+        valid = c.is_valid()
+        if c.dtype.is_string:
+            out += [(c.data, (padded, c.data.shape[1]), None),
+                    (valid, (padded,), None),
+                    (c.lengths.astype(np.int32, copy=False), (padded,),
+                     None)]
+        else:
+            out += [(c.data.astype(c.dtype.np_dtype, copy=False),
+                     (padded,), None if c.validity is None else valid),
+                    (valid, (padded,), None)]
+    return out
+
+
+def _pack_host(arrays: Sequence[tuple], pin: bool = False):
+    """Every array of ``arrays`` (``_upload_arrays``' triples) written
+    into one uint8 host tensor (pinned if ``pin``) at the reference's
+    layout: each array at the next 8-byte-aligned offset, zero-padded to
+    its padded shape, the gaps zero.  Returns the buffer and the layout,
+    ``((offset, shape, dtype.str), ...)``."""
+    layout, off = [], 0
+    for a, shape, _valid in arrays:
+        off = (off + 7) & ~7
+        layout.append((off, shape, a.dtype.str))
+        off += int(np.prod(shape, dtype=np.int64)) * a.dtype.itemsize
+    buf = torch.empty(max(off, 1), dtype=torch.uint8, pin_memory=pin)
+    view = buf.numpy()
+    end = 0
+    for (o, shape, _d), (a, _shape, valid) in zip(layout, arrays):
+        view[end:o] = 0
+        end = o + int(np.prod(shape, dtype=np.int64)) * a.dtype.itemsize
+        dst = view[o:end].view(a.dtype).reshape(shape)
+        if a.ndim == 0:  # a scalar (the row count)
+            dst[...] = a
+            continue
+        n = a.shape[0]
+        dst[:n] = a
+        if valid is not None:  # zero the invalid lanes: kernels stay
+            dst[:n][~valid] = 0  # deterministic
+        dst[n:] = 0
+    view[end:] = 0
+    return buf, tuple(layout)
+
+
+def _unpack(buf: torch.Tensor, layout) -> List[torch.Tensor]:
+    """Each array of ``layout`` as a view of ``buf`` (same dtype and
+    shape as its host array)."""
+    out = []
+    for off, shape, dtstr in layout:
+        dt = np.dtype(dtstr)
+        n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        out.append(buf[off:off + n].view(_torch_of(dt)).view(shape))
+    return out
+
+
+def packed_upload(arrays: Sequence[tuple],
+                  device: torch.device) -> List[torch.Tensor]:
+    """Upload ``arrays`` (``_upload_arrays``' triples) as ONE pinned
+    buffer and ONE non-blocking copy; returns each array's device view.
+    The pinned buffer comes from PyTorch's caching host allocator, which
+    keeps it from reuse until the copy has run."""
+    host, layout = _pack_host(arrays, pin=True)
+    return _unpack(host.to(device, non_blocking=True), layout)
+
+
 def host_to_device(batch: HostBatch, min_bucket_rows: int = 128,
                    device=None) -> DeviceBatch:
-    """Upload a host batch, padded to its row bucket."""
+    """Upload a host batch, padded to its row bucket: one packed copy to
+    a CUDA device, the staged arrays themselves on the CPU."""
     if device is None:
         raise ValueError("host_to_device needs an explicit device")
     device = torch.device(device)
     n = batch.num_rows
     padded = bucket_rows(n, min_bucket_rows)
+    if device.type == "cuda":
+        arrays = _upload_arrays(batch, padded)
+        dev = packed_upload(
+            arrays + [(np.asarray(n, dtype=np.int32), (), None)], device)
+        cols, i = [], 0
+        for c in batch.columns:
+            k = 3 if c.dtype.is_string else 2
+            cols.append(DeviceColumn(c.dtype, dev[i], dev[i + 1],
+                                     dev[i + 2] if k == 3 else None))
+            i += k
+        return DeviceBatch(batch.schema, cols, dev[-1])
     cols: List[DeviceColumn] = []
     for c in batch.columns:
         valid_np = c.is_valid()

@@ -10,18 +10,40 @@ K4 compaction for semi/anti joins.  The output capacity is
 ``bucket_rows(total)`` after one host read of the total, the reference's
 own sync.
 
-Each join records in the context's metrics how many batch pairs it
+A shuffled join whose side reaches a partition as more than one batch
+joins out of core by grace hash bucketing (reference ``_bucket_side``,
+``_take_bucket``, ``_join_grace``, 108-237): both sides are split by
+Murmur3 of their keys from a seed of the level
+(``0x5D1E_995 + 1_000_003 * level``, never the exchange's 42), ``pmod
+m``, with ``m`` doubling from 2 while ``m * batchSizeBytes`` is below the
+pair's bytes, up to 64 (K9 seeded, K10's order, one read back of the m
+counts, K25's split); equal keys share a bucket, so the buckets 0..m-1
+join pairwise for every join type, and a bucket whose estimated bytes
+pass twice the target is split again at the next level (at most 6, and
+only while it is smaller than its parent pair).  The buckets, levels and
+pair order are the reference's; the rows come out in bucket order.
+
+Each join records in the context's metrics how many partition pairs it
 joined and how many batches each side brought
 (``TpuHashJoinExec.numJoinedPairs``, ``.numLeftBatches``,
-``.numRightBatches``).
+``.numRightBatches``), and for the grace path the bucket pairs joined,
+the buckets split and the deepest level (``.numGracePairs``,
+``.numGraceBuckets``, ``.graceMaxLevel``); a shuffled join also appends
+one record a partition to ``ctx.joins`` (its sides' batches and bytes
+and those grace figures).
 
-Left out, for later slices: grace bucketing of sides that arrive as more
-than one batch (``_join_grace``, ``_bucket_side``; such a partition
-raises ``NotImplementedError``), the retry/split wrappers and OOM
-injection, the broadcast registry (``exec/broadcast.py``: the build side
-is built once per execution and not cached across queries), the AQE
-hooks, ``join_static``, residual join conditions, and casts between key
-types that differ.
+Differences from the reference's grace join: no spill catalog (buckets
+stay device batches until the spill tier, ROADMAP A6; each source batch
+is dropped once split, so a side is held about once plus its buckets),
+and no ``pad_device_batch`` of each level's pairs to one shape (the
+reference pads only so that XLA compiles once a level; eager PyTorch
+compiles nothing per shape, and the rows are the same without it).
+
+Left out, for later slices: the retry/split wrappers and OOM injection,
+the broadcast registry (``exec/broadcast.py``: the build side is built
+once per execution and not cached across queries), the AQE hooks,
+``join_static``, residual join conditions, and casts between key types
+that differ.
 """
 from __future__ import annotations
 
@@ -29,10 +51,13 @@ from typing import List
 
 import torch
 
+from ..config import BATCH_SIZE_BYTES
 from ..data.column import DeviceBatch, bucket_rows, host_to_device
 from ..ops.expression import Expression, as_device_column
 from ..ops.kernels import join as J
 from ..ops.kernels.gather import compact
+from ..shuffle import device_shuffle as DS
+from ..utils import hashing
 from .base import (DevicePartitionedData, RequireSingleBatch, TargetSize,
                    TpuExec)
 from .coalesce import concat_device_batches
@@ -40,6 +65,18 @@ from .coalesce import concat_device_batches
 _PAIRS = "TpuHashJoinExec.numJoinedPairs"
 _LEFT = "TpuHashJoinExec.numLeftBatches"
 _RIGHT = "TpuHashJoinExec.numRightBatches"
+_GRACE_PAIRS = "TpuHashJoinExec.numGracePairs"
+_GRACE_BUCKETS = "TpuHashJoinExec.numGraceBuckets"
+_GRACE_LEVEL = "TpuHashJoinExec.graceMaxLevel"
+
+#: the grace buckets' seed at level 0 and its step a level (the
+#: exchange's rows already share ``h42 % P``, so its seed would put them
+#: all in one bucket whenever m and P share a factor)
+GRACE_SEED = 0x5D1E_995
+GRACE_SEED_STEP = 1_000_003
+#: buckets a split takes at most, and the deepest recursion level
+GRACE_MAX_BUCKETS = 64
+GRACE_MAX_LEVEL = 6
 
 
 class TpuHashJoinExec(TpuExec):
@@ -52,6 +89,7 @@ class TpuHashJoinExec(TpuExec):
         self.left_keys = plan.left_keys
         self.right_keys = plan.right_keys
         self._schema = plan.schema
+        self._empties = {}
 
     @property
     def schema(self):
@@ -94,27 +132,98 @@ class TpuHashJoinExec(TpuExec):
         return self._expand(bucket_rows(total), total, lb, rb, pr, e)
 
     def _empty(self, side: int, ctx) -> DeviceBatch:
+        """A batch of no rows for ``side``, made once (the grace path
+        joins many buckets that are empty on one side)."""
         from ..plan.physical import _empty_batch
 
-        return host_to_device(_empty_batch(self.children[side].schema),
-                              device=ctx.device)
+        key = (side, ctx.device)
+        if key not in self._empties:
+            self._empties[key] = host_to_device(
+                _empty_batch(self.children[side].schema), device=ctx.device)
+        return self._empties[key]
 
-    def _one_batch(self, batches: List[DeviceBatch], side: int, ctx,
-                   pid: int) -> DeviceBatch:
-        if not batches:
+    # ------------------------------------------------------------------
+    # out of core: grace hash bucketing
+    # ------------------------------------------------------------------
+    def _bucket_side(self, batches: List[DeviceBatch],
+                     key_exprs: List[Expression], m: int, seed: int):
+        """Split every batch of ``batches`` into ``m`` key-hash buckets
+        (K9 from ``seed``, pmod ``m``; K10's order; one read back of the
+        m counts; K25), taking each batch out of the list as it is split
+        so that it is freed.  Returns the pieces of each bucket and each
+        bucket's row total."""
+        buckets: List[List[DeviceBatch]] = [[] for _ in range(m)]
+        totals = [0] * m
+        while batches:
+            b = batches.pop(0)
+            pids = hashing.hash_pids(self._keys_of(b, key_exprs), m,
+                                     seed=seed)
+            parts, counts = DS.split_by_bucket(b, pids, m)
+            for i, (part, cnt) in enumerate(zip(parts, counts)):
+                if cnt:
+                    buckets[i].append(part)
+                    totals[i] += cnt
+        return buckets, totals
+
+    def _take_bucket(self, parts: List[DeviceBatch], side: int,
+                     ctx) -> DeviceBatch:
+        """One batch of ``parts`` (a bucket's pieces, or a side of at
+        most one batch): their concat, or an empty batch."""
+        if not parts:
             return self._empty(side, ctx)
-        if len(batches) > 1:
-            raise NotImplementedError(
-                f"partition {pid}: the {('left', 'right')[side]} side of "
-                f"{self.describe()} arrived as {len(batches)} batches; "
-                "grace (hash-bucketed) joins are not ported yet (raise "
-                "spark.rapids.tpu.sql.batchSizeBytes)")
-        return batches[0]
+        return concat_device_batches(parts) if len(parts) > 1 else parts[0]
+
+    def _join_grace(self, l_batches: List[DeviceBatch],
+                    r_batches: List[DeviceBatch], total_bytes: int,
+                    target: int, level: int, ctx, stats: dict):
+        """Join sides too big for one batch pair bucket by bucket: both
+        split into the same ``m`` buckets, each pair joined on its own, a
+        bucket still over twice the target split again one level down
+        (in place, before the next bucket).  Consumes both lists."""
+        m = 2
+        while m * target < total_bytes and m < GRACE_MAX_BUCKETS:
+            m <<= 1
+        seed = GRACE_SEED + GRACE_SEED_STEP * level
+        l_bytes = sum(b.device_bytes() for b in l_batches)
+        r_bytes = total_bytes - l_bytes
+        l_buckets, l_counts = self._bucket_side(l_batches, self.left_keys,
+                                                m, seed)
+        r_buckets, r_counts = self._bucket_side(r_batches, self.right_keys,
+                                                m, seed)
+        ctx.add_metric(_GRACE_BUCKETS, m)
+        ctx.metrics[_GRACE_LEVEL] = max(ctx.metrics.get(_GRACE_LEVEL, 0),
+                                        level)
+        stats["grace_buckets"] += m
+        stats["grace_max_level"] = max(stats["grace_max_level"] or 0, level)
+        l_bpr = l_bytes / max(sum(l_counts), 1)
+        r_bpr = r_bytes / max(sum(r_counts), 1)
+        for i in range(m):
+            if not l_buckets[i] and not r_buckets[i]:
+                continue
+            lb = self._take_bucket(l_buckets[i], 0, ctx)
+            rb = self._take_bucket(r_buckets[i], 1, ctx)
+            l_buckets[i] = r_buckets[i] = None
+            est = l_counts[i] * l_bpr + r_counts[i] * r_bpr
+            if est > 2 * target and level < GRACE_MAX_LEVEL \
+                    and est < total_bytes:
+                # still too big but shrinking: split this pair again
+                # (est == total_bytes means one dominant key, which no
+                # hash splits: join it as it is)
+                pair_bytes = lb.device_bytes() + rb.device_bytes()
+                sides = [lb], [rb]
+                del lb, rb
+                yield from self._join_grace(*sides, pair_bytes, target,
+                                            level + 1, ctx, stats)
+            else:
+                ctx.add_metric(_GRACE_PAIRS)
+                stats["grace_pairs"] += 1
+                yield self._join(lb, rb)
 
 
 class TpuShuffledHashJoinExec(TpuHashJoinExec):
-    """Both sides co-partitioned by the exchanges; joins one batch pair
-    per partition."""
+    """Both sides co-partitioned by the exchanges; joins each partition's
+    batch pair, or its bucket pairs where a side brought several
+    batches."""
 
     @property
     def children_coalesce_goal(self):
@@ -125,6 +234,7 @@ class TpuShuffledHashJoinExec(TpuHashJoinExec):
         right = self.children[1].execute_columnar(ctx)
         if left.n_partitions != right.n_partitions:
             raise ValueError("a shuffled join needs co-partitioned sides")
+        target = ctx.conf.get(BATCH_SIZE_BYTES)
 
         def make(pid):
             def it():
@@ -132,10 +242,23 @@ class TpuShuffledHashJoinExec(TpuHashJoinExec):
                 r_batches = list(right.iterator(pid))
                 ctx.add_metric(_LEFT, len(l_batches))
                 ctx.add_metric(_RIGHT, len(r_batches))
-                lb = self._one_batch(l_batches, 0, ctx, pid)
-                rb = self._one_batch(r_batches, 1, ctx, pid)
                 ctx.add_metric(_PAIRS)
-                yield self._join(lb, rb)
+                l_bytes = sum(b.device_bytes() for b in l_batches)
+                r_bytes = sum(b.device_bytes() for b in r_batches)
+                stats = {"join": self.describe(), "exec": id(self),
+                         "partition": pid, "left_batches": len(l_batches),
+                         "right_batches": len(r_batches),
+                         "left_bytes": l_bytes, "right_bytes": r_bytes,
+                         "grace_pairs": 0, "grace_buckets": 0,
+                         "grace_max_level": None}
+                ctx.joins.append(stats)
+                if len(l_batches) <= 1 and len(r_batches) <= 1:
+                    yield self._join(self._take_bucket(l_batches, 0, ctx),
+                                     self._take_bucket(r_batches, 1, ctx))
+                    return
+                yield from self._join_grace(l_batches, r_batches,
+                                            l_bytes + r_bytes, target, 0,
+                                            ctx, stats)
             return it
 
         return DevicePartitionedData(

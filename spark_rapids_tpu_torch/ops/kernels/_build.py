@@ -120,13 +120,16 @@ KERNELS: Dict[str, tuple] = {
     }),
     "hashing": ("hashing.cu", {
         # no launch for an empty batch
-        "k9_murmur3": ([P, I, Q, I, P, P, P], 1),
+        "k9_murmur3": ([P, I, Q, Q, I, P, P, P], 1),
     }),
     "shuffle": ("shuffle.cu", {
         "k10_build": ([P, P, Q, I, P, P, P, P, P], 3),
         "k10_counts_wide": ([P, P, Q, I, P, P, P, P], 2),
         "k10_slice": ([P, I, Q, Q, Q, P], 1),
         "k24_tiles": ([P, I, Q, P, P, P, I, Q, P, P], 1),
+    }),
+    "bucket": ("bucket.cu", {
+        "k25_bucket_split": ([P, I, I, Q, P, P], 1),
     }),
     "range_partition": ("range_partition.cu", {
         "k11_range_pids": ([P, I, Q, P, I, P, P], 1),
@@ -369,6 +372,15 @@ def ptr(t: Optional[torch.Tensor]):
     if not t.is_contiguous():
         raise ValueError("kernel arguments must be contiguous")
     return t.data_ptr()
+
+
+def device_table(words, device: torch.device) -> torch.Tensor:
+    """A kernel's table of int64 words on ``device``, sent from pinned
+    memory with a non-blocking copy where that is a CUDA device."""
+    t = torch.tensor(list(words), dtype=torch.int64)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def launch(counter: LaunchCounter, lib: ctypes.CDLL, fn: str, *args,

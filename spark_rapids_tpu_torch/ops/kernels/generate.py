@@ -81,13 +81,6 @@ def _row_stride(t: torch.Tensor) -> int:
     return t.stride(0) * t.element_size()
 
 
-def _table(words: Sequence[int], device: torch.device) -> torch.Tensor:
-    t = torch.tensor(list(words), dtype=torch.int64)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def _contig_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` with contiguous rows; a broadcast (stride-0) view is kept."""
     if t.stride(0) == 0 and (t.dim() == 1 or t.stride(1) == 1):
@@ -224,7 +217,7 @@ def explode(columns: List[DeviceColumn], num_rows: torch.Tensor,
                            0, 0, 0, 0, 0]
     out.append(o)
     n_entries = len(words) // K22_WORDS
-    table = _table(words + elem_words, dev)
+    table = B.device_table(words + elem_words, dev)
     nr = num_rows.to(torch.int32).contiguous()
     B.launch(EXPLODE_LAUNCHES, kernels.library("generate"), "k22_explode",
              B.ptr(table), n_entries, k, p, B.ptr(nr),

@@ -31,7 +31,11 @@ statistics (``adaptive/``); spans, events and ``finish_query``
 (``telemetry/``); cancellation (``scheduler/``); the collective deadline,
 guarded calls and drain speculation (``elastic.py``); the task thread
 pool (the leaves drain one partition at a time).  Aggregates run in the
-partial and final modes the port's planner emits.
+partial and final modes the port's planner emits; a global (keyless)
+final aggregate over rows gathered to shard 0 runs there alone, the
+other shards yielding no rows, so that the runner returns the one row
+``collect()`` returns (ROADMAP C.13: the reference's runner runs it on
+every shard and returns a row of nulls for each empty one).
 """
 from __future__ import annotations
 
@@ -495,7 +499,15 @@ class DistributedRunner:
                 child = self._gather_single(child, op.describe())
             return [op._compute(b) for b in child]
         if isinstance(op, TpuHashAggregateExec):
-            return [op.compute_batch(b) for b in self._lower(kids[0], env)]
+            child = self._lower(kids[0], env)
+            if not op.keys and op.mode != "partial" and self._is_single(
+                    self._source_partitioning(kids[0])):
+                # a global aggregate over rows gathered to shard 0: one row
+                # there, as collect() gives, and no row of nulls from each
+                # empty shard (C.13; the reference runner returns n rows)
+                return [op.compute_batch(child[0])] + [
+                    self._empty_like(op.schema, b.device) for b in child[1:]]
+            return [op.compute_batch(b) for b in child]
         if isinstance(op, (B.TpuProjectExec, B.TpuFilterExec,
                            TpuGenerateExec)):
             return [op._compute(b) for b in self._lower(kids[0], env)]
@@ -503,6 +515,12 @@ class DistributedRunner:
             return [self._concat_compact(op._compute(b), op.schema)
                     for b in self._lower(kids[0], env)]
         raise DistributedUnsupported(f"cannot lower {op.describe()}")
+
+    def _empty_like(self, schema, device) -> DeviceBatch:
+        """A batch of no rows on ``device``, at the runner's bucket."""
+        from ..plan.physical import _empty_batch
+
+        return host_to_device(_empty_batch(schema), self.min_bucket, device)
 
     @staticmethod
     def _env_key(ref) -> str:

@@ -30,13 +30,16 @@ class ExecContext:
     integer metrics (``<exec>.<metric>`` -> value) and the row placement
     of each multi-partition exchange (``placements``: one dict per
     exchange with its description, the rows written and the rows each
-    output partition yielded)."""
+    output partition yielded), and one record per shuffled join and
+    partition (``joins``: the batches each side brought and the grace
+    path's bucket pairs, buckets and deepest level)."""
 
     def __init__(self, conf, device):
         self.conf = conf
         self.device = device
         self.metrics: Dict[str, int] = {}
         self.placements: List[dict] = []
+        self.joins: List[dict] = []
 
     def add_metric(self, key: str, value: int = 1) -> None:
         self.metrics[key] = self.metrics.get(key, 0) + value

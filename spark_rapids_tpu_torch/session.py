@@ -66,6 +66,8 @@ class Session:
         self.last_metrics: Dict[str, int] = {}
         #: row placement of its exchanges (ExecContext.placements)
         self.last_placements: List[dict] = []
+        #: its shuffled joins' records (ExecContext.joins)
+        self.last_joins: List[dict] = []
 
     def create_dataframe(self, data, schema=None,
                          n_partitions: int = 2) -> DataFrame:
@@ -102,6 +104,7 @@ class Session:
         out = collect_batches(phys.execute(ctx), phys.schema)
         self.last_metrics = dict(ctx.metrics)
         self.last_placements = list(ctx.placements)
+        self.last_joins = list(ctx.joins)
         return out
 
     def explain(self, plan: L.LogicalPlan, mode: str = "ALL") -> str:

@@ -20,6 +20,13 @@ The wrappers launch ``csrc/shuffle.cu`` for CUDA tensors and take the
 plain PyTorch version only for CPU tensors, unless ``kernels=`` names the
 libraries to launch.
 
+K25 (``bucket_split``) is the grace join's bucket split
+(``spark_rapids_tpu/exec/joins.py:108 _bucket_side``): from K10's order
+of a batch by key-hash bucket and the bucket counts read back once, one
+launch writes every column of every non-empty bucket into a dense batch
+of its own at ``bucket_rows(count)`` rows, the padding zero and invalid.
+``split_by_bucket`` chains the two.
+
 ``ShuffleStats`` keeps ``deviceBytes`` and ``collectiveTimeNs``.  Not
 ported, for later slices: the host-staged path and its CRC stamping
 (``shuffle.mode=host`` needs the spill tier, ROADMAP A6, and raises),
@@ -34,7 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..data.column import DeviceBatch, DeviceColumn
+from ..data.column import DeviceBatch, DeviceColumn, bucket_rows
 from ..ops.kernels import _build as B
 from ..ops.kernels import gather as G
 from ..ops.kernels import segment as S
@@ -45,6 +52,13 @@ BUILD_LAUNCHES = B.LaunchCounter("packed_build")
 SLICE_LAUNCHES = B.LaunchCounter("packed_slice")
 #: CUDA kernels launched by K24
 TILE_LAUNCHES = B.LaunchCounter("exchange_tiles")
+#: CUDA kernels launched by K25
+SPLIT_LAUNCHES = B.LaunchCounter("bucket_split")
+#: int64 words of a column and of a bucket in K25's table
+#: (csrc/bucket.cu COL_WORDS, BUCKET_WORDS); a bucket's count is its
+#: third word
+SPLIT_COL_WORDS = 4
+SPLIT_BUCKET_WORDS = 4
 
 #: the widest fan-out of the shared-memory build (one thread per bucket)
 MAX_SHARED_FANOUT = 255
@@ -366,4 +380,137 @@ def exchange_tiles_bytes(batch: DeviceBatch, tiles: Sequence[DeviceColumn],
         row = G._row_bytes(c.data) + 1 + (4 if c.lengths is not None else 0)
         out = G._row_bytes(t.data) + 1 + (4 if t.lengths is not None else 0)
         total += read * row + lanes * out
+    return total
+
+
+# ---------------------------------------------------------------------------
+# K25: the grace join's bucket split
+# ---------------------------------------------------------------------------
+def bucket_layout(counts: Sequence[int], min_bucket_rows: int = 128
+                  ) -> List[Tuple[int, int, int, int]]:
+    """``(bucket, start, count, capacity)`` of every non-empty bucket, from
+    the host counts of K10's order: a bucket's rows start where the lower
+    buckets' end, and its batch holds ``bucket_rows(count)`` rows (the
+    reference's ``slice_device_batch`` of the compacted bucket)."""
+    out, start = [], 0
+    for b, cnt in enumerate(counts):
+        if cnt:
+            out.append((b, start, cnt, bucket_rows(cnt, min_bucket_rows)))
+        start += cnt
+    return out
+
+
+def _take_rows(t: torch.Tensor, idx: torch.Tensor, cap: int) -> torch.Tensor:
+    """``t``'s rows ``idx`` at the front of ``cap`` zeroed rows."""
+    out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    out[:idx.shape[0]] = t.index_select(0, idx)
+    return out
+
+
+def bucket_split_plain(batch: DeviceBatch, order: torch.Tensor,
+                       counts: Sequence[int], min_bucket_rows: int = 128
+                       ) -> List[Optional[DeviceBatch]]:
+    """Plain version of K25: each non-empty bucket built by
+    ``index_select`` of the order's slice, zero and invalid past its
+    count; None for an empty bucket."""
+    out: List[Optional[DeviceBatch]] = [None] * len(counts)
+    dev = order.device
+    for b, start, cnt, cap in bucket_layout(counts, min_bucket_rows):
+        idx = order[start:start + cnt].to(torch.int64)
+        cols = [DeviceColumn(
+            c.dtype, _take_rows(c.data, idx, cap),
+            _take_rows(c.validity, idx, cap),
+            None if c.lengths is None
+            else _take_rows(c.lengths.to(torch.int32), idx, cap))
+            for c in batch.columns]
+        out[b] = DeviceBatch(batch.schema, cols, torch.tensor(
+            cnt, dtype=torch.int32, device=dev))
+    return out
+
+
+def bucket_split(batch: DeviceBatch, order: torch.Tensor,
+                 counts: Sequence[int], kernels: Optional[B.Kernels] = None,
+                 min_bucket_rows: int = 128) -> List[Optional[DeviceBatch]]:
+    """K25: every column of ``batch`` gathered into one dense batch per
+    non-empty bucket, in one launch: bucket ``b``'s row ``j`` is the
+    batch's row ``order[starts[b] + j]`` for ``j < counts[b]``, and zero
+    and invalid past it, at ``bucket_rows(counts[b])`` rows.  ``order`` is
+    K10's ``partition_order`` of the rows' bucket ids, ``counts`` its
+    counts as host ints (at most 64 buckets).  None for an empty
+    bucket."""
+    kernels = B.kernels_for(order, kernels)
+    if kernels is None:
+        return bucket_split_plain(batch, order, counts, min_bucket_rows)
+    layout = bucket_layout(counts, min_bucket_rows)
+    out: List[Optional[DeviceBatch]] = [None] * len(counts)
+    if not layout:
+        return out
+    dev = order.device
+    srcs, words = [], []
+    for c in batch.columns:
+        data = c.data.contiguous()
+        valid = c.validity.contiguous()
+        lengths = None if c.lengths is None else \
+            c.lengths.to(torch.int32).contiguous()
+        srcs.append((data, valid, lengths))
+        words += [B.ptr(data), B.ptr(valid), B.ptr(lengths) or 0,
+                  G._row_bytes(data)]
+    lane = 0
+    for _b, start, cnt, cap in layout:
+        words += [lane, start, cnt, cap]
+        lane += cap
+    bucket_cols = []
+    for _b, _start, _cnt, cap in layout:
+        cols = []
+        for c, (data, _valid, lengths) in zip(batch.columns, srcs):
+            o = DeviceColumn(
+                c.dtype, torch.empty((cap,) + tuple(data.shape[1:]),
+                                     dtype=data.dtype, device=dev),
+                torch.empty(cap, dtype=torch.bool, device=dev),
+                None if lengths is None else
+                torch.empty(cap, dtype=torch.int32, device=dev))
+            cols.append(o)
+            words += [B.ptr(o.data), B.ptr(o.validity),
+                      B.ptr(o.lengths) or 0]
+        bucket_cols.append(cols)
+    table = B.device_table(words, dev)
+    # each bucket's row count: its count word of the table
+    at = SPLIT_COL_WORDS * len(batch.columns) + 2
+    num_rows = table[at:at + SPLIT_BUCKET_WORDS * len(layout):
+                     SPLIT_BUCKET_WORDS].to(torch.int32)
+    for i, ((b, _s, _c, _cap), cols) in enumerate(zip(layout, bucket_cols)):
+        out[b] = DeviceBatch(batch.schema, cols, num_rows[i])
+    order = order.to(torch.int32).contiguous()
+    B.launch(SPLIT_LAUNCHES, kernels.library("bucket"), "k25_bucket_split",
+             B.ptr(table), len(batch.columns), len(layout), lane,
+             B.ptr(order), kernels.stream(order))
+    return out
+
+
+def split_by_bucket(batch: DeviceBatch, pids: torch.Tensor, m: int,
+                    kernels: Optional[B.Kernels] = None,
+                    min_bucket_rows: int = 128):
+    """``batch``'s rows split by their bucket ids ``pids`` (in ``[0,
+    m)``): K10's stable order by bucket, ONE host read of all ``m``
+    counts, then K25.  Returns ``(buckets, counts)``: a batch or None per
+    bucket, and the counts as host ints."""
+    order, counts, _starts = partition_order(pids, batch.num_rows, m,
+                                             kernels)
+    counts = counts.cpu().tolist()
+    return bucket_split(batch, order, counts, kernels,
+                        min_bucket_rows), counts
+
+
+def bucket_split_bytes(batch: DeviceBatch, counts: Sequence[int],
+                       min_bucket_rows: int = 128) -> int:
+    """Bytes K25 must move: each real row's data, validity and lengths
+    read once and written once, its 4-byte order entry read, and every
+    padding row of the outputs written once."""
+    per_row = sum(G._row_bytes(c.data) + 1 +
+                  (4 if c.lengths is not None else 0)
+                  for c in batch.columns)
+    total = 0
+    for _b, _start, cnt, cap in bucket_layout(counts, min_bucket_rows):
+        total += cnt * (2 * per_row + 4) + (cap - cnt) * per_row
     return total

@@ -1,10 +1,13 @@
-"""K9 — Spark's Murmur3 (x86_32, seed 42) of a batch's key columns.
+"""K9 — Spark's Murmur3 (x86_32) of a batch's key columns, from a seed.
 
 Counterpart of ``spark_rapids_tpu/utils/hashing.py``: ``hash_int_jnp``
 (200), ``hash_long_jnp`` (207), ``hash_bytes_jnp`` (217),
 ``hash_device_column`` (242), ``hash_device_batch`` (269) and ``pmod``
 (280), so hash partitioning places every row where the reference does.
-The hash folds over the key columns in order, starting from 42:
+The hash folds over the key columns in order, starting from ``seed``
+(42, Spark's, for every exchange; the grace join's buckets take a seed of
+their own for each recursion level, as the reference's ``_bucket_side``
+does):
 
   * int8, int16, int32, bool and date32 as hashInt of the value
     sign-extended to 32 bits; int64 and timestamp as hashLong;
@@ -131,10 +134,12 @@ def _fold_plain(col: DeviceColumn, h: torch.Tensor) -> torch.Tensor:
     return torch.where(col.validity, out, h)
 
 
-def hash_batch_plain(cols: Sequence[DeviceColumn]) -> torch.Tensor:
+def hash_batch_plain(cols: Sequence[DeviceColumn],
+                     seed: int = SEED) -> torch.Tensor:
     """Plain version of K9's hash: int32[n]."""
     n = cols[0].data.shape[0]
-    h = torch.full((n,), SEED, dtype=torch.int64, device=cols[0].data.device)
+    h = torch.full((n,), seed & M32, dtype=torch.int64,
+                   device=cols[0].data.device)
     for c in cols:
         h = _fold_plain(c, h)
     return torch.where(h >= 2 ** 31, h - 2 ** 32, h).to(torch.int32)
@@ -172,7 +177,7 @@ def _descriptors(cols: Sequence[DeviceColumn]):
     return (ctypes.c_longlong * len(desc))(*desc), keep
 
 
-def _launch(cols, n_out: int, want_hash: bool, kernels):
+def _launch(cols, n_out: int, want_hash: bool, kernels, seed: int):
     n = cols[0].data.shape[0]
     dev = cols[0].data.device
     # ``_keep`` holds the tensors behind the table's addresses through
@@ -181,28 +186,31 @@ def _launch(cols, n_out: int, want_hash: bool, kernels):
     h = torch.empty(n, dtype=torch.int32, device=dev) if want_hash else None
     pids = torch.empty(n, dtype=torch.int32, device=dev) if n_out else None
     B.launch(HASH_LAUNCHES, kernels.library("hashing"), "k9_murmur3",
-             table, len(cols), n, n_out, B.ptr(h), B.ptr(pids),
+             table, len(cols), n, seed & M32, n_out, B.ptr(h), B.ptr(pids),
              kernels.stream(cols[0].data), launched=None if n else 0)
     return h, pids
 
 
 def hash_device_batch(cols: Sequence[DeviceColumn],
-                      kernels: Optional[B.Kernels] = None) -> torch.Tensor:
-    """K9: the Murmur3 hash (int32[n]) of every row of ``cols``, bit for
-    bit the reference's ``hash_device_batch``."""
+                      kernels: Optional[B.Kernels] = None,
+                      seed: int = SEED) -> torch.Tensor:
+    """K9: the Murmur3 hash (int32[n]) of every row of ``cols`` from
+    ``seed``, bit for bit the reference's ``hash_device_batch``."""
     kernels = B.kernels_for(cols[0].data, kernels)
     if kernels is None:
-        return hash_batch_plain(cols)
-    return _launch(cols, 0, True, kernels)[0]
+        return hash_batch_plain(cols, seed)
+    return _launch(cols, 0, True, kernels, seed)[0]
 
 
 def hash_pids(cols: Sequence[DeviceColumn], n_out: int,
-              kernels: Optional[B.Kernels] = None) -> torch.Tensor:
+              kernels: Optional[B.Kernels] = None,
+              seed: int = SEED) -> torch.Tensor:
     """K9: ``pmod(hash, n_out)`` of every row, the partition of each row
-    under ``HashPartitioning(cols, n_out)`` (int32[n])."""
+    under ``HashPartitioning(cols, n_out)`` (int32[n]); the grace join
+    passes its level's ``seed``."""
     if n_out < 1:
         raise ValueError(f"n_out must be positive, got {n_out}")
     kernels = B.kernels_for(cols[0].data, kernels)
     if kernels is None:
-        return pmod(hash_batch_plain(cols), n_out)
-    return _launch(cols, n_out, False, kernels)[1]
+        return pmod(hash_batch_plain(cols, seed), n_out)
+    return _launch(cols, n_out, False, kernels, seed)[1]

@@ -11,7 +11,9 @@ name the same execs (Q3's customer Filter -> Project fused into one
 segment in both, as the reference's default conf plans it; with fusion
 off in both, the unfused plan), and each join saw one batch per side.
 One DataFrame-level join of each other type (left, right, full, anti) is
-held against the reference as well."""
+held against the reference as well.  Q4 at 1,024-row reader batches and
+a 1-byte ``batchSizeBytes`` (every join side several batches, the grace
+join) returns the reference's rows too."""
 import re
 
 import numpy as np
@@ -161,14 +163,28 @@ def test_size_estimate_matches_reference(frames, q):
         assert got == want
 
 
-def test_join_refuses_a_multi_batch_side():
-    """A join side that reaches the join as several batches must fail
-    loudly until grace joins are ported."""
-    sess = Session({"spark.rapids.tpu.sql.reader.batchSizeRows": 1024,
-                    "spark.rapids.tpu.sql.batchSizeBytes": 1,
-                    "spark.rapids.tpu.shuffle.targetBatchRows": 0,
-                    "spark.rapids.tpu.sql.broadcastSizeThreshold": 0},
-                   device="cpu")
-    tables = tpch_datagen.dataframes(sess, sf=SF, seed=3, query=4)
-    with pytest.raises(NotImplementedError, match="grace"):
-        tpch.q4(tables).collect()
+def test_q4_multi_batch_sides_join_by_grace():
+    """Join sides that reach the join as several batches a partition join
+    bucket by bucket (the grace join) and return the reference's rows."""
+    conf = {"spark.rapids.tpu.sql.reader.batchSizeRows": 1024,
+            "spark.rapids.tpu.sql.batchSizeBytes": 1,
+            "spark.rapids.tpu.shuffle.targetBatchRows": 0,
+            "spark.rapids.tpu.sql.broadcastSizeThreshold": 0}
+    ref_tables = to_reference_tables(tpch_datagen.tables(4, sf=SF, seed=3))
+    jsess = jsrt.Session(conf)
+    jt = {}
+    for name, (fields, arrays) in ref_tables.items():
+        schema = JT.Schema([JT.Field(n, JT.from_name(t)) for n, t in fields])
+        jt[name] = jsess.create_dataframe(
+            {n: arrays[n] for n, _ in fields}, schema)
+    want = jtpch.q4(jt).collect()
+    sess = Session(conf, device="cpu")
+    tables = {name: sess.create_dataframe(b)
+              for name, b in from_reference_tables(ref_tables).items()}
+    got = tpch.q4(tables).collect()
+    m = sess.last_metrics
+    assert m["TpuHashJoinExec.numLeftBatches"] > m[
+        "TpuHashJoinExec.numJoinedPairs"]
+    assert m["TpuHashJoinExec.numGracePairs"] > 0
+    assert m["TpuHashJoinExec.graceMaxLevel"] >= 1
+    assert got == want and len(got) == 5

@@ -1,0 +1,162 @@
+"""K25 (the grace join's bucket split, ``csrc/bucket.cu``) and K9 from a
+seed (``csrc/hashing.cu``), built for the CPU with the host C++ compiler
+against ``csrc/emulator/cuda_runtime.h``
+(``test_torch_kernels_emulated._build_emulated``) and held against their
+plain PyTorch versions on the same inputs.
+
+Shapes: 700 logical rows padded to 1,024 (the padding rows follow the
+last row and belong to no bucket), over every column type with nulls
+(one-byte to eight-byte elements, string matrices 6 and 13 bytes wide);
+bucket ids from K9 with the grace seeds, pmod m, for m = 1, 2, 7 and 64
+(so some buckets are empty at m = 64), and a draw that leaves most of 7
+buckets empty; K10's emulated order and counts feed K25.  Every bucket
+is compared to the byte, data, validity, lengths and row count, padding
+rows included (zero and invalid); one launch a split.
+
+Mutation check: a K25 that ignores each bucket's start in the order,
+built from an edited copy of ``bucket.cu``, must disagree with the plain
+version."""
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.data.column import DeviceBatch, DeviceColumn
+from spark_rapids_tpu_torch.exec import joins as PJ
+from spark_rapids_tpu_torch.ops.kernels import _build as B
+from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
+from spark_rapids_tpu_torch.utils import hashing as H
+from test_torch_kernels_emulated import _build_emulated
+from test_torch_kernels_emulated_generate import _mutant
+
+N, P = 700, 1024
+_NP = {T.BOOL: np.bool_, T.INT8: np.int8, T.INT16: np.int16,
+       T.INT32: np.int32, T.INT64: np.int64, T.FLOAT32: np.float32,
+       T.FLOAT64: np.float64, T.DATE32: np.int32, T.TIMESTAMP: np.int64}
+SEEDS = [H.SEED] + [PJ.GRACE_SEED + PJ.GRACE_SEED_STEP * level
+                    for level in range(PJ.GRACE_MAX_LEVEL + 1)]
+
+
+@pytest.fixture(scope="module")
+def emu():
+    out = _build_emulated()
+    return B.Kernels(lambda: out, lambda t: None)
+
+
+def _batch(seed):
+    """Every column type with nulls, and two string columns of widths 6
+    and 13; real rows first, then padding."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for t in list(_NP) + [T.STRING, T.STRING]:
+        valid = np.zeros(P, np.bool_)
+        valid[:N] = rng.random(N) > 0.2
+        lengths = None
+        if t.is_string:
+            width = 6 if not any(c.dtype.is_string for c in cols) else 13
+            lengths = rng.integers(0, width + 1, P).astype(np.int32)
+            data = rng.integers(1, 256, (P, width)).astype(np.uint8)
+            data[np.arange(width)[None, :] >= lengths[:, None]] = 0
+        elif t == T.BOOL:
+            data = rng.random(P) > 0.5
+        else:
+            data = rng.integers(-2**60, 2**60, P).astype(_NP[t])
+        cols.append(DeviceColumn(
+            t, torch.from_numpy(data), torch.from_numpy(valid),
+            None if lengths is None else torch.from_numpy(lengths)))
+    schema = T.Schema([T.Field(f"c{i}", c.dtype)
+                       for i, c in enumerate(cols)])
+    return DeviceBatch(schema, cols, torch.tensor(N, dtype=torch.int32))
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        assert int(g.num_rows) == int(w.num_rows)
+        for gc, wc in zip(g.columns, w.columns):
+            assert gc.data.shape == wc.data.shape
+            assert gc.data.dtype == wc.data.dtype
+            assert torch.equal(gc.data.contiguous().view(torch.uint8),
+                               wc.data.contiguous().view(torch.uint8))
+            assert torch.equal(gc.validity, wc.validity)
+            assert (gc.lengths is None) == (wc.lengths is None)
+            if wc.lengths is not None:
+                assert torch.equal(gc.lengths, wc.lengths)
+
+
+def _split(emu, batch, pids, m):
+    order, counts, starts = DS.partition_order(pids, batch.num_rows, m,
+                                               kernels=emu)
+    want_order = DS.partition_order_plain(pids, batch.num_rows, m)
+    assert all(torch.equal(a, b) for a, b in zip((order, counts, starts),
+                                                 want_order))
+    counts = counts.tolist()
+    before = DS.SPLIT_LAUNCHES.count
+    got = DS.bucket_split(batch, order, counts, kernels=emu)
+    assert DS.SPLIT_LAUNCHES.count - before == (1 if sum(counts) else 0)
+    return got, DS.bucket_split_plain(batch, order, counts), counts
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 64])
+def test_k25_matches_plain(emu, m):
+    batch = _batch(m)
+    keys = [batch.columns[4], batch.columns[-2]]  # bigint and string keys
+    pids = H.hash_pids(keys, m, kernels=emu, seed=PJ.GRACE_SEED)
+    got, want, counts = _split(emu, batch, pids, m)
+    _same(got, want)
+    assert sum(counts) == N
+    # each bucket's rows are the batch's rows of that bucket, in order
+    c0 = batch.columns[4]
+    for b, part in enumerate(got):
+        rows = torch.nonzero(pids[:N] == b)[:, 0]
+        assert (part is None) == (len(rows) == 0)
+        if part is not None:
+            k = len(rows)
+            assert torch.equal(part.columns[4].data[:k], c0.data[rows])
+            assert not part.columns[4].validity[k:].any()
+            assert not part.columns[-1].lengths[k:].any()
+            assert not part.columns[-1].data[k:].any()
+
+
+def test_k25_mostly_empty_buckets(emu):
+    batch = _batch(5)
+    pids = torch.full((P,), 3, dtype=torch.int32)
+    pids[:40] = 6
+    pids[N:] = 0  # padding rows: never in a bucket
+    got, want, counts = _split(emu, batch, pids, 7)
+    assert counts == [0, 0, 0, N - 40, 0, 0, 40]
+    assert [g is None for g in got] == [True] * 3 + [False] + [True] * 2 \
+        + [False]
+    _same(got, want)
+    assert got[6].padded_rows == 128 and got[3].padded_rows == 1024
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_k9_seeded_matches_plain(emu, seed):
+    batch = _batch(seed % 97)
+    cols = batch.columns
+    got = H.hash_device_batch(cols, kernels=emu, seed=seed)
+    assert torch.equal(got, H.hash_batch_plain(cols, seed))
+    for m in (2, 7, 64):
+        assert torch.equal(H.hash_pids(cols[2:5] + cols[-1:], m,
+                                       kernels=emu, seed=seed),
+                           H.pmod(H.hash_batch_plain(cols[2:5] + cols[-1:],
+                                                     seed), m))
+
+
+def test_k25_without_starts_mutant_differs(emu):
+    """A K25 that reads every bucket from the front of the order, built
+    from an edited copy of ``bucket.cu``, must disagree."""
+    mutant = _mutant("bucket", ("order[bk[lo][1] + j]", "order[j]"))
+    batch = _batch(21)
+    pids = H.hash_pids([batch.columns[4]], 7, kernels=emu,
+                       seed=PJ.GRACE_SEED)
+    order, counts, _starts = DS.partition_order(pids, batch.num_rows, 7,
+                                                kernels=emu)
+    got = DS.bucket_split(batch, order, counts.tolist(), kernels=mutant)
+    want = DS.bucket_split_plain(batch, order, counts.tolist())
+    with pytest.raises(AssertionError):
+        _same(got, want)
