@@ -133,6 +133,27 @@
    copy) and per array, bit for bit, with both calls' event, device and
    host times; the warm runs keep the largest K25 split and seeded K9
    hash of Q21 (of any cell if Q21 took no grace path) for phase 3;
+2k. the ML hand-off: the Mortgage ETL (``benchmarks/mortgage.py``) at sf
+   50 (5,000,000 loans, 60,000,000 monthly records) at two partitions,
+   ``etl`` read back as a host batch and ``summary`` as rows, each
+   against the numpy oracles (keys, counts and strings exact, floats rel
+   1e-9; the partial aggregate must merge several batches); the same
+   ETL under ``exportColumnarRdd``: ``ml.columnar_batches`` (device
+   batches on cuda, 5,000,000 rows), ``ml.feature_matrix`` (a
+   (5000000, 9) float32 tensor on cuda equal to the oracle's features,
+   ``avg_upb`` within 1 ULP, the 1-ULP rows counted), the export's share
+   of its wall, the device-to-host bytes of the export (those of the ETL
+   to device batches plus one int32 count a batch, under a tenth of a
+   download's), the
+   round trip through ``from_device_batches``; TPCx-BB q5, q20, q25,
+   q26 and q28 at SF1 (seed 99) at two partitions and at one against
+   ``tpcxbb.ORACLES``; the feature matrix of q26's result.  Launch
+   checks: K26 in the two feature-matrix cells and in no other cell of
+   the script, K12 in the Mortgage cells and q20 (q28's CASE WHEN is a
+   lone Project, checked in its plan), K1, K3, K4 everywhere and K5 in
+   every joining cell; every cell with cold, warm and profiled walls,
+   busy and idle share, H2D copies and ms, peak device memory, launches
+   and the aggregates' and joins' input batches;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -159,7 +180,13 @@
    K24 at the largest hash exchange of Q3 and of Q18 on four shards, on
    every lane, with its device, event, enqueue, plain and
    ``index_select`` times; K25 and K9 from a grace seed at phase 2j's
-   largest Q21 split, with the same times)
+   largest Q21 split, with the same times; K26 at the Mortgage feature
+   frame's exported batches, bit for bit, with its device time (its
+   count and write passes behind a spin), event, enqueue, plain and
+   stack-of-casts times, its count and write passes also over the same
+   rows as one batch, and bit for bit again on the same batches with
+   nulls set at seeded rows of three columns and in every row of one
+   batch, so that rows are dropped)
    and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
@@ -217,6 +244,12 @@ SF10_QUERIES = (1, 3, 6, 9, 18, 21)
 SF10_CHUNKED = (3, 21)
 #: the cells whose largest hash exchange K24 is checked and timed at
 DIST_K24 = ((3, 4), (18, 4))
+# the ML hand-off (phase 2k): the Mortgage ETL at sf 50 (5,000,000 loans,
+# 60,000,000 monthly records) and its export, and TPCx-BB's ML-prep
+# queries at BB_SF
+MORTGAGE_SF = 50.0
+MORTGAGE_SEED = 31
+EXPORT_CONF = {"spark.rapids.tpu.sql.exportColumnarRdd": True}
 
 
 def log(*a):
@@ -389,6 +422,32 @@ def profiled_kernel_ms(fn, kernel, reps=10):
     return (total / seen / 1e3 if seen else None), seen
 
 
+def dtoh_copies(run):
+    """(copies, bytes, device ms) of the device-to-host copies in one run
+    of ``run`` under torch.profiler, from its Chrome trace (the copy
+    records' ``bytes``); bytes None where any copy's record lacks them,
+    so that no caller compares a partial sum."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("ph") == "X" and
+              "DtoH" in str(e.get("name", ""))]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    total = None if None in sizes else sum(sizes)
+    return len(copies), total, sum(e.get("dur", 0) for e in copies) / 1e3
+
+
 # --------------------------------------------------------------------------
 # independent numpy answers: TPC-H in benchmarks/tpch_oracle.py (imported
 # in main, with the package), TPCx-BB q30 and the clickstream windows here
@@ -470,7 +529,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
 
-    from spark_rapids_tpu_torch import Session
+    from spark_rapids_tpu_torch import Session, ml
+    from spark_rapids_tpu_torch import f as F
+    from spark_rapids_tpu_torch.benchmarks import mortgage as M
     from spark_rapids_tpu_torch.benchmarks import (tpch, tpch_clean as TC,
                                                    tpch_datagen,
                                                    tpch_oracle as O,
@@ -491,6 +552,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.exec.fused import TpuFusedSegmentExec
     from spark_rapids_tpu_torch.ops.kernels import _build
     from spark_rapids_tpu_torch.ops.kernels import castkernels as CK
+    from spark_rapids_tpu_torch.ops.kernels import export as XK
     from spark_rapids_tpu_torch.ops.kernels import fused as FK
     from spark_rapids_tpu_torch.ops.kernels import gather as G
     from spark_rapids_tpu_torch.ops.kernels import generate as GK
@@ -609,6 +671,24 @@ def main() -> int:
             for p in walk_plan(planner.physical_plan(query(tabs).plan)):
                 if isinstance(p, TpuFusedSegmentExec):
                     segments.setdefault(p.program.key, (q, p.program))
+    # the ML hand-off's plans (phase 2k): the segment sources depend on
+    # the types alone, so a small Mortgage draw plans them
+    ml_host = {q: tpcxbb.query_tables(bb_gen, q) for q in tpcxbb.ML_PREP}
+    small_mortgage = M.tables(0.01, MORTGAGE_SEED)
+    for n_part in (1, 2):
+        mt = {t: planner.create_dataframe(b, n_partitions=n_part)
+              for t, b in small_mortgage.items()}
+        plans = [("mortgage", M.etl(mt).plan), ("mortgage", M.summary(mt)
+                                                 .plan)]
+        plans += [(f"q{q}", tpcxbb.QUERIES[q]({
+            t: planner.create_dataframe(b, n_partitions=n_part)
+            for t, b in ml_host[q].items()}).plan) for q in tpcxbb.ML_PREP]
+        for what, plan in plans:
+            for p in walk_plan(planner.physical_plan(plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    segments.setdefault(p.program.key, (what, p.program))
+    require({"mortgage", "q20"} <= {q for q, _p in segments.values()},
+            "the Mortgage ETL or q20 planned no fused segment")
     require({"text q1", "text q6", "export"} <=
             {q for q, _p in segments.values()},
             "the text ingest or export planned no fused segment")
@@ -656,7 +736,8 @@ def main() -> int:
                 "K22": [GK.EXPLODE_LAUNCHES],
                 "K23": [GK.EXPAND_LAUNCHES],
                 "K24": [DS.TILE_LAUNCHES],
-                "K25": [DS.SPLIT_LAUNCHES]}
+                "K25": [DS.SPLIT_LAUNCHES],
+                "K26": [XK.FEATURE_LAUNCHES]}
     # the string transforms and string min/max run in phase 2g alone
     # (and the explode and expand kernels in phase 2h alone)
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
@@ -1950,6 +2031,280 @@ def main() -> int:
     del cols10, k25_calls, k9_seeded_calls
     log(f"phase 2j (SF{SF10:g}) took {time.perf_counter() - t_sf10:.1f} s")
 
+    # ---- 2k. the ML hand-off: the Mortgage ETL, its export, ML prep -----
+    # every cell before this one launched no K26 (its counter is read in
+    # every cell's launches)
+    t_ml = time.perf_counter()
+    earlier = [launches, launches2, text_launches, clean_launches,
+               rollup_launches, dist_launches, sf10_launches]
+    require(all(v["K26"] == 0 for m in earlier for v in m.values()),
+            "K26 launched in a cell before the export")
+    t0 = time.perf_counter()
+    mtabs = M.tables(MORTGAGE_SF, MORTGAGE_SEED)
+    log(f"Mortgage sf {MORTGAGE_SF:g} (seed {MORTGAGE_SEED}) generated in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{t} {b.num_rows} x {len(b.schema)} "
+            f"({sum(c.data.nbytes + (0 if c.lengths is None else c.lengths.nbytes) for c in b.columns)} bytes)"
+            for t, b in mtabs.items()))
+    t0 = time.perf_counter()
+    mwant = M.oracle_etl(mtabs)
+    want_summary = M.oracle_summary(mwant)
+    want_feats = M.oracle_features(mwant).astype(np.float32)
+    log(f"Mortgage answered in numpy in {time.perf_counter() - t0:.1f} s: "
+        f"etl {len(mwant['loan_id'][0])} rows, features "
+        f"{want_feats.shape}, summary {want_summary}")
+    t0 = time.perf_counter()
+    want_bb = {q: tpcxbb.ORACLES[q](ml_host[q]) for q in tpcxbb.ML_PREP}
+    log(f"TPCx-BB ML prep answered in numpy in "
+        f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+            f"q{q} {len(r)} rows, first {r[:1]}" for q, r in want_bb.items()))
+    ml_launches, ml_info, ml_runs = {}, {}, {}
+    # the kernels each cell's plan reaches: every cell groups by a key
+    # (K1 sorts, K3 reduces, K4 gathers), every one but q25 joins (K5);
+    # the Mortgage ETL fuses its Project chain after the join and q20 its
+    # Project -> Filter -> Project with greatest (K12); q28's CASE WHEN
+    # is a lone Project under the aggregate, which never fuses
+    grouped = [S.SORT_LAUNCHES, S.SEGMENT_REDUCE_LAUNCHES,
+               G.GATHER_LAUNCHES]
+    ml_must = {"mortgage": grouped + [J.JOIN_PROBE_LAUNCHES,
+                                      FK.FUSED_LAUNCHES],
+               5: grouped + [J.JOIN_PROBE_LAUNCHES],
+               20: grouped + [J.JOIN_PROBE_LAUNCHES, FK.FUSED_LAUNCHES],
+               25: grouped, 26: grouped + [J.JOIN_PROBE_LAUNCHES],
+               28: grouped + [J.JOIN_PROBE_LAUNCHES]}
+    ml_must_not = {25: [J.JOIN_PROBE_LAUNCHES], 28: [FK.FUSED_LAUNCHES]}
+    k26_inputs = {}
+
+    def ml_cell(cell, sess_, fn, check, key, warm_runs=3, export=False):
+        """One cell: the cold run (launches, peak device memory, batches,
+        joins, the check), warm runs and a profiled run."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' tensors
+        for cnt in all_counters:
+            cnt.reset()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        cold[cell] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        ml_launches[cell] = {k: sum(x.count for x in cs)
+                             for k, cs in counters.items()}
+        log(f"{cell} launches: {ml_launches[cell]} "
+            f"{ {x.name: x.count for x in all_counters} }")
+        require((XK.FEATURE_LAUNCHES.count > 0) == export,
+                f"{cell}: K26 launched {XK.FEATURE_LAUNCHES.count} kernels")
+        for x in ml_must[key]:
+            require(x.count > 0, f"{cell}: wrapper {x.name} launched no "
+                    "kernel")
+        for x in ml_must_not.get(key, []) + text_kernels:
+            require(x.count == 0, f"{cell}: wrapper {x.name} launched "
+                    f"{x.count} kernels, none expected")
+        m = sess_.last_metrics
+        batches = {k: v for k, v in sorted(m.items()) if "Batches" in k}
+        joins = join_summary(sess_.last_joins)
+        for r in sess_.last_joins:
+            if r["left_batches"] > 1 or r["right_batches"] > 1:
+                require(r["grace_pairs"] > 0, f"{cell}: {r['join']} "
+                        f"partition {r['partition']} brought several "
+                        f"batches and took no grace path: {r}")
+        for pl in sess_.last_placements:
+            require(sum(pl["partition_rows"]) == pl["rows_written"],
+                    f"{cell}: {pl['exchange']} lost or duplicated rows")
+        check(res)
+        del res
+        runs = []
+        for _ in range(warm_runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        warm[cell] = statistics.median(runs)
+        prof = profile_query(cell, fn)
+        ml_runs[cell] = fn
+        ml_info[cell] = {
+            "cold_s": cold[cell], "warm_s": warm[cell],
+            "warm_runs": warm_runs, "peak_device_bytes": peak,
+            "held_device_bytes": held,
+            "batches": batches, "joins": joins, "profile": prof,
+            "hand_kernel_launches": sum(ml_launches[cell].values())}
+        log(f"{cell} wall: cold {cold[cell] * 1e3:.1f} ms, warm "
+            f"{warm[cell] * 1e3:.1f} ms (median of {warm_runs}); peak "
+            f"device memory {peak} bytes above the {held} held before it; "
+            f"batches {batches}; joins "
+            f"{joins}; on {card}")
+
+    # the Mortgage ETL and its summary, two partitions (the default)
+    msess = Session()
+    mdf = {t: msess.create_dataframe(b) for t, b in mtabs.items()}
+
+    def check_etl(hb):
+        M.check_etl(hb, mwant)
+        log(f"mortgage etl equals numpy: {hb.num_rows} rows in loan_id "
+            f"order")
+
+    etl_df = M.etl(mdf)
+    ml_cell("mortgage etl/2", msess, etl_df._result_batch, check_etl,
+            "mortgage", warm_runs=1)
+    require_late(msess.last_metrics.get(
+        "TpuHashAggregateExec[partial].numInputBatches", 0) > 2,
+        "mortgage etl: the partial aggregate got no more than one batch a "
+        "partition; the chunked path did not run")
+
+    def check_summary(rows):
+        check_rows(rows, want_summary, "mortgage summary")
+        log(f"mortgage summary rows match numpy: {rows}")
+
+    ml_cell("mortgage summary/2", msess, M.summary(mdf).collect,
+            check_summary, "mortgage", warm_runs=1)
+    log(f"mortgage etl device plan:\n{msess.physical_plan(etl_df.plan)}")
+
+    # the export: the same ETL under exportColumnarRdd, its device
+    # batches, and its feature matrix on K26
+    esess = Session(EXPORT_CONF)
+    edf = M.etl({t: esess.create_dataframe(b) for t, b in mtabs.items()})
+
+    def check_batches(bs):
+        require(bs and all(isinstance(b, C.DeviceBatch) and
+                           b.device.type == "cuda" for b in bs),
+                "export: a batch is not a DeviceBatch on cuda")
+        rows = sum(int(b.num_rows) for b in bs)
+        require(rows == len(mwant["loan_id"][0]),
+                f"export: the batches hold {rows} rows")
+        k26_inputs["etl"] = bs
+        log(f"export: {len(bs)} device batches on cuda, "
+            f"{[int(b.num_rows) for b in bs]} rows "
+            f"({[b.padded_rows for b in bs]} padded)")
+
+    ml_cell("export batches/2", esess, lambda: ml.columnar_batches(edf),
+            check_batches, "mortgage", warm_runs=1)
+
+    def check_matrix(X):
+        require(tuple(X.shape) == want_feats.shape and
+                X.dtype == torch.float32 and X.device.type == "cuda",
+                f"feature_matrix: {tuple(X.shape)} {X.dtype} on "
+                f"{X.device}, want {want_feats.shape} float32 on cuda")
+        got = X.cpu().numpy().view(np.int32)
+        want = want_feats.view(np.int32)
+        avg = M.FEATURES.index("avg_upb")
+        for j, name in enumerate(M.FEATURES):
+            diff = np.abs(got[:, j].astype(np.int64) - want[:, j])
+            if j == avg:
+                require(int(diff.max()) <= 1, f"feature_matrix: {name} "
+                        f"off by {int(diff.max())} ULP")
+                ml_info_extra["avg_upb_1ulp_rows"] = int((diff == 1).sum())
+            else:
+                require(not diff.any(), f"feature_matrix: {name} differs "
+                        f"at {int((diff > 0).sum())} rows")
+        log(f"feature_matrix(etl): {tuple(X.shape)} float32 on "
+            f"{X.device}, equal to numpy's features (avg_upb "
+            f"{ml_info_extra['avg_upb_1ulp_rows']} rows 1 ULP apart)")
+
+    ml_info_extra = {}
+    ml_cell("export feature_matrix/2", esess,
+            lambda: ml.feature_matrix(edf), check_matrix, "mortgage",
+            warm_runs=1, export=True)
+    # the export's share of the wall: the ETL to device batches, then
+    # the feature matrix of those batches (K26 and its one read back)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs = ml.columnar_batches(edf)
+    torch.cuda.synchronize()
+    t_batches = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ml.to_feature_matrix(bs)
+    torch.cuda.synchronize()
+    t_matrix = time.perf_counter() - t0
+    del bs
+    # device-to-host copies under the profiler: the export against the
+    # ETL to device batches alone (the engine's own read-backs), and
+    # against a download of the same result
+    copies, dtoh, dtoh_ms = dtoh_copies(lambda: ml.feature_matrix(edf))
+    b_copies, b_bytes, b_ms = dtoh_copies(lambda: ml.columnar_batches(edf))
+    d_copies, d_bytes, d_ms = dtoh_copies(edf._result_batch)
+    n_batches = len(k26_inputs["etl"])
+    # every copy's bytes from the trace, and beyond the ETL's own
+    # read-backs one int32 count a batch
+    require_late(None not in (dtoh, b_bytes, d_bytes) and
+                 0 <= dtoh - b_bytes <= 4 * n_batches and
+                 dtoh < 0.1 * d_bytes,
+                 f"export: {dtoh} bytes copied to the host, the ETL to "
+                 f"device batches {b_bytes}, a download {d_bytes} (None: "
+                 "the profiler's trace gave no bytes for some DtoH copy)")
+    ml_info_extra.update({
+        "etl_to_batches_s": t_batches, "feature_matrix_s": t_matrix,
+        "export_share": t_matrix / (t_batches + t_matrix),
+        "dtoh_copies": copies, "dtoh_bytes": dtoh, "dtoh_ms": dtoh_ms,
+        "batches_dtoh_copies": b_copies, "batches_dtoh_bytes": b_bytes,
+        "download_dtoh_copies": d_copies, "download_dtoh_bytes": d_bytes,
+        "download_dtoh_ms": d_ms,
+        "result_device_bytes": sum(b.device_bytes()
+                                   for b in k26_inputs["etl"])})
+    log(f"export: ETL to device batches {t_batches * 1e3:.1f} ms, "
+        f"feature matrix {t_matrix * 1e3:.3f} ms (share "
+        f"{ml_info_extra['export_share']:.4f}); DtoH copies under the "
+        f"profiler: ml.feature_matrix {copies} copies, {dtoh} bytes, "
+        f"{dtoh_ms:.3f} ms; ml.columnar_batches {b_copies} copies, "
+        f"{b_bytes} bytes, {b_ms:.3f} ms; a download of the same result "
+        f"(_result_batch) {d_copies} copies, {d_bytes} bytes, "
+        f"{d_ms:.3f} ms; on {card}")
+    t0 = time.perf_counter()
+    back = ml.from_device_batches(esess, k26_inputs["etl"])
+    n_back = back.agg(F.count("*").alias("n")).collect()[0][0]
+    require(n_back == len(mwant["loan_id"][0]),
+            f"from_device_batches: {n_back} rows")
+    log(f"from_device_batches round trip: {n_back} rows "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del back
+
+    # TPCx-BB's ML prep at SF1, two partitions and one
+    for q in tpcxbb.ML_PREP:
+        for n_part in (2, 1):
+            cell = f"q{q}/{n_part}"
+            bsess = Session()
+            df = tpcxbb.QUERIES[q]({
+                t: bsess.create_dataframe(b, n_partitions=n_part)
+                for t, b in ml_host[q].items()})
+
+            def check_bb(rows, q=q, cell=cell):
+                check_rows(rows, want_bb[q], cell)
+                log(f"{cell} rows match numpy: {len(rows)} rows, first "
+                    f"{rows[:2]}")
+
+            ml_cell(cell, bsess, df.collect, check_bb, q)
+    q28_plan = str(planner.physical_plan(tpcxbb.q28({
+        t: planner.create_dataframe(b) for t, b in ml_host[28].items()})
+        .plan))
+    require("TpuFusedSegment" not in q28_plan and "CASE WHEN" in q28_plan,
+            f"q28's CASE WHEN is not a lone Project:\n{q28_plan}")
+
+    # the feature matrix of q26's result (its numeric columns: all seven)
+    qsess = Session(EXPORT_CONF)
+    q26_df = tpcxbb.q26({t: qsess.create_dataframe(b)
+                         for t, b in ml_host[26].items()})
+    q26_want = np.array(want_bb[26], dtype=np.float64).astype(np.float32)
+
+    def check_q26(X):
+        require(tuple(X.shape) == q26_want.shape and
+                X.device.type == "cuda", f"q26 feature_matrix: "
+                f"{tuple(X.shape)} on {X.device}")
+        got = X.cpu().numpy().view(np.int32)
+        want = q26_want.view(np.int32)
+        require(np.array_equal(got[:, :2], want[:, :2]),
+                "q26 feature_matrix: c or n differs")
+        require(int(np.abs(got[:, 2:].astype(np.int64) - want[:, 2:])
+                    .max()) <= 1, "q26 feature_matrix: a category sum "
+                "more than 1 ULP from numpy's")
+        log(f"feature_matrix(q26): {tuple(X.shape)} float32 on {X.device}, "
+            f"equal to numpy's rows (category sums within 1 ULP)")
+
+    ml_cell("q26 feature_matrix/2", qsess, lambda: ml.feature_matrix(q26_df),
+            check_q26, 26, export=True)
+    ml_info["export feature_matrix/2"].update(ml_info_extra)
+    del mtabs, mdf, edf, mwant, want_feats, etl_df
+    log(f"phase 2k (ML hand-off) took {time.perf_counter() - t_ml:.1f} s")
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -2002,6 +2357,7 @@ def main() -> int:
                  "K22": [rollup_launches], "K23": [rollup_launches],
                  "K24": [dist_launches],
                  "K25": [sf10_launches],
+                 "K26": [ml_launches],
                  }.get(k, [launches])
         if k == "K12":
             mains.append(rollup_launches)
@@ -2023,6 +2379,8 @@ def main() -> int:
                                               dist_launches.items()},
              "launches_by_sf10_cell": {c: v[k] for c, v in
                                        sf10_launches.items()},
+             "launches_by_ml_cell": {c: v[k] for c, v in
+                                     ml_launches.items()},
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -3195,6 +3553,116 @@ def main() -> int:
           f"{len(sc)} buckets", enqueue_ms=k25["enq"], event_ms=k25["ms"],
           device_ms=k25["dev"], k9_seeded=k9_seeded)
 
+    # K26: the feature matrix of the Mortgage ETL's exported batches
+    # (5,000,000 rows, 9 columns), as phase 2k's export called it
+    kb, names = k26_inputs["etl"], M.FEATURES
+    got = XK.feature_matrix(kb, names)
+    ref = XK.feature_matrix_plain(kb, names)
+    require(same_bytes(got, ref),
+            "K26 differs from its plain version at the Mortgage frame")
+    kept = int(got.shape[0])
+    plans, counts = XK.count_kept(kb, names, _build.CUDA)
+    sizes = counts.cpu().tolist()
+    ns = [int(b.num_rows) for b in kb]
+    sel = [[b.columns[b.schema.index_of(n)].data for n in names]
+           for b in kb]
+
+    def k26_library():  # a stack of casts, no null drop
+        return [torch.stack([d[:n].to(torch.float32) for d in ds], 1)
+                for ds, n in zip(sel, ns)]
+
+    def k26_fn():
+        return XK.feature_matrix(kb, names)
+
+    count_dev = device_ms(lambda: XK.count_kept(kb, names, _build.CUDA))
+    write_dev = device_ms(lambda: XK.write_kept(plans, sizes, _build.CUDA))
+    k26 = dict(ms=cuda_ms(k26_fn), enq=enqueue_ms(k26_fn),
+               dev=None if count_dev is None or write_dev is None
+               else count_dev + write_dev, count_dev=count_dev,
+               write_dev=write_dev,
+               plain=cuda_ms(lambda: XK.feature_matrix_plain(kb, names)),
+               lib=cuda_ms(k26_library),
+               bytes=XK.feature_matrix_bytes(kb, names, kept))
+    log(f"K26 feature_matrix at the Mortgage frame: {len(kb)} batches, "
+        f"{sum(ns)} rows, {len(names)} columns "
+        f"{[str(kb[0].schema[kb[0].schema.index_of(n)].dtype) for n in names]}"
+        f", {kept} kept, {k26['bytes']} bytes (bound "
+        f"{k26['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms); device "
+        f"{_ms_text(k26['dev'])} (count {_ms_text(count_dev)}, write "
+        f"{_ms_text(write_dev)}), event {k26['ms']:.3f} ms (one read back "
+        f"included), enqueue {k26['enq']:.3f} ms, plain "
+        f"{k26['plain']:.3f} ms, stack of casts {k26['lib']:.3f} ms")
+    # the same rows as one 5,000,000-row batch: its count and write
+    # passes beside the 12 batches' separate the launches' cost from
+    # the rows'
+    one_cols = [DeviceColumn(kb[0].schema[kb[0].schema.index_of(n)].dtype,
+                             torch.cat([d[:m] for d, m in zip(ds, ns)]),
+                             torch.cat([b.columns[b.schema.index_of(n)]
+                                        .validity[:m]
+                                        for b, m in zip(kb, ns)]))
+                for n, ds in zip(names, zip(*sel))]
+    one = [C.DeviceBatch(Schema([kb[0].schema[n] for n in names]),
+                         one_cols, torch.tensor(sum(ns), dtype=torch.int32,
+                                                device=kb[0].device))]
+    require(same_bytes(XK.feature_matrix(one, names), ref),
+            "K26 over the frame as one batch differs from the 12 batches'")
+    one_plans, one_counts = XK.count_kept(one, names, _build.CUDA)
+    one_sizes = one_counts.cpu().tolist()
+    one_count_dev = device_ms(
+        lambda: XK.count_kept(one, names, _build.CUDA))
+    one_write_dev = device_ms(
+        lambda: XK.write_kept(one_plans, one_sizes, _build.CUDA))
+    log(f"K26 over the same {sum(ns)} rows as one batch (3 launches, not "
+        f"{3 * len(kb)}): count {_ms_text(one_count_dev)}, write "
+        f"{_ms_text(one_write_dev)}")
+    del one, one_cols, one_plans, one_counts
+    # the same batches with nulls: validity cleared at a seeded 1/64 of
+    # the rows of three columns, and at every row of the second batch in
+    # a fourth, so that K26 drops rows across tiles and skips a batch
+    gen = torch.Generator(device=kb[0].device).manual_seed(26)
+    nulled = []
+    for i, b in enumerate(kb):
+        cols = list(b.columns)
+        for j, n in enumerate(names):
+            c = cols[b.schema.index_of(n)]
+            if j in (1, 4, 7):
+                drop = torch.rand(b.padded_rows, generator=gen,
+                                  device=b.device) < 1 / 64
+            elif j == 2 and i == 1:
+                drop = torch.ones_like(c.validity)
+            else:
+                continue
+            cols[b.schema.index_of(n)] = DeviceColumn(
+                c.dtype, c.data, c.validity & ~drop, c.lengths)
+        nulled.append(C.DeviceBatch(b.schema, cols, b.num_rows))
+    n_got = XK.feature_matrix(nulled, names)
+    n_ref = XK.feature_matrix_plain(nulled, names)
+    n_plans, n_counts = XK.count_kept(nulled, names, _build.CUDA)
+    n_sizes = n_counts.cpu().tolist()
+    require(same_bytes(n_got, n_ref),
+            "K26 differs from its plain version with nulls at the Mortgage "
+            "frame")
+    require(int(n_got.shape[0]) < kept and n_sizes[1] == 0 and
+            all(m < r for m, r in zip(n_sizes, ns) if r >= 1024),
+            f"K26 with nulls kept {int(n_got.shape[0])} of {kept} rows, "
+            f"{n_sizes} a batch of {ns}: no row or batch was dropped")
+    log(f"K26 with nulls at the Mortgage frame: {int(n_got.shape[0])} of "
+        f"{kept} rows kept ({n_sizes} a batch), equal to its plain version "
+        "bit for bit")
+    entry("K26 feature_matrix", "spark_rapids_tpu_torch/csrc/feature_matrix.cu",
+          "spark_rapids_tpu/ml/columnar_export.py:53",
+          k26["ms"] if k26["dev"] is None else k26["dev"], k26["plain"],
+          k26["lib"], k26["bytes"], kept * len(names), FP32_PER_S, 0.0,
+          library_call="stack of casts, no null drop: torch.stack of each "
+          "column's first num_rows rows as float32, per batch",
+          shape=f"the Mortgage feature frame: {sum(ns)} rows x "
+          f"{len(names)} columns in {len(kb)} batches",
+          enqueue_ms=k26["enq"], event_ms=k26["ms"], device_ms=k26["dev"],
+          count_device_ms=count_dev, write_device_ms=write_dev,
+          one_batch_count_device_ms=one_count_dev,
+          one_batch_write_device_ms=one_write_dev)
+    del got, ref, plans, counts, sel, nulled, n_got, n_ref, n_plans, n_counts
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -3222,10 +3690,11 @@ def main() -> int:
                                              **dist_info[cell]}
                                       for cell in dist_runs},
                       "sf10": sf10_info, "packed_upload": upload,
+                      "ml": ml_info,
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))
-    require(not late, "phase 2j: " + "; ".join(late))
+    require(not late, "phases 2j and 2k: " + "; ".join(late))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

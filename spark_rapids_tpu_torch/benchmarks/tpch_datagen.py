@@ -73,6 +73,7 @@ from .. import types as T
 from ..data import strings as dstrings
 from ..data.column import HostBatch, HostColumn
 from ..interop import from_reference_arrays
+from ._util import pick, schema_of
 
 EPOCH = dt.date(1970, 1, 1)
 MICROS_PER_DAY = 86_400_000_000
@@ -562,18 +563,10 @@ def dataframes(session, sf: float = 1.0, seed: int = 42,
 # ---------------------------------------------------------------------------
 # the reference's generator, draw for draw
 # ---------------------------------------------------------------------------
-def _strings(rng, n, choices):
-    return np.array(choices, dtype=object)[rng.integers(0, len(choices), n)]
-
-
 def _comment(rng, n, k=4):
     words = np.array(COMMENT_WORDS, dtype=object)
     idx = rng.integers(0, len(words), (n, k))
     return np.array([" ".join(words[r]) for r in idx], dtype=object)
-
-
-def _schema(cols):
-    return T.Schema([T.Field(name, dtype) for name, dtype in cols])
 
 
 def generate(sf: float = 0.001, seed: int = 42):
@@ -590,13 +583,13 @@ def generate(sf: float = 0.001, seed: int = 42):
     out = {}
 
     # region / nation -------------------------------------------------------
-    out["region"] = (_schema([("r_regionkey", T.INT64),
+    out["region"] = (schema_of([("r_regionkey", T.INT64),
                               ("r_name", T.STRING),
                               ("r_comment", T.STRING)]),
                      {"r_regionkey": np.arange(5, dtype=np.int64),
                       "r_name": np.array(REGIONS, dtype=object),
                       "r_comment": _comment(rng, 5)})
-    out["nation"] = (_schema([("n_nationkey", T.INT64),
+    out["nation"] = (schema_of([("n_nationkey", T.INT64),
                               ("n_name", T.STRING),
                               ("n_regionkey", T.INT64),
                               ("n_comment", T.STRING)]),
@@ -614,7 +607,7 @@ def generate(sf: float = 0.001, seed: int = 42):
     mask = rng.random(n_supp) < 0.1
     s_comment[mask] = np.char.add(
         s_comment[mask].astype(str), " Customer Complaints").astype(object)
-    out["supplier"] = (_schema([("s_suppkey", T.INT64),
+    out["supplier"] = (schema_of([("s_suppkey", T.INT64),
                                 ("s_name", T.STRING),
                                 ("s_address", T.STRING),
                                 ("s_nationkey", T.INT64),
@@ -661,7 +654,7 @@ def generate(sf: float = 0.001, seed: int = 42):
     brand_m[corr & (cont_a == 2)] = 2   # MED * -> Brand#2n
     brand_m[corr & (cont_a == 1)] = 3   # LG * -> Brand#3n
     # (MED BOX & Brand#23 for Q17 happens naturally via the correlation)
-    out["part"] = (_schema([("p_partkey", T.INT64),
+    out["part"] = (schema_of([("p_partkey", T.INT64),
                             ("p_name", T.STRING),
                             ("p_mfgr", T.STRING),
                             ("p_brand", T.STRING),
@@ -693,7 +686,7 @@ def generate(sf: float = 0.001, seed: int = 42):
     ps_part = np.repeat(pk, 4)
     ps_supp = ((ps_part + np.tile(np.arange(4, dtype=np.int64), n_part)
                 * (n_supp // 4 + 1)) % n_supp) + 1
-    out["partsupp"] = (_schema([("ps_partkey", T.INT64),
+    out["partsupp"] = (schema_of([("ps_partkey", T.INT64),
                                 ("ps_suppkey", T.INT64),
                                 ("ps_availqty", T.INT32),
                                 ("ps_supplycost", T.FLOAT64),
@@ -708,7 +701,7 @@ def generate(sf: float = 0.001, seed: int = 42):
 
     # customer ---------------------------------------------------------------
     ck = np.arange(1, n_cust + 1, dtype=np.int64)
-    out["customer"] = (_schema([("c_custkey", T.INT64),
+    out["customer"] = (schema_of([("c_custkey", T.INT64),
                                 ("c_name", T.STRING),
                                 ("c_address", T.STRING),
                                 ("c_nationkey", T.INT64),
@@ -727,7 +720,7 @@ def generate(sf: float = 0.001, seed: int = 42):
                              for _ in ck], dtype=object),
                         "c_acctbal": np.round(
                             rng.uniform(-999.99, 9999.99, n_cust), 2),
-                        "c_mktsegment": _strings(rng, n_cust, SEGMENTS),
+                        "c_mktsegment": pick(rng, n_cust, SEGMENTS),
                         "c_comment": _comment(rng, n_cust)})
 
     # orders -----------------------------------------------------------------
@@ -738,7 +731,7 @@ def generate(sf: float = 0.001, seed: int = 42):
     mask = rng.random(n_ord) < 0.05  # Q13 needle
     o_comment[mask] = np.char.add(
         o_comment[mask].astype(str), " special handle requests").astype(object)
-    out["orders"] = (_schema([("o_orderkey", T.INT64),
+    out["orders"] = (schema_of([("o_orderkey", T.INT64),
                               ("o_custkey", T.INT64),
                               ("o_orderstatus", T.STRING),
                               ("o_totalprice", T.FLOAT64),
@@ -752,11 +745,11 @@ def generate(sf: float = 0.001, seed: int = 42):
                       "o_custkey": rng.integers(
                           1, max(2, int(n_cust * 0.85)) + 1, n_ord)
                       .astype(np.int64),
-                      "o_orderstatus": _strings(rng, n_ord, ["O", "F", "P"]),
+                      "o_orderstatus": pick(rng, n_ord, ["O", "F", "P"]),
                       "o_totalprice": np.round(
                           rng.uniform(850.0, 560_000.0, n_ord), 2),
                       "o_orderdate": o_date,
-                      "o_orderpriority": _strings(rng, n_ord, PRIORITIES),
+                      "o_orderpriority": pick(rng, n_ord, PRIORITIES),
                       "o_clerk": np.array(
                           [f"Clerk#{c:09d}" for c in
                            rng.integers(1, max(2, n_ord // 100), n_ord)],
@@ -777,7 +770,7 @@ def generate(sf: float = 0.001, seed: int = 42):
     rf = np.where(shipped,
                   np.where(rng.random(n_line) < 0.5, "R", "A"), "N") \
         .astype(object)
-    out["lineitem"] = (_schema([("l_orderkey", T.INT64),
+    out["lineitem"] = (schema_of([("l_orderkey", T.INT64),
                                 ("l_partkey", T.INT64),
                                 ("l_suppkey", T.INT64),
                                 ("l_linenumber", T.INT32),
@@ -814,8 +807,8 @@ def generate(sf: float = 0.001, seed: int = 42):
                         "l_shipdate": l_ship,
                         "l_commitdate": l_commit,
                         "l_receiptdate": l_receipt,
-                        "l_shipinstruct": _strings(rng, n_line, INSTRUCTS),
-                        "l_shipmode": _strings(rng, n_line, SHIPMODES),
+                        "l_shipinstruct": pick(rng, n_line, INSTRUCTS),
+                        "l_shipmode": pick(rng, n_line, SHIPMODES),
                         "l_comment": _comment(rng, n_line, 2)})
     return out
 

@@ -19,15 +19,7 @@ import numpy as np
 from .. import types as T
 from ..data.column import HostBatch
 from ..interop import from_reference_arrays
-
-
-def _schema(cols):
-    return T.Schema([T.Field(name, dtype) for name, dtype in cols])
-
-
-def _pick(rng, n, choices):
-    """n seeded draws from a categorical vocabulary (object ndarray)."""
-    return np.array(choices, dtype=object)[rng.integers(0, len(choices), n)]
+from ._util import pick, schema_of
 
 
 CATEGORIES = ["Books", "Electronics", "Home", "Clothing", "Sports",
@@ -69,7 +61,7 @@ def generate(sf: float = 0.001, seed: int = 99):
 
     # date_dim --------------------------------------------------------------
     dsk = np.arange(N_DAYS, dtype=np.int64)
-    out["date_dim"] = (_schema([("d_date_sk", T.INT64),
+    out["date_dim"] = (schema_of([("d_date_sk", T.INT64),
                                 ("d_year", T.INT32),
                                 ("d_moy", T.INT32),
                                 ("d_dom", T.INT32)]),
@@ -82,7 +74,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     # item ------------------------------------------------------------------
     isk = np.arange(1, n_item + 1, dtype=np.int64)
     cat_id = rng.integers(0, len(CATEGORIES), n_item)
-    out["item"] = (_schema([("i_item_sk", T.INT64),
+    out["item"] = (schema_of([("i_item_sk", T.INT64),
                             ("i_item_id", T.STRING),
                             ("i_category", T.STRING),
                             ("i_category_id", T.INT32),
@@ -95,7 +87,7 @@ def generate(sf: float = 0.001, seed: int = 99):
                         [f"ITEM{i:08d}" for i in isk], dtype=object),
                     "i_category": np.array(CATEGORIES, dtype=object)[cat_id],
                     "i_category_id": cat_id.astype(np.int32),
-                    "i_class": _pick(rng, n_item, CLASSES),
+                    "i_class": pick(rng, n_item, CLASSES),
                     # 1..15 — the class-id space Q26Like pivots over
                     "i_class_id": rng.integers(1, 16, n_item)
                     .astype(np.int32),
@@ -106,7 +98,7 @@ def generate(sf: float = 0.001, seed: int = 99):
 
     # customer + address + demographics ------------------------------------
     csk = np.arange(1, n_cust + 1, dtype=np.int64)
-    out["customer"] = (_schema([("c_customer_sk", T.INT64),
+    out["customer"] = (schema_of([("c_customer_sk", T.INT64),
                                 ("c_first_name", T.STRING),
                                 ("c_last_name", T.STRING),
                                 ("c_birth_year", T.INT32),
@@ -123,12 +115,12 @@ def generate(sf: float = 0.001, seed: int = 99):
                             1, n_cust + 1, n_cust).astype(np.int64),
                         "c_current_cdemo_sk": rng.integers(
                             1, n_cust + 1, n_cust).astype(np.int64)})
-    out["customer_address"] = (_schema([("ca_address_sk", T.INT64),
+    out["customer_address"] = (schema_of([("ca_address_sk", T.INT64),
                                         ("ca_state", T.STRING),
                                         ("ca_city", T.STRING),
                                         ("ca_country", T.STRING)]),
                                {"ca_address_sk": csk,
-                                "ca_state": _pick(rng, n_cust, STATES),
+                                "ca_state": pick(rng, n_cust, STATES),
                                 "ca_city": np.array(
                                     [f"City{i % 53}" for i in csk],
                                     dtype=object),
@@ -137,36 +129,36 @@ def generate(sf: float = 0.001, seed: int = 99):
                                     COUNTRIES[0], COUNTRIES[1])
                                 .astype(object)})
     out["customer_demographics"] = (
-        _schema([("cd_demo_sk", T.INT64),
+        schema_of([("cd_demo_sk", T.INT64),
                  ("cd_gender", T.STRING),
                  ("cd_marital_status", T.STRING),
                  ("cd_education_status", T.STRING)]),
         {"cd_demo_sk": csk,
-         "cd_gender": _pick(rng, n_cust, GENDER),
-         "cd_marital_status": _pick(rng, n_cust, MARITAL),
-         "cd_education_status": _pick(rng, n_cust, EDUCATION)})
+         "cd_gender": pick(rng, n_cust, GENDER),
+         "cd_marital_status": pick(rng, n_cust, MARITAL),
+         "cd_education_status": pick(rng, n_cust, EDUCATION)})
 
     # store / warehouse -----------------------------------------------------
     ssk = np.arange(1, n_store + 1, dtype=np.int64)
-    out["store"] = (_schema([("s_store_sk", T.INT64),
+    out["store"] = (schema_of([("s_store_sk", T.INT64),
                              ("s_store_name", T.STRING)]),
                     {"s_store_sk": ssk,
                      "s_store_name": np.array(
                          [f"Store{i}" for i in ssk], dtype=object)})
     wsk = np.arange(1, n_wh + 1, dtype=np.int64)
-    out["warehouse"] = (_schema([("w_warehouse_sk", T.INT64),
+    out["warehouse"] = (schema_of([("w_warehouse_sk", T.INT64),
                                  ("w_warehouse_name", T.STRING),
                                  ("w_state", T.STRING)]),
                         {"w_warehouse_sk": wsk,
                          "w_warehouse_name": np.array(
                              [f"Warehouse{i}" for i in wsk], dtype=object),
-                         "w_state": _pick(rng, n_wh, STATES)})
+                         "w_state": pick(rng, n_wh, STATES)})
 
     # store_sales -----------------------------------------------------------
     ss_item = rng.integers(1, n_item + 1, n_ss).astype(np.int64)
     ss_price = np.round(rng.uniform(1.0, 300.0, n_ss), 2)
     ss_qty = rng.integers(1, 20, n_ss).astype(np.int32)
-    out["store_sales"] = (_schema([("ss_sold_date_sk", T.INT64),
+    out["store_sales"] = (schema_of([("ss_sold_date_sk", T.INT64),
                                    ("ss_item_sk", T.INT64),
                                    ("ss_customer_sk", T.INT64),
                                    ("ss_cdemo_sk", T.INT64),
@@ -202,7 +194,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     # web_sales -------------------------------------------------------------
     ws_price = np.round(rng.uniform(1.0, 300.0, n_ws), 2)
     ws_qty = rng.integers(1, 20, n_ws).astype(np.int32)
-    out["web_sales"] = (_schema([("ws_sold_date_sk", T.INT64),
+    out["web_sales"] = (schema_of([("ws_sold_date_sk", T.INT64),
                                  ("ws_item_sk", T.INT64),
                                  ("ws_bill_customer_sk", T.INT64),
                                  ("ws_order_number", T.INT64),
@@ -228,7 +220,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     n_sr = max(8, n_ss // 10)
     sr_idx = rng.choice(n_ss, n_sr, replace=False)
     out["store_returns"] = (
-        _schema([("sr_returned_date_sk", T.INT64),
+        schema_of([("sr_returned_date_sk", T.INT64),
                  ("sr_item_sk", T.INT64),
                  ("sr_customer_sk", T.INT64),
                  ("sr_ticket_number", T.INT64),
@@ -245,7 +237,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     n_wr = max(6, n_ws // 10)
     wr_idx = rng.choice(n_ws, n_wr, replace=False)
     out["web_returns"] = (
-        _schema([("wr_returned_date_sk", T.INT64),
+        schema_of([("wr_returned_date_sk", T.INT64),
                  ("wr_item_sk", T.INT64),
                  ("wr_refunded_customer_sk", T.INT64),
                  ("wr_order_number", T.INT64),
@@ -265,7 +257,7 @@ def generate(sf: float = 0.001, seed: int = 99):
 
     # web_clickstreams ------------------------------------------------------
     out["web_clickstreams"] = (
-        _schema([("wcs_click_date_sk", T.INT64),
+        schema_of([("wcs_click_date_sk", T.INT64),
                  ("wcs_click_time_sk", T.INT64),
                  ("wcs_user_sk", T.INT64),
                  ("wcs_item_sk", T.INT64),
@@ -289,7 +281,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     words = np.array(REVIEW_WORDS, dtype=object)
     ridx = rng.integers(0, len(words), (n_pr, 6))
     out["product_reviews"] = (
-        _schema([("pr_review_sk", T.INT64),
+        schema_of([("pr_review_sk", T.INT64),
                  ("pr_item_sk", T.INT64),
                  ("pr_user_sk", T.INT64),
                  ("pr_review_date_sk", T.INT64),
@@ -307,7 +299,7 @@ def generate(sf: float = 0.001, seed: int = 99):
     # inventory -------------------------------------------------------------
     inv_item = np.repeat(isk, 4)
     out["inventory"] = (
-        _schema([("inv_date_sk", T.INT64),
+        schema_of([("inv_date_sk", T.INT64),
                  ("inv_item_sk", T.INT64),
                  ("inv_warehouse_sk", T.INT64),
                  ("inv_quantity_on_hand", T.INT32)]),
@@ -335,6 +327,20 @@ def tables_of(generated, names: Optional[Iterable[str]] = None
             out[name] = from_reference_arrays(
                 [(f.name, f.dtype.sql_name) for f in schema],
                 [cols[f.name] for f in schema])
+    return out
+
+
+def columns_of(generated, columns: Dict[str, Iterable[str]]
+               ) -> Dict[str, HostBatch]:
+    """``generate``'s output cut to ``columns`` (table -> the column
+    names to keep; they keep the table's order), as host batches."""
+    out = {}
+    for table, names in columns.items():
+        schema, cols = generated[table]
+        fields = [(fl.name, fl.dtype.sql_name) for fl in schema
+                  if fl.name in names]
+        out[table] = from_reference_arrays(fields,
+                                           [cols[n] for n, _ in fields])
     return out
 
 

@@ -53,10 +53,10 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..interop import from_reference_arrays
 from ..ops import windowexprs
 from ..plan import functions as f
 from ..plan import logical
+from .tpcxbb_datagen import columns_of
 
 #: q67's rollup keys, in rollup order
 KEYS = ["i_category", "i_class", "i_brand_id", "i_item_id", "d_year",
@@ -81,14 +81,7 @@ QUERY_COLUMNS = {
 def query_tables(generated, query: str) -> Dict[str, object]:
     """``tpcxbb_datagen.generate``'s output cut to ``query``'s columns, as
     host batches."""
-    out = {}
-    for table, names in QUERY_COLUMNS[query].items():
-        schema, cols = generated[table]
-        fields = [(fl.name, fl.dtype.sql_name) for fl in schema
-                  if fl.name in names]
-        out[table] = from_reference_arrays(fields,
-                                           [cols[n] for n, _ in fields])
-    return out
+    return columns_of(generated, QUERY_COLUMNS[query])
 
 
 def _frame(like, plan):

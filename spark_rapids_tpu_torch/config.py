@@ -170,6 +170,12 @@ SHUFFLE_MODE = conf("spark.rapids.tpu.shuffle.mode").doc(
     "ported yet) or auto (device while the card has headroom)"
 ).string_conf("auto")
 
+# --- ML interop (ml/) -----------------------------------------------------
+EXPORT_COLUMNAR_RDD = conf("spark.rapids.tpu.sql.exportColumnarRdd").doc(
+    "Allow the export of device batches to user code (torch tensors on "
+    "the session's device); reference: spark.rapids.sql.exportColumnarRdd"
+).boolean_conf(False)
+
 
 class TpuConf:
     """Immutable view over a key->value dict with typed accessors."""

@@ -11,6 +11,7 @@
 // are not modelled.
 #pragma once
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -92,6 +93,10 @@ inline long long __double_as_longlong(double d) {
 inline double __longlong_as_double(long long i) {
   double d; memcpy(&d, &i, 8); return d;
 }
+// conversions rounding to nearest even (the host's default rounding mode)
+inline float __int2float_rn(int i) { return (float)i; }
+inline float __ll2float_rn(long long i) { return (float)i; }
+inline float __double2float_rn(double d) { return (float)d; }
 
 // `kernel<<<grid, block, smem, stream>>>(args)` is rewritten by the build
 // into `srt_launch(srt_cfg(grid, block, smem, stream), kernel, args)`

@@ -1,18 +1,22 @@
 """Conditional expressions.
 
-Counterpart of ``spark_rapids_tpu/ops/conditional.py:If`` (42): both
-branches compute and a ``where`` selects, branch-free; a null condition
-takes the false branch, and the result has the branches' promoted type
-(string branches are padded to the wider matrix).  ``CaseWhen`` comes
-with a later slice.
+Counterpart of ``spark_rapids_tpu/ops/conditional.py:If`` (42) and
+``CaseWhen`` (95): both branches compute and a ``where`` selects,
+branch-free; a null condition takes the false branch, and the result has
+the branches' promoted type (string branches are padded to the wider
+matrix).  A ``CaseWhen`` is the chain of ``If``s it desugars to, strings
+included, on the device and in K12 (``ops/kernels/fused.py`` generates
+the chain's code).
 """
 from __future__ import annotations
+
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import types as T
 from ..data.column import DeviceColumn
-from .expression import Expression, Scalar, as_device_column
+from .expression import Expression, Literal, Scalar, as_device_column
 
 
 def common_type(dtypes) -> T.DType:
@@ -70,3 +74,50 @@ class If(Expression):
     def sql(self):
         c = self.children
         return f"IF({c[0].sql()}, {c[1].sql()}, {c[2].sql()})"
+
+
+class CaseWhen(Expression):
+    """CASE WHEN p1 THEN v1 ... [ELSE e] END, desugared to an If chain
+    (no ELSE: a null of the values' type)."""
+
+    def __init__(self, branches: List[Tuple[Expression, Expression]],
+                 else_value: Optional[Expression] = None):
+        flat = []
+        for p, v in branches:
+            flat.extend([p, v])
+        if else_value is not None:
+            flat.append(else_value)
+        super().__init__(flat)
+        self.n_branches = len(branches)
+        self.has_else = else_value is not None
+
+    def _branches(self):
+        return [(self.children[2 * i], self.children[2 * i + 1])
+                for i in range(self.n_branches)]
+
+    def _else(self):
+        return self.children[-1] if self.has_else else None
+
+    def chain(self) -> Expression:
+        """The ``If`` chain this CASE stands for."""
+        node: Expression = self._else() if self.has_else else Literal(
+            None, self.dtype)
+        for p, v in reversed(self._branches()):
+            node = If(p, v, node)
+        return node
+
+    @property
+    def dtype(self):
+        ts = [v.dtype for _, v in self._branches()]
+        if self.has_else:
+            ts.append(self._else().dtype)
+        return common_type(ts)
+
+    def eval_tpu(self, batch):
+        return self.chain().eval_tpu(batch)
+
+    def sql(self):
+        parts = " ".join(f"WHEN {p.sql()} THEN {v.sql()}"
+                         for p, v in self._branches())
+        e = f" ELSE {self._else().sql()}" if self.has_else else ""
+        return f"CASE {parts}{e} END"

@@ -34,8 +34,10 @@ headers) happens when a plan is built, for all of its segments at once.
 
 The code generator covers every expression the engine registers
 (``plan/overrides.py``): BoundReference, Literal, Alias, Add, Subtract,
-Multiply, Divide, the five comparisons on numbers, dates and strings,
-Not, And, Or, IsNull, IsNotNull, If, Coalesce, NaNvl, InSet, Contains,
+Multiply, Divide, IntegralDivide, Remainder, Pmod, UnaryMinus,
+UnaryPositive, Abs, Greatest, Least, the five comparisons on numbers,
+dates and strings, Not, And, Or, IsNull, IsNotNull, If, CaseWhen (its
+``If`` chain), Coalesce, NaNvl, InSet, Contains,
 StartsWith, EndsWith, Like, Substring, Year, Cast (every direction the device
 takes), ConcatStrings, NormalizeNaNAndZero,
 KnownFloatingPointNormalized, Upper, Lower, Length, StringLocate,
@@ -325,6 +327,14 @@ class _Codegen:
             d = self.let("double", f"{a} / ({z} ? 1.0 : {b})")
             return _Val(T.FLOAT64, self.let("bool", f"{l.v} && {r.v} && "
                                             f"!{z}"), d=d)
+        if isinstance(e, (ar.IntegralDivide, ar.Remainder, ar.Pmod)):
+            return self.division(e, syms)
+        if isinstance(e, (ar.UnaryMinus, ar.UnaryPositive, ar.Abs)):
+            return self.unary(e, syms)
+        if isinstance(e, (ar.Greatest, ar.Least)):
+            return self.extremum(e, syms)
+        if isinstance(e, cond.CaseWhen):
+            return self.gen(e.chain(), syms)
         if isinstance(e, (ar.Add, ar.Subtract, ar.Multiply)):
             op = {ar.Add: "+", ar.Subtract: "-", ar.Multiply: "*"}[type(e)]
             out = e.dtype
@@ -415,6 +425,89 @@ class _Codegen:
         raise NotImplementedError(
             f"the fused-segment code generator has no rule for "
             f"{type(e).__name__}")
+
+    def wrap_neg(self, x: str, ct: str) -> str:
+        """``-x`` wrapping, as torch negates an integer."""
+        return f"(({ct})(0u - ({_WRAP[ct]}){x}))"
+
+    def division(self, e, syms) -> _Val:
+        """IntegralDivide, Remainder and Pmod as their torch bodies: a
+        zero divisor taken as 1 (the row null), -1 as a negation, C's
+        truncating ``/`` and ``%`` (the dividend's sign), ``fmod`` for
+        floats with a NaN result as the canonical NaN."""
+        out = e.dtype
+        ct = ctype(out)
+        l, r = self.gen(e.left, syms), self.gen(e.right, syms)
+        if isinstance(e, ar.IntegralDivide):
+            a = self.let(ct, self.numeric_cast(l.d, l.dtype, out))
+            b = self.let(ct, self.numeric_cast(r.d, r.dtype, out))
+        else:
+            a, b = self.cast(l, out), self.cast(r, out)
+        z = self.let("bool", f"{b} == ({ct})0")
+        safe = self.let(ct, f"{z} ? ({ct})1 : {b}")
+        if out.is_floating:
+            fn = "fmodf" if ct == "float" else "fmod"
+            m = self.let(ct, f"{fn}({a}, {safe})")
+            d = self.let(ct, f"{m} != {m} ? "
+                         f"{c_literal(float('nan'), out)} : {m}")
+        elif isinstance(e, ar.IntegralDivide):
+            d = self.let(ct, f"{safe} == ({ct})-1 ? {self.wrap_neg(a, ct)} "
+                         f": ({ct})({a} / {safe})")
+        else:
+            d = self.let(ct, f"{safe} == ({ct})-1 ? ({ct})0 : "
+                         f"({ct})({a} % {safe})")
+        if isinstance(e, ar.Pmod):
+            fix = self.let("bool", f"{d} != ({ct})0 && (({d} < ({ct})0) != "
+                           f"({safe} < ({ct})0))")
+            add = f"{d} + {safe}" if out.is_floating else \
+                f"({ct})(({_WRAP[ct]}){d} + ({_WRAP[ct]}){safe})"
+            d = self.let(ct, f"{fix} ? {add} : {d}")
+        return _Val(out, self.let("bool", f"{l.v} && {r.v} && !{z}"), d=d)
+
+    def unary(self, e, syms) -> _Val:
+        """UnaryMinus (wrapping), UnaryPositive, Abs (``fabs`` for
+        floats; the minimum of an integer type stays negative, as
+        torch.abs leaves it)."""
+        c = self.gen(e.child, syms)
+        if isinstance(e, ar.UnaryPositive):
+            return c
+        ct = ctype(c.dtype)
+        if ct in ("float", "double") and isinstance(e, ar.UnaryMinus):
+            d = f"-{c.d}"
+        elif ct in ("float", "double"):
+            # the math library's fabs, as torch.abs runs it (the card's
+            # abs.f32 gives a NaN as the canonical NaN)
+            d = f"{'fabsf' if ct == 'float' else 'fabs'}({c.d})"
+        elif isinstance(e, ar.UnaryMinus):
+            d = self.wrap_neg(c.d, ct)
+        else:
+            d = f"{c.d} < ({ct})0 ? {self.wrap_neg(c.d, ct)} : {c.d}"
+        return _Val(c.dtype, c.v, d=self.let(ct, d))
+
+    def extremum(self, e, syms) -> _Val:
+        """Greatest and Least, skipping a null input (null only when both
+        are): greatest as XLA's ``maximum`` (a NaN wins, +0.0 beats
+        -0.0), least as the reference's ``fmin`` (``a`` where ``b`` is
+        NaN or ``a < b``, else ``b``) — ``arithmetic.py``'s
+        ``greatest_values`` and ``least_values``."""
+        out = e.dtype
+        ct = ctype(out)
+        l, r = self.gen(e.left, syms), self.gen(e.right, syms)
+        a = self.let(ct, self.cast(l, out))
+        b = self.let(ct, self.cast(r, out))
+        if isinstance(e, ar.Least):
+            both = (f"({b} != {b} || {a} < {b}) ? {a} : {b}"
+                    if out.is_floating else f"{a} < {b} ? {a} : {b}")
+        elif out.is_floating:
+            neg = (f"__float_as_int({a}) < 0" if ct == "float" else
+                   f"__double_as_longlong({a}) < 0")
+            both = (f"{a} != {a} ? {a} : ({b} != {b} ? {b} : ({a} > {b} ? "
+                    f"{a} : ({b} > {a} ? {b} : ({neg} ? {b} : {a}))))")
+        else:
+            both = f"{a} > {b} ? {a} : {b}"
+        m = self.let(ct, both)
+        d = self.let(ct, f"{l.v} && {r.v} ? {m} : ({l.v} ? {a} : {b})")
+        return _Val(out, self.let("bool", f"{l.v} || {r.v}"), d=d)
 
     def comparison(self, e, syms) -> _Val:
         l, r = self.gen(e.left, syms), self.gen(e.right, syms)

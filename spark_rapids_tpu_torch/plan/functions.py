@@ -1,17 +1,19 @@
 """User-facing column expression API.
 
 Counterpart of ``spark_rapids_tpu/plan/functions.py`` for the slice:
-``col``, ``lit``, ``if_``, ``coalesce``, ``nanvl``, the aggregates ``sum``/``count``/``avg``/
-``min``/``max``/``first``/``last``, and ``Column`` with arithmetic,
+``col``, ``lit``, ``if_``, ``when``/``otherwise``/``end``, ``coalesce``,
+``nanvl``, ``abs``, ``pmod``, ``greatest``, ``least``, the aggregates
+``sum``/``count``/``avg``/``min``/``max``/``first``/``last``, and
+``Column`` with arithmetic (``%`` and unary ``-`` included),
 comparison, boolean, alias, null-test and sort-order operators, ``cast``
 (a type name or a DType), ``isin`` with literal members and the string
 predicates ``contains``/``startswith``/``endswith``/``like``,
 ``substring``, ``concat``, ``year``, and the string transforms
 ``upper``, ``lower``, ``length``, ``trim``, ``ltrim``, ``rtrim``,
 ``substring_index``, ``locate`` and ``replace``.
-``isin`` with column members, ``when``/``otherwise``, ``initcap`` and
-``regexp_replace`` (host-engine only in the reference), and the math
-and date functions come with later slices.
+``isin`` with column members, ``initcap`` and ``regexp_replace``
+(host-engine only in the reference), the math functions beyond ``abs``
+and ``pmod``, the shifts and the date functions come with later slices.
 """
 from __future__ import annotations
 
@@ -59,6 +61,12 @@ class Column:
 
     def __rtruediv__(self, other):
         return Column(ar.Divide(_e(other), self.expr))
+
+    def __mod__(self, other):
+        return Column(ar.Remainder(self.expr, _e(other)))
+
+    def __neg__(self):
+        return Column(ar.UnaryMinus(self.expr))
 
     def __eq__(self, other):  # type: ignore[override]
         return Column(pred.EqualTo(self.expr, _e(other)))
@@ -166,6 +174,24 @@ def lit(v: Any, dtype=None) -> Column:
     return Column(Literal(v, dtype))
 
 
+class WhenBuilder:
+    def __init__(self, branches):
+        self._branches = branches
+
+    def when(self, condition, value) -> "WhenBuilder":
+        return WhenBuilder(self._branches + [(_e(condition), _e(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(cond.CaseWhen(self._branches, _e(value)))
+
+    def end(self) -> Column:
+        return Column(cond.CaseWhen(self._branches, None))
+
+
+def when(condition, value) -> WhenBuilder:
+    return WhenBuilder([(_e(condition), _e(value))])
+
+
 def if_(c, t, f) -> Column:
     return Column(cond.If(_e(c), _e(t), _e(f)))
 
@@ -231,6 +257,27 @@ def _u(cls):
         return Column(cls(_col_e(c)))
 
     return fn
+
+
+abs = _u(ar.Abs)  # noqa: A001
+
+
+def pmod(l, r) -> Column:
+    return Column(ar.Pmod(_e(l), _e(r)))
+
+
+def greatest(*cols) -> Column:
+    e = _e(cols[0])
+    for c in cols[1:]:
+        e = ar.Greatest(e, _e(c))
+    return Column(e)
+
+
+def least(*cols) -> Column:
+    e = _e(cols[0])
+    for c in cols[1:]:
+        e = ar.Least(e, _e(c))
+    return Column(e)
 
 
 upper = _u(st.Upper)

@@ -317,13 +317,15 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
     for cls in (ex.Literal, ex.BoundReference, ex.Alias,
                 ex.UnresolvedAttribute):
         reg.register_expr(cls)
-    for cls in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide):
+    for cls in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide,
+                ar.IntegralDivide, ar.Remainder, ar.Pmod, ar.UnaryMinus,
+                ar.UnaryPositive, ar.Abs, ar.Least, ar.Greatest):
         reg.register_expr(cls)
     for cls in (pr.EqualTo, pr.LessThan, pr.LessThanOrEqual,
                 pr.GreaterThan, pr.GreaterThanOrEqual, pr.Not, pr.And,
                 pr.Or, pr.IsNull, pr.IsNotNull, pr.InSet):
         reg.register_expr(cls)
-    for cls in (cond.If, ne.Coalesce, ne.NaNvl):
+    for cls in (cond.If, cond.CaseWhen, ne.Coalesce, ne.NaNvl):
         reg.register_expr(cls)
     # the reference's string rules (plan/overrides.py:419-425) that this
     # engine ports: the case maps incompatible, the others plain

@@ -12,7 +12,10 @@ no build lands inside a query's execution.  ``Session(device="cpu")``
 runs the same device path on CPU tensors, where every kernel wrapper
 takes its plain PyTorch version — the tests' mode.  The reference's optimizer (it prunes file
 scans only), scheduler, recovery, serving, streaming and telemetry
-layers are not ported.
+layers are not ported; ``prepare_execution`` is the plan-and-context
+half of the reference's (no plan cache, exec lock, scheduler admission,
+cancel token or recovery).  ``execute_columnar`` is the ML export
+(``ml/``), gated by ``spark.rapids.tpu.sql.exportColumnarRdd``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .config import TpuConf
+from .config import EXPORT_COLUMNAR_RDD, TpuConf
 from .data.column import HostBatch
 from .plan import logical as L
 from .plan.logical import DataFrame
@@ -98,14 +101,34 @@ class Session:
             _build_fused_segments(phys)
         return phys
 
-    def execute(self, plan: L.LogicalPlan) -> HostBatch:
-        phys = self.physical_plan(plan)
-        ctx = ExecContext(self.conf, self.device)
-        out = collect_batches(phys.execute(ctx), phys.schema)
+    def prepare_execution(self, plan: L.LogicalPlan):
+        """The physical plan of ``plan`` and a new execution context: the
+        front half shared by ``execute`` and the ML export."""
+        return self.physical_plan(plan), ExecContext(self.conf, self.device)
+
+    def finish_execution(self, ctx: ExecContext) -> None:
+        """Keep the finished execution's metrics, placements and joins."""
         self.last_metrics = dict(ctx.metrics)
         self.last_placements = list(ctx.placements)
         self.last_joins = list(ctx.joins)
+
+    def execute(self, plan: L.LogicalPlan) -> HostBatch:
+        phys, ctx = self.prepare_execution(plan)
+        out = collect_batches(phys.execute(ctx), phys.schema)
+        self.finish_execution(ctx)
         return out
+
+    def execute_columnar(self, plan: L.LogicalPlan):
+        """The ML export: the final stage's device batches, in partition
+        order, never copied to the host (requires
+        ``spark.rapids.tpu.sql.exportColumnarRdd``)."""
+        if not self.conf.get(EXPORT_COLUMNAR_RDD):
+            raise RuntimeError(
+                f"set {EXPORT_COLUMNAR_RDD.key}=true to export device "
+                "batches")
+        from .ml.columnar_export import export_device_batches
+
+        return export_device_batches(self, plan)
 
     def explain(self, plan: L.LogicalPlan, mode: str = "ALL") -> str:
         from .plan.overrides import TpuOverrides

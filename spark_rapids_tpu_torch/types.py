@@ -58,6 +58,10 @@ class DType:
         return self.id is TypeId.STRING
 
     @property
+    def is_bool(self) -> bool:
+        return self.id is TypeId.BOOL
+
+    @property
     def np_dtype(self) -> np.dtype:
         """numpy dtype of the host data (``uint8`` bytes for STRING)."""
         return _NP[self.id]

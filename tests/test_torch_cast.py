@@ -453,15 +453,18 @@ def test_pow10_header_is_the_table():
 def test_every_registered_expression_has_a_k12_rule():
     """``fused.py`` raises for no expression the planner registers: the
     fused segments of the fusion test, the Substring/Year segment, the
-    cast segment, the string transform segment and the Coalesce/NaNvl
-    segment cover every registered class (UnresolvedAttribute is bound
-    before fusion)."""
+    cast segment, the string transform segment, the Coalesce/NaNvl
+    segment and the two segments of the arithmetic and CaseWhen rules
+    cover every registered class (UnresolvedAttribute is bound before
+    fusion)."""
     from spark_rapids_tpu_torch.exec.fused import TpuFusedSegmentExec
     from spark_rapids_tpu_torch.ops.expression import UnresolvedAttribute
     from spark_rapids_tpu_torch.plan.overrides import default_registry
     from test_torch_fusion import every_expression_frame
     from test_torch_kernels_emulated import _substring_year_frame
     from test_torch_kernels_emulated_cast import _cast_frame
+    from test_torch_kernels_emulated_export import (arith_frame,
+                                                    unnamed_query)
     from test_torch_kernels_emulated_generate import _null_exprs_frame
     from test_torch_kernels_emulated_strings import _transform_frame
 
@@ -474,7 +477,8 @@ def test_every_registered_expression_has_a_k12_rule():
 
     for sess, df, _batch in (every_expression_frame(),
                              _substring_year_frame(), _cast_frame(),
-                             _transform_frame(), _null_exprs_frame()):
+                             _transform_frame(), _null_exprs_frame(),
+                             arith_frame(), arith_frame(unnamed_query)):
         def walk(p):
             if isinstance(p, TpuFusedSegmentExec):
                 assert p.program.source

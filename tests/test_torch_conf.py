@@ -156,7 +156,6 @@ UNREAD_KEYS = {
     "spark.rapids.tpu.sql.adaptive.targetPartitionBytes",
     "spark.rapids.tpu.sql.batchSizeRows",
     "spark.rapids.tpu.sql.concurrentTpuTasks",
-    "spark.rapids.tpu.sql.exportColumnarRdd",
     "spark.rapids.tpu.sql.kernelCache.donation.enabled",
     "spark.rapids.tpu.sql.kernelCache.enabled",
     "spark.rapids.tpu.sql.kernelCache.maxEntries",
