@@ -154,6 +154,24 @@
    every joining cell; every cell with cold, warm and profiled walls,
    busy and idle share, H2D copies and ms, peak device memory, launches
    and the aggregates' and joins' input batches;
+2l. the dynamic-partition Parquet write (``phase_writes``): TPCx-BB
+   SF1 store_sales (seed 99, 11 columns, 4,000,000 rows) written at two
+   partitions with no ``partition_by`` (W0) and by ``ss_sold_date_sk``
+   (W1: 1,825 directories, 3,650 files), and SF10 lineitem (phase 2j's
+   draw, the 14 columns the generator draws, 60,000,000 rows) by
+   ``l_returnflag`` and ``l_linestatus`` (W2), into a temporary
+   directory whose free space is required first; every file read back
+   by ``io/parquet.read_file`` (in spawned processes, a row group a task)
+   and equal to numpy's answer (``write_oracle``: each partition's rows
+   of each key, in input order, under ``partition_dir_name``'s
+   directories), ``_SUCCESS`` present, the tracker's rows, files and
+   bytes equal to the listing; K1 and K4 (B.26) and no other hand
+   kernel launched in W1 and W2, none in W0; the cold wall, then one
+   warm run under torch.profiler: its wall (the host clock around the
+   write) split into input, sort + download, split, encode and file IO,
+   its device busy and idle share and DtoH bytes and ms; files, bytes,
+   MB/s, host ms a file, peak device memory; the phase's seconds on a
+   line of their own;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -187,6 +205,9 @@
    rows as one batch, and bit for bit again on the same batches with
    nulls set at seeded rows of three columns and in every row of one
    batch, so that rows are dropped)
+   and B.26 (the write's sort: K1 + K4) at the first partition's batch
+   of W1 and W2, bit for bit, with its event, enqueue, K1 and gather
+   (behind a spin) times and argsort + index_select at W1's int64 key)
    and holds it against its plain PyTorch version
    on the same card tensors — exact, or rel 1e-9 for float sums — timing
    kernel,
@@ -203,10 +224,14 @@ prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -250,6 +275,13 @@ DIST_K24 = ((3, 4), (18, 4))
 MORTGAGE_SF = 50.0
 MORTGAGE_SEED = 31
 EXPORT_CONF = {"spark.rapids.tpu.sql.exportColumnarRdd": True}
+# TPC-H lineitem's columns in the specification's order (phase 2l's W2
+# keeps those the generator draws)
+LINEITEM_COLUMNS = ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                    "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                    "l_returnflag", "l_linestatus", "l_shipdate",
+                    "l_commitdate", "l_receiptdate", "l_shipinstruct",
+                    "l_shipmode", "l_comment"]
 
 
 def log(*a):
@@ -311,12 +343,13 @@ def walk_plan(plan):
         yield from walk_plan(c)
 
 
-def profile_query(label, run):
+def profile_query(label, run, dtoh=False):
     """Device busy time of one warm run under torch.profiler: the sum of
     device time over kernels and copies, the idle share of the wall, and
     the top entries by device time.  Returns ``{"wall_ms", "busy_ms",
-    "idle_share", "h2d_copies", "h2d_ms"}``, or None where the profiler
-    saw no device activity."""
+    "idle_share", "h2d_copies", "h2d_ms"}`` (with ``dtoh``, also
+    ``"dtoh_copies", "dtoh_bytes", "dtoh_ms"`` from the same run's
+    trace), or None where the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -334,14 +367,20 @@ def profile_query(label, run):
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not rows:
+        events = prof.events()
         log(f"{label} profile: the profiler saw no device activity; device "
-            "time not measured")
+            f"time not measured ({len(events)} events, "
+            f"{sum(e.device_type == DeviceType.CUDA for e in events)} on "
+            f"the device; the trace's {_trace_kinds(prof)})")
         return None
     h2d = [(dev_us, count) for dev_us, count, key in rows if "HtoD" in key]
     out = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
            "idle_share": 1 - busy / wall_us,
            "h2d_copies": sum(c for _u, c in h2d),
            "h2d_ms": sum(u for u, _c in h2d) / 1e3}
+    if dtoh:
+        out["dtoh_copies"], out["dtoh_bytes"], out["dtoh_ms"] = \
+            _dtoh_of(prof)
     log(f"{label} profile (one warm run, profiler on): wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.2f} ms, idle "
         f"share {1 - busy / wall_us:.3f}, H2D {out['h2d_copies']} copies "
@@ -422,30 +461,470 @@ def profiled_kernel_ms(fn, kernel, reps=10):
     return (total / seen / 1e3 if seen else None), seen
 
 
+def _trace_events(prof):
+    """The finished profile's Chrome trace events."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f).get("traceEvents", [])
+
+
+def _trace_kinds(prof):
+    """Events of a finished profile's Chrome trace by category."""
+    kinds = collections.Counter(str(e.get("cat")) for e in
+                                _trace_events(prof) if e.get("ph") == "X")
+    return dict(sorted(kinds.items()))
+
+
+def _dtoh_of(prof):
+    """(copies, bytes, device ms) of the device-to-host copies a finished
+    profile recorded, from its Chrome trace (the copy records'
+    ``bytes``); bytes None where any copy's record lacks them, so that
+    no caller compares a partial sum."""
+    copies = [e for e in _trace_events(prof) if e.get("ph") == "X" and
+              "DtoH" in str(e.get("name", ""))]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    total = None if None in sizes else sum(sizes)
+    return len(copies), total, sum(e.get("dur", 0) for e in copies) / 1e3
+
+
 def dtoh_copies(run):
     """(copies, bytes, device ms) of the device-to-host copies in one run
-    of ``run`` under torch.profiler, from its Chrome trace (the copy
-    records' ``bytes``); bytes None where any copy's record lacks them,
-    so that no caller compares a partial sum."""
-    import os
-    import tempfile
-
+    of ``run`` under torch.profiler (``_dtoh_of``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    copies = [e for e in events if e.get("ph") == "X" and
-              "DtoH" in str(e.get("name", ""))]
-    sizes = [e.get("args", {}).get("bytes") for e in copies]
-    total = None if None in sizes else sum(sizes)
-    return len(copies), total, sum(e.get("dur", 0) for e in copies) / 1e3
+    return _dtoh_of(prof)
+
+
+# --------------------------------------------------------------------------
+# the write path (phase 2l): numpy's answer and the read-back check
+# --------------------------------------------------------------------------
+def _key_codes(col, lo, hi):
+    """A key column's rows [lo, hi) as small non-negative integers in the
+    key's order, and their range: int64 keys by their offset from the
+    least, one-byte strings by their byte.  Nulls and other strings are
+    not among the cells' keys."""
+    valid = col.is_valid()[lo:hi]
+    require(bool(valid.all()), "a write cell's key holds nulls")
+    if col.dtype.is_string:
+        require(col.data.shape[1] >= 1 and
+                bool((col.lengths[lo:hi] == 1).all()),
+                "a write cell's string key is not one byte wide")
+        return col.data[lo:hi, 0].astype(np.int64), 256
+    x = col.data[lo:hi].astype(np.int64)
+    least = int(x.min()) if x.shape[0] else 0
+    return x - least, int(x.max()) - least + 1 if x.shape[0] else 1
+
+
+def write_oracle(hb, keys, n_parts, dir_name):
+    """The rows each file of a write of ``hb`` over ``n_parts`` partitions
+    by ``keys`` must hold, by numpy: {(partition, directory segments): row
+    indices of ``hb``, in input order}.  A partition holds an even slice
+    of the rows (as ``create_dataframe`` splits one batch); a file holds
+    its partition's rows of one key value (a stable argsort of the
+    combined key codes), in a directory named by ``dir_name`` for each
+    key's value."""
+    n = hb.num_rows
+    per = -(-n // n_parts)
+    out = {}
+    idx = [hb.schema.index_of(k) for k in keys]
+    for p in range(n_parts):
+        lo, hi = p * per, min(n, (p + 1) * per)
+        if lo >= hi:
+            continue
+        if not keys:
+            out[(p, ())] = np.arange(lo, hi)
+            continue
+        code, span = np.zeros(hi - lo, np.int64), 1
+        for i in idx:
+            c, r = _key_codes(hb.columns[i], lo, hi)
+            code, span = code * r + c, span * r
+        code = code.astype(np.uint16 if span <= 1 << 16 else np.int64)
+        order = np.argsort(code, kind="stable")
+        cuts = np.flatnonzero(np.diff(code[order])) + 1
+        for s, e in zip(np.concatenate([[0], cuts]).tolist(),
+                        np.concatenate([cuts, [hi - lo]]).tolist()):
+            row = lo + int(order[s])
+            dirs = []
+            for k, i in zip(keys, idx):
+                c = hb.columns[i]
+                v = bytes(c.data[row, :c.lengths[row]]).decode() \
+                    if c.dtype.is_string else c.data[row]
+                dirs.append(dir_name(k, v))
+            out[(p, tuple(dirs))] = lo + order[s:e]
+    return out
+
+
+def _check_written_files(task):
+    """Read written files (or row groups of them) with
+    ``io/parquet.read_file`` and compare each with the rows it must hold:
+    row count, schema, validity, and each column's valid values bit for
+    bit (strings: lengths and the bytes inside them).  ``task`` is (the
+    staged columns [(name, type name, .npy path prefix, has lengths)],
+    the staged row indices' .npy path, [(path, row group or None, the
+    file's slice of the row indices)]).  Returns [(path, row group, rows
+    read, differences)]."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import parquet as PQ
+
+    cols, rows_npy, items = task
+    all_rows = np.load(rows_npy, mmap_mode="r")
+    staged = [{part: np.load(f"{prefix}.{part}.npy", mmap_mode="r")
+               for part in ("data", "valid") + (("lengths",) if ln else ())}
+              for _n, _t, prefix, ln in cols]
+    want_schema = [(name, T.from_name(t)) for name, t, _p, _l in cols]
+    out = []
+    for path, rg, lo, hi in items:
+        rows = all_rows[lo:hi]
+        if rg is None:
+            got = PQ.read_file(path)
+        else:
+            got = PQ.read_file(path, row_groups=[rg])
+            rows = rows[rg * PQ.ROW_GROUP_ROWS:(rg + 1) * PQ.ROW_GROUP_ROWS]
+        rows = np.asarray(rows)
+        n = rows.shape[0]
+        if got.num_rows != n:
+            out.append((path, rg, got.num_rows,
+                        [f"{got.num_rows} rows, expected {n}"]))
+            continue
+        bad = []
+        if [(f.name, f.dtype) for f in got.schema] != want_schema:
+            bad.append(f"schema {got.schema}")
+        for g, (name, *_), arrays in zip(got.columns, cols, staged):
+            data = np.take(arrays["data"], rows, axis=0)
+            v = np.take(arrays["valid"], rows)
+            if not np.array_equal(g.is_valid(), v):
+                bad.append(f"{name}: validity")
+            elif "lengths" in arrays:
+                lengths = np.take(arrays["lengths"], rows)
+                width = max(g.data.shape[1], data.shape[1])
+                inside = np.arange(width)[None, :] < lengths[:, None]
+                gm = np.zeros((n, width), np.uint8)
+                wm = np.zeros((n, width), np.uint8)
+                gm[:, :g.data.shape[1]] = g.data
+                wm[:, :data.shape[1]] = data
+                if not (np.array_equal(g.lengths[v], lengths[v]) and
+                        np.array_equal((gm * inside)[v], (wm * inside)[v])):
+                    bad.append(f"{name}: strings")
+            elif not np.array_equal(g.data[v].view(np.uint8),
+                                    data[v].view(np.uint8)):
+                bad.append(f"{name}: values")
+        out.append((path, rg, got.num_rows, bad))
+    return out
+
+
+def check_written(files, hb, keep, rows, pool, stage):
+    """``_check_written_files`` over each of ``files`` ({oracle key:
+    path}) on ``pool`` (spawned worker processes: the decode of a string
+    column is a Python loop over its values), a row group an item where
+    a file has several, the items dealt into about 64 tasks.  ``hb``'s
+    ``keep`` columns and each file's row indices (``rows``: oracle key ->
+    indices) are staged as .npy files under ``stage``, which the workers
+    map rather than receive."""
+    from spark_rapids_tpu_torch.io import parquet as PQ
+
+    os.makedirs(stage, exist_ok=True)
+    cols = []
+    for i in keep:
+        c, f = hb.columns[i], hb.schema[i]
+        prefix = os.path.join(stage, f"c{i}")
+        np.save(f"{prefix}.data.npy", c.data)
+        np.save(f"{prefix}.valid.npy", c.is_valid())
+        if c.lengths is not None:
+            np.save(f"{prefix}.lengths.npy", c.lengths)
+        cols.append((f.name, f.dtype.sql_name, prefix, c.lengths is not None))
+    keys = sorted(files)
+    rows_npy = os.path.join(stage, "rows.npy")
+    np.save(rows_npy, np.concatenate([rows[k] for k in keys]))
+    items, at = [], 0
+    for key in keys:
+        n = rows[key].shape[0]
+        n_rg = -(-n // PQ.ROW_GROUP_ROWS)
+        items += [(files[key], rg, at, at + n)
+                  for rg in ([None] if n_rg <= 1 else range(n_rg))]
+        at += n
+    step = -(-len(items) // 64)
+    tasks = [(cols, rows_npy, items[i:i + step])
+             for i in range(0, len(items), step)]
+    try:
+        return [r for rs in pool.imap_unordered(_check_written_files, tasks)
+                for r in rs]
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+
+
+def phase_writes(cells, counters, cold, warm, card, check_pool):
+    """Phase 2l: each cell ``name -> (host batch, partition columns)``
+    written at two partitions through ``DataFrame.write_parquet`` on
+    ``cuda`` into a temporary directory (free space checked first):
+    the cold run's launches (K1 and K4, through B.26, and no other hand
+    kernel where there are keys; none without), its files read back with
+    ``io/parquet.read_file`` in spawned processes and held against
+    ``write_oracle``'s answer (directories, files, _SUCCESS, each file's
+    rows in input order, the tracker's rows, files and bytes); one warm
+    run under torch.profiler (its wall on the host clock around the
+    write, the split of that wall, busy, idle share, DtoH), keeping the
+    first partition's sort input of W1 and W2 for phase 3.
+    The files are removed.  ``check_pool`` is a pool of spawned
+    processes for the read-back.  Returns (info by cell, launches by
+    cell, B.26 inputs by cell); ``cold``/``warm`` get the walls."""
+    from spark_rapids_tpu_torch import Session
+    from spark_rapids_tpu_torch.exec import write as WR
+    from spark_rapids_tpu_torch.io.scans import partition_dir_name
+
+    all_counters = [c for cs in counters.values() for c in cs]
+    current = {}
+    write_root = tempfile.mkdtemp(prefix="chip_smoke_write_")
+    write_info, write_launches, b26_inputs = {}, {}, {}
+    sort_impl = WR.TpuDataWritingCommandExec._sort_by_keys
+
+    def recording_sort(self, b, kernels=None):
+        # the first partition's batch of each cell's warm run, for phase 3
+        b26_inputs.setdefault(current["cell"], (self, b))
+        return sort_impl(self, b, kernels)
+
+    def listing(root):
+        files, sizes = [], {}
+        for d, _dirs, names in os.walk(root):
+            for n in names:
+                path = os.path.join(d, n)
+                files.append(path)
+                sizes[path] = os.path.getsize(path)
+        return files, sizes
+
+    try:
+        for cell, (whb, keys) in cells.items():
+            root = os.path.join(write_root, cell)
+            # what the files hold: the data's bytes, strings with their
+            # 4-byte lengths (literal-only snappy adds 5 bytes a page);
+            # the check stages about as much again
+            est = sum(c.data.nbytes if not c.dtype.is_string else
+                      int(c.lengths.sum()) + 4 * c.num_rows
+                      for c in whb.columns)
+            free = shutil.disk_usage(write_root).free
+            require(free > 2.5 * est, f"{cell}: {free} bytes free under "
+                    f"{write_root}, the write and its check need about "
+                    f"{2 * est}")
+            t0 = time.perf_counter()
+            want = write_oracle(whb, keys, 2, partition_dir_name)
+            log(f"{cell}: {whb.num_rows} rows x {len(whb.schema)} columns "
+                f"by {keys or 'no key'}; numpy's answer ({len(want)} files)"
+                f" in {time.perf_counter() - t0:.1f} s; about {est} bytes "
+                f"to write, {free} free under {write_root}")
+
+            def run(root=root, whb=whb, keys=keys):
+                shutil.rmtree(root, ignore_errors=True)
+                wsess = Session()
+                df = wsess.create_dataframe(whb, n_partitions=2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                df.write_parquet(root, partition_by=keys or None)
+                torch.cuda.synchronize()
+                return wsess, time.perf_counter() - t0
+
+            current["cell"] = cell
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for cnt in all_counters:
+                cnt.reset()
+            wsess, cold[cell] = run()
+            peak = torch.cuda.max_memory_allocated() - held
+            write_launches[cell] = {k: sum(x.count for x in cs)
+                                    for k, cs in counters.items()}
+            got = write_launches[cell]
+            log(f"{cell} launches: {got}")
+            if keys:
+                require(got["K1"] > 0 and got["K4"] > 0 and
+                        all(v == 0 for k, v in got.items()
+                            if k not in ("K1", "K4")),
+                        f"{cell}: the write's launches {got}; K1 and K4 "
+                        "(B.26) and no other kernel expected")
+            else:
+                require(not any(got.values()), f"{cell}: launches {got}, "
+                        "none expected")
+            # the files against numpy's answer
+            t0 = time.perf_counter()
+            files, sizes = listing(root)
+            expect = {key: os.path.join(root, *key[1],
+                                        f"part-{key[0]:05d}.parquet")
+                      for key in want}
+            data_files = {f for f in files if f.endswith(".parquet")}
+            require(data_files == set(expect.values()) and
+                    os.path.join(root, "_SUCCESS") in files and
+                    len(files) == len(data_files) + 1,
+                    f"{cell}: {len(data_files)} data files, expected "
+                    f"{len(expect)}; missing "
+                    f"{sorted(set(expect.values()) - data_files)[:3]}, "
+                    f"extra {sorted(set(files) - set(expect.values()))[:3]}")
+            dirs = {os.path.relpath(os.path.dirname(f), root)
+                    for f in data_files}
+            require(dirs == {os.path.normpath(os.path.join(".", *k[1]))
+                             for k in want},
+                    f"{cell}: directories differ from numpy's keys")
+            st = wsess.last_write_stats
+            n_bytes = sum(sizes[f] for f in data_files)
+            require(st.metrics["numOutputRows"].value == whb.num_rows and
+                    st.metrics["numFiles"].value == len(data_files) and
+                    st.metrics["numOutputBytes"].value == n_bytes,
+                    f"{cell}: tracker "
+                    f"{ {k: m.value for k, m in st.metrics.items()} } "
+                    f"against {whb.num_rows} rows, {len(data_files)} "
+                    f"files, {n_bytes} bytes listed")
+            keep = [i for i, f in enumerate(whb.schema) if f.name not in keys]
+            results = check_written(expect, whb, keep, want, check_pool,
+                                    os.path.join(write_root, "check"))
+            bad = [r for r in results if r[3]]
+            require(not bad and sum(r[2] for r in results) == whb.num_rows,
+                    f"{cell}: files differ from numpy's answer: {bad[:3]}")
+            t_check = time.perf_counter() - t0
+            log(f"{cell}: {len(data_files)} files in "
+                f"{len(dirs)} directories, {n_bytes} bytes, _SUCCESS; "
+                f"every file read back by io/parquet.read_file equals its "
+                f"partition's rows of its key in input order "
+                f"({t_check:.1f} s); tracker "
+                f"rows, files and bytes equal the listing")
+            # one warm run under the profiler, its wall on the host clock
+            # around the write alone; its sort's input kept for phase 3
+            shutil.rmtree(root, ignore_errors=True)
+            wsess = Session()
+            wdf = wsess.create_dataframe(whb, n_partitions=2)
+
+            def warm_run(wdf=wdf, root=root, keys=keys):
+                t0 = time.perf_counter()
+                wdf.write_parquet(root, partition_by=keys or None)
+                torch.cuda.synchronize()
+                warm[cell] = time.perf_counter() - t0
+
+            WR.TpuDataWritingCommandExec._sort_by_keys = recording_sort
+            try:
+                prof = profile_query(f"{cell} write", warm_run, dtoh=True)
+            finally:
+                WR.TpuDataWritingCommandExec._sort_by_keys = sort_impl
+            m, st = wsess.last_metrics, wsess.last_write_stats
+            split = {
+                "input_s": m.get("TpuDataWritingCommandExec.inputTimeNs", 0),
+                "sort_download_s": m.get(
+                    "TpuDataWritingCommandExec.sortDownloadTimeNs", 0),
+                "split_s": m.get("TpuDataWritingCommandExec.splitTimeNs", 0),
+                "encode_s": st.metrics["encodeTimeNs"].value,
+                "file_io_s": st.metrics["ioTimeNs"].value}
+            split = {k: v / 1e9 for k, v in split.items()}
+            split["other_s"] = warm[cell] - sum(split.values())
+            shutil.rmtree(root, ignore_errors=True)
+            write_info[cell] = {
+                "rows": whb.num_rows, "columns": len(whb.schema),
+                "partition_by": keys, "files": len(data_files),
+                "directories": len(dirs), "bytes": n_bytes,
+                "cold_s": cold[cell], "warm_s": warm[cell],
+                "mb_per_s": n_bytes / warm[cell] / 1e6,
+                "host_ms_per_file": warm[cell] * 1e3 / len(data_files),
+                "split_of_warm_wall": split, "profile": prof,
+                "peak_device_bytes": peak, "launches": write_launches[cell],
+                "check_s": t_check}
+            log(f"{cell} write: wall cold {cold[cell]:.3f} s, warm "
+                f"{warm[cell]:.3f} s; warm split "
+                + ", ".join(f"{k[:-2]} {v:.3f} s ({v / warm[cell]:.3f})"
+                            for k, v in split.items())
+                + f"; {len(data_files)} files, {n_bytes} bytes, "
+                f"{n_bytes / warm[cell] / 1e6:.1f} MB/s, "
+                f"{warm[cell] * 1e3 / len(data_files):.3f} ms a file; K1 "
+                f"{got['K1']}, K4 {got['K4']} launches; DtoH "
+                + (f"{prof['dtoh_copies']} copies, {prof['dtoh_bytes']} "
+                   f"bytes, {prof['dtoh_ms']:.3f} ms; busy "
+                   f"{prof['busy_ms']:.2f} ms, idle share "
+                   f"{prof['idle_share']:.4f}" if prof else "not measured")
+                + f"; peak device memory {peak} bytes; on {card}")
+            del want, results
+    finally:
+        shutil.rmtree(write_root, ignore_errors=True)
+    require(set(b26_inputs) == {"W1", "W2"},
+            f"phase 2l kept B.26 inputs of {sorted(b26_inputs)}")
+    return write_info, write_launches, b26_inputs
+
+
+def measure_b26(b26_inputs):
+    """Phase 3's B.26 (the write's sort by its partition columns: K1's
+    lexsort and K4's gather of the whole batch) at the first partition's
+    batch of W1 (2,000,000 store_sales rows, one int64 key) and W2
+    (30,000,000 SF10 lines, two one-byte string keys) as phase 2l's warm
+    runs gave them: bit for bit against its plain version, its event,
+    enqueue, K1 and gather (behind a spin) times and the plain time.
+    Returns (figures by cell, the library call's ms at W1)."""
+    from spark_rapids_tpu_torch.data import column as C
+    from spark_rapids_tpu_torch.ops.kernels import gather as G
+    from spark_rapids_tpu_torch.ops.kernels import segment as S
+
+    def b26_plain(b, key_idx):
+        order = S.lexsort_plain([b.columns[i] for i in key_idx],
+                                pad_valid=b.row_mask())
+        return C.DeviceBatch(b.schema, [G.gather_column_plain(c, order)
+                                        for c in b.columns], b.num_rows)
+
+    def same_batch(a, b):
+        return int(a.num_rows) == int(b.num_rows) and all(
+            torch.equal(x.data, y.data) and torch.equal(x.validity,
+                                                        y.validity) and
+            (x.lengths is None) == (y.lengths is None) and
+            (x.lengths is None or torch.equal(x.lengths, y.lengths))
+            for x, y in zip(a.columns, b.columns))
+
+    b26 = {}
+    for cell, (wex, wb) in sorted(b26_inputs.items()):
+        key_idx = wex._key_idx()
+        kcols = [wb.columns[i] for i in key_idx]
+        rm = wb.row_mask()
+        require(same_batch(wex._sort_by_keys(wb), b26_plain(wb, key_idx)),
+                f"B.26 differs from its plain version at {cell}'s batch")
+        order = S.lexsort_device(kcols, pad_valid=rm)
+        n_passes = 1 + S._n_passes(S._with_lengths(kcols, None, None)[0])
+        moved = n_passes * wb.padded_rows * 8 + 2 * wb.device_bytes() + \
+            sum(nbytes(c.data, c.validity, c.lengths) for c in kcols)
+        b26[cell] = dict(
+            rows=int(wb.num_rows), padded=wb.padded_rows, passes=n_passes,
+            columns=len(wb.columns), bytes=moved,
+            ms=cuda_ms(lambda: wex._sort_by_keys(wb)),
+            enq=enqueue_ms(lambda: wex._sort_by_keys(wb)),
+            sort_ms=cuda_ms(lambda: S.lexsort_device(kcols, pad_valid=rm)),
+            gather_dev=device_ms(lambda: G.gather_batch(wb, order,
+                                                        wb.num_rows)),
+            plain=cuda_ms(lambda: b26_plain(wb, key_idx), reps=3,
+                          warmup=1))
+        log(f"B.26 at {cell}'s first partition: {b26[cell]['rows']} rows "
+            f"({wb.padded_rows} padded) x {len(wb.columns)} columns, "
+            f"{n_passes} K1 passes, {moved} bytes (bound "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms), equal to its plain "
+            f"version bit for bit; event {b26[cell]['ms']:.3f} ms (K1's "
+            f"histogram read back inside: no spin time), enqueue "
+            f"{b26[cell]['enq']:.3f} ms, K1 alone {b26[cell]['sort_ms']:.3f}"
+            f" ms, K4's gather behind a spin "
+            f"{_ms_text(b26[cell]['gather_dev'])}, plain "
+            f"{b26[cell]['plain']:.3f} ms")
+    # the library call at W1's one int64 key: a stable argsort of the key
+    # (nulls first, padding last, as K1 orders them) and index_select of
+    # every array
+    wex, wb = b26_inputs["W1"]
+    kc = wb.columns[wex._key_idx()[0]]
+    rm = wb.row_mask()
+    lib_key = torch.where(rm, torch.where(kc.validity, kc.data,
+                                          torch.iinfo(torch.int64).min),
+                          torch.iinfo(torch.int64).max)
+    arrays = [t for c in wb.columns for t in (c.data, c.validity, c.lengths)
+              if t is not None]
+
+    def b26_library():
+        o = torch.argsort(lib_key, stable=True)
+        return [torch.index_select(t, 0, o) for t in arrays]
+
+    require(torch.equal(torch.argsort(lib_key, stable=True).to(torch.int32),
+                        S.lexsort_device([kc], pad_valid=rm)),
+            "B.26's library order differs from K1's at W1")
+    return b26, cuda_ms(b26_library)
 
 
 # --------------------------------------------------------------------------
@@ -2028,8 +2507,23 @@ def main() -> int:
     log(f"K25 and K9 are checked at the largest split of "
         f"{k25_call['cell']} and the largest seeded hash of "
         f"{k9_seeded_call['cell']}")
+    # SF10 lineitem with the 14 columns the generator draws, for phase
+    # 2l's W2 (the columns themselves, not copies)
+    w2_names = [c for c in LINEITEM_COLUMNS if c in cols10]
+    require(len(w2_names) == 14, f"SF10 lineitem columns: {w2_names}")
+    w2_host = HostBatch(Schema([Field(c, cols10[c].dtype)
+                                for c in w2_names]),
+                        [cols10[c] for c in w2_names])
     del cols10, k25_calls, k9_seeded_calls
     log(f"phase 2j (SF{SF10:g}) took {time.perf_counter() - t_sf10:.1f} s")
+
+    # phase 2l's read-back check runs in spawned processes; they start
+    # now, so that their imports overlap phase 2k (they are daemons: the
+    # interpreter ends them at exit, and phase 2l terminates them)
+    import multiprocessing as mp
+
+    check_pool = mp.get_context("spawn").Pool(max(1, min(8, os.cpu_count()
+                                                          or 1)))
 
     # ---- 2k. the ML hand-off: the Mortgage ETL, its export, ML prep -----
     # every cell before this one launched no K26 (its counter is read in
@@ -2219,10 +2713,17 @@ def main() -> int:
     del bs
     # device-to-host copies under the profiler: the export against the
     # ETL to device batches alone (the engine's own read-backs), and
-    # against a download of the same result
-    copies, dtoh, dtoh_ms = dtoh_copies(lambda: ml.feature_matrix(edf))
-    b_copies, b_bytes, b_ms = dtoh_copies(lambda: ml.columnar_batches(edf))
-    d_copies, d_bytes, d_ms = dtoh_copies(edf._result_batch)
+    # against a download of the same result.  torch.profiler can drop a
+    # session's device records (PERF.md §6), which only lowers a
+    # count: each is taken twice and the larger kept
+
+    def dtoh_most(run):
+        return max(dtoh_copies(run), dtoh_copies(run),
+                   key=lambda r: -1 if r[1] is None else r[1])
+
+    copies, dtoh, dtoh_ms = dtoh_most(lambda: ml.feature_matrix(edf))
+    b_copies, b_bytes, b_ms = dtoh_most(lambda: ml.columnar_batches(edf))
+    d_copies, d_bytes, d_ms = dtoh_most(edf._result_batch)
     n_batches = len(k26_inputs["etl"])
     # every copy's bytes from the trace, and beyond the ETL's own
     # read-backs one int32 count a batch
@@ -2305,6 +2806,24 @@ def main() -> int:
     del mtabs, mdf, edf, mwant, want_feats, etl_df
     log(f"phase 2k (ML hand-off) took {time.perf_counter() - t_ml:.1f} s")
 
+    # ---- 2l. the dynamic-partition Parquet write (B.26) ------------------
+    # W0: TPCx-BB SF1 store_sales unpartitioned; W1: the same by
+    # ss_sold_date_sk (spark-sql-perf's partitioned TPC-DS layout); W2:
+    # SF10 lineitem (phase 2j's draw) by its status flags
+    t_write = time.perf_counter()
+    w1_host = tpcxbb_datagen.tables_of(bb_gen, ["store_sales"])[
+        "store_sales"]
+    try:
+        write_info, write_launches, b26_inputs = phase_writes(
+            {"W0": (w1_host, []), "W1": (w1_host, ["ss_sold_date_sk"]),
+             "W2": (w2_host, ["l_returnflag", "l_linestatus"])},
+            counters, cold, warm, card, check_pool)
+    finally:
+        check_pool.terminate()
+        check_pool.join()
+    del w1_host, w2_host
+    log(f"phase 2l (writes) took {time.perf_counter() - t_write:.1f} s")
+
     # ---- 3. kernels against their plain versions --------------------------
     dev = sess.device
     db = host_to_device(hb, 128, dev)          # 8,388,608 padded rows
@@ -2358,29 +2877,28 @@ def main() -> int:
                  "K24": [dist_launches],
                  "K25": [sf10_launches],
                  "K26": [ml_launches],
+                 # B.26 is K1 + K4: its launches are theirs in the write
+                 # cells, where phase 2l found no other kernel launched
+                 "B.26": [{c: {k: v["K1"] + v["K4"]}
+                           for c, v in write_launches.items()}],
                  }.get(k, [launches])
         if k == "K12":
             mains.append(rollup_launches)
+
+        def by_cell(runs):
+            return {label(q): v[k] for q, v in runs.items() if k in v}
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces,
              # summed over the cold runs of the queries
              "launches": sum(m[q][k] for m in mains for q in m),
-             "launches_by_query": {label(q): launches[q][k]
-                                   for q in launches},
-             "launches_by_query_two_partitions": {
-                 label(q): launches2[q][k] for q in launches2},
-             "launches_by_text_cell": {c: v[k] for c, v in
-                                       text_launches.items()},
-             "launches_by_clean_cell": {c: v[k] for c, v in
-                                        clean_launches.items()},
-             "launches_by_rollup_cell": {c: v[k] for c, v in
-                                         rollup_launches.items()},
-             "launches_by_distributed_cell": {c: v[k] for c, v in
-                                              dist_launches.items()},
-             "launches_by_sf10_cell": {c: v[k] for c, v in
-                                       sf10_launches.items()},
-             "launches_by_ml_cell": {c: v[k] for c, v in
-                                     ml_launches.items()},
+             "launches_by_query": by_cell(launches),
+             "launches_by_query_two_partitions": by_cell(launches2),
+             "launches_by_text_cell": by_cell(text_launches),
+             "launches_by_clean_cell": by_cell(clean_launches),
+             "launches_by_rollup_cell": by_cell(rollup_launches),
+             "launches_by_distributed_cell": by_cell(dist_launches),
+             "launches_by_sf10_cell": by_cell(sf10_launches),
+             "launches_by_ml_cell": by_cell(ml_launches),
              "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
              "status": "ported; launched in " + ", ".join(sorted({
@@ -3663,6 +4181,34 @@ def main() -> int:
           one_batch_write_device_ms=one_write_dev)
     del got, ref, plans, counts, sel, nulled, n_got, n_ref, n_plans, n_counts
 
+    # B.26: the write's sort by its partition columns, at phase 2l's W1
+    # and W2 batches (``measure_b26``); the row's numbers are W1's, whose
+    # one int64 key has a library call, W2's ride beside them
+    t_b26 = time.perf_counter()
+    b26, b26_lib = measure_b26(b26_inputs)
+    log(f"phase 3's B.26 line took {time.perf_counter() - t_b26:.1f} s")
+    w1 = b26["W1"]
+    entry("B.26 sort_by_keys",
+          "spark_rapids_tpu_torch/exec/write.py",
+          "spark_rapids_tpu/exec/write.py:57",
+          w1["ms"], w1["plain"], b26_lib, w1["bytes"],
+          w1["padded"] * w1["passes"], FP32_PER_S, 0.0,
+          library_call="torch.argsort(stable=True) of the key (nulls first,"
+          " padding last) and torch.index_select of every array",
+          shape=f"W1's first partition: {w1['rows']} rows "
+          f"({w1['padded']} padded) x {w1['columns']} columns, one int64"
+          " key",
+          route_note="K1 (csrc/sort.cu) + K4 (csrc/gather.cu), no new "
+          "kernel", enqueue_ms=w1["enq"], event_ms=w1["ms"],
+          sort_event_ms=w1["sort_ms"], gather_device_ms=w1["gather_dev"],
+          w2={k: b26["W2"][k] for k in ("rows", "padded", "passes", "ms",
+                                        "enq", "sort_ms", "gather_dev",
+                                        "plain")},
+          w2_bound_ms=b26["W2"]["bytes"] / HBM_BYTES_PER_S * 1e3,
+          launches_by_write_cell={c: {"K1": v["K1"], "K4": v["K4"]}
+                                  for c, v in write_launches.items()})
+    del b26_inputs
+
     log(f"timings: CUDA events, median of 10 after 2 warm-up runs, inputs "
         f"warm in L2 where they fit; card {card}")
     print(json.dumps({"queries": {f"q{q}": {"cold_s": cold[q],
@@ -3690,7 +4236,7 @@ def main() -> int:
                                              **dist_info[cell]}
                                       for cell in dist_runs},
                       "sf10": sf10_info, "packed_upload": upload,
-                      "ml": ml_info,
+                      "ml": ml_info, "writes": write_info,
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)
     print(json.dumps({"kernels": entries}))

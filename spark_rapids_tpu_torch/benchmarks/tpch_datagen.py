@@ -61,10 +61,15 @@ typed columns it was printed from; ``export_lines`` gives the bytes of
 the text export's line (dbgen's line without ``l_linenumber``, the three
 money fields and ``l_comment``).  Both work on whole columns in numpy,
 never through Python strings.
+
+``write_parquet(session, path, sf, seed)`` writes ``generate``'s eight
+tables as Parquet directories ``path/<table>/`` through the session's
+write path, as the reference's ``write_parquet`` (``:345``) does.
 """
 from __future__ import annotations
 
 import datetime as dt
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -822,6 +827,14 @@ def reference_tables(sf: float = 0.001, seed: int = 42
             [(f.name, f.dtype.sql_name) for f in schema],
             [cols[f.name] for f in schema])
     return out
+
+
+def write_parquet(session, path: str, sf: float = 0.001, seed: int = 42):
+    """``generate``'s eight tables as Parquet directories under ``path``
+    (``path/<table>/part-0000p.parquet``, two partitions a table)."""
+    for name, batch in reference_tables(sf, seed).items():
+        session.create_dataframe(batch).write_parquet(
+            os.path.join(path, name))
 
 
 # ---------------------------------------------------------------------------

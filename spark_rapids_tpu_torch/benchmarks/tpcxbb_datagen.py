@@ -8,10 +8,12 @@ dates as int64 day numbers from 2001-01-01).  At SF1: 8,000,000
 web_clickstreams rows, 100,000 items, 200,000 customers.  ``tables``
 turns the chosen tables into this engine's host batches and
 ``dataframes`` into DataFrames, at the reference's default of two
-partitions unless told otherwise.
+partitions unless told otherwise, and ``write_parquet`` writes them as
+Parquet directories, one a table (as ``tpch_datagen.write_parquet``).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -349,3 +351,10 @@ def dataframes(session, sf: float = 0.001, seed: int = 99,
                n_partitions: int = 2):
     return {name: session.create_dataframe(b, n_partitions=n_partitions)
             for name, b in tables(sf, seed, names).items()}
+
+
+def write_parquet(session, path: str, sf: float = 0.001, seed: int = 99):
+    """The generated tables as Parquet directories under ``path``
+    (``path/<table>/part-0000p.parquet``, two partitions a table)."""
+    for name, df in dataframes(session, sf, seed).items():
+        df.write_parquet(os.path.join(path, name))

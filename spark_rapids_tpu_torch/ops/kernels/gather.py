@@ -99,8 +99,10 @@ def gather_column(col: DeviceColumn, order: torch.Tensor,
 
 
 def gather_batch(batch: DeviceBatch, order: torch.Tensor, num_rows,
-                 valid_mask: Optional[torch.Tensor] = None) -> DeviceBatch:
-    cols = [gather_column(c, order, valid_mask) for c in batch.columns]
+                 valid_mask: Optional[torch.Tensor] = None,
+                 kernels: Optional[B.Kernels] = None) -> DeviceBatch:
+    cols = [gather_column(c, order, valid_mask, kernels)
+            for c in batch.columns]
     return DeviceBatch(batch.schema, cols, num_rows)
 
 

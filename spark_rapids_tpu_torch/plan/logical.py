@@ -3,14 +3,16 @@
 Counterpart of ``spark_rapids_tpu/plan/logical.py`` for the slices
 ported so far: ``LocalRelation``, ``Filter``, ``Project``,
 ``Aggregate``, ``Join``, ``Sort``, ``Limit``, ``Union``, ``Repartition``,
-``Expand``, ``Generate`` and ``Window``, and a ``DataFrame`` with
-``filter``, ``with_column``, ``with_column_renamed``, ``select``,
-``drop``, ``group_by().agg``, ``agg``, ``join``, ``sort``, ``limit``,
-``union``/``unionAll``, ``repartition``, ``distinct``, ``explode``,
-``with_window``, ``collect`` and ``explain``.  Grouping sets are an
-``Expand`` node built by the caller (the reference's DataFrame has no
-``rollup`` either); ``sort_within_partitions``, file scans and writes
-come with later slices.
+``Expand``, ``Generate``, ``Window`` and ``WriteFile``, and a
+``DataFrame`` with ``filter``, ``with_column``, ``with_column_renamed``,
+``select``, ``drop``, ``group_by().agg``, ``agg``, ``join``, ``sort``,
+``limit``, ``union``/``unionAll``, ``repartition``, ``distinct``,
+``explode``, ``with_window``, ``collect``, ``explain``,
+``write_parquet`` and ``write_orc`` (planned and tagged; ORC has no
+encoder, so its conversion raises).  Grouping sets are an ``Expand``
+node built by the caller (the reference's DataFrame has no ``rollup``
+either); ``sort_within_partitions`` and file scans come with later
+slices.
 """
 from __future__ import annotations
 
@@ -274,6 +276,23 @@ class Window(LogicalPlan):
         return f"Window[{', '.join(w.sql() for w in self.window_exprs)}]"
 
 
+class WriteFile(LogicalPlan):
+    def __init__(self, child: LogicalPlan, fmt: str, path: str,
+                 options: Optional[dict] = None,
+                 partition_by: Optional[List[str]] = None,
+                 bucket_by: Optional[List[str]] = None):
+        super().__init__([child])
+        self.fmt = fmt
+        self.path = path
+        self.options = options or {}
+        self.partition_by = partition_by or []
+        self.bucket_by = bucket_by or []
+
+    @property
+    def schema(self):
+        return T.Schema([])
+
+
 _JOIN_ALIASES = {"left_outer": "left", "right_outer": "right",
                  "full_outer": "full", "leftsemi": "semi",
                  "left_semi": "semi", "leftanti": "anti",
@@ -418,6 +437,20 @@ class DataFrame:
 
     def explain(self, mode: str = "ALL") -> str:
         return self.session.explain(self.plan, mode)
+
+    def write_parquet(self, path: str, partition_by=None,
+                      bucket_by=None, **options):
+        """Write every partition as Parquet under ``path`` (Hive
+        ``k=v`` directories by ``partition_by``; ``compression``
+        ``snappy`` by default, ``gzip`` or ``none``), then ``_SUCCESS``;
+        ``session.last_write_stats`` holds the files written."""
+        self.session.execute(WriteFile(self.plan, "parquet", path,
+                                       options, partition_by, bucket_by))
+
+    def write_orc(self, path: str, partition_by=None,
+                  bucket_by=None, **options):
+        self.session.execute(WriteFile(self.plan, "orc", path,
+                                       options, partition_by, bucket_by))
 
     def __repr__(self):  # pragma: no cover
         return f"DataFrame[{', '.join(map(repr, self.schema.fields))}]"

@@ -348,7 +348,8 @@ def _register_expression_rules(reg: RuleRegistry) -> None:
 
 def _register_exec_rules(reg: RuleRegistry) -> None:
     from ..exec import (aggregate, basic, exchange, generate, joins, sort,
-                        window)
+                        window, write)
 
-    for mod in (basic, generate, aggregate, exchange, joins, sort, window):
+    for mod in (basic, generate, aggregate, exchange, joins, sort, window,
+                write):
         mod.register(reg.register_exec)

@@ -30,9 +30,10 @@ class ExecContext:
     integer metrics (``<exec>.<metric>`` -> value) and the row placement
     of each multi-partition exchange (``placements``: one dict per
     exchange with its description, the rows written and the rows each
-    output partition yielded), and one record per shuffled join and
+    output partition yielded), one record per shuffled join and
     partition (``joins``: the batches each side brought and the grace
-    path's bucket pairs, buckets and deepest level)."""
+    path's bucket pairs, buckets and deepest level), and a write's
+    ``io.writers.WriteStatsTracker`` (``write_stats``)."""
 
     def __init__(self, conf, device):
         self.conf = conf
@@ -40,6 +41,7 @@ class ExecContext:
         self.metrics: Dict[str, int] = {}
         self.placements: List[dict] = []
         self.joins: List[dict] = []
+        self.write_stats = None
 
     def add_metric(self, key: str, value: int = 1) -> None:
         self.metrics[key] = self.metrics.get(key, 0) + value
@@ -364,3 +366,27 @@ class ShuffleExchangeExec(PhysicalPlan):
 
     def describe(self):
         return f"ShuffleExchange[{self.partitioning.describe()}]"
+
+
+# ==========================================================================
+# Write
+# ==========================================================================
+class DataWritingCommandExec(PhysicalPlan):
+    """The planner's write node (reference ``plan/physical.py:1111``);
+    the rewrite engine converts it to ``TpuDataWritingCommandExec``
+    (``exec/write.py``).  Its host ``execute`` raises, as every host
+    node's does here."""
+
+    def __init__(self, child: PhysicalPlan, fmt: str, path: str,
+                 options: dict, partition_by: List[str],
+                 bucket_by: Optional[List[str]] = None):
+        super().__init__([child])
+        self.fmt = fmt
+        self.path = path
+        self.options = options
+        self.partition_by = partition_by
+        self.bucket_by = bucket_by or []
+
+    @property
+    def schema(self):
+        return T.Schema([])

@@ -13,7 +13,8 @@ more than one partition sorts each partition of a range exchange
 robin without keys (``:64-70``); a union, an expand and a generate map
 one to one (``:55,80,84``); a window over more than one partition
 hash-exchanges by its partition keys when every spec has the same ones,
-else gathers into a single partition (``:93-112``).
+else gathers into a single partition (``:93-112``); a write maps one to
+one (``:88``).
 """
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ class Planner:
                 node.keys, self._n_partitions(child)).bind(child.schema)
             child = P.ShuffleExchangeExec(child, part)
         return P.SortExec(child, node.keys)
+
+    def _plan_WriteFile(self, node: L.WriteFile):
+        return P.DataWritingCommandExec(
+            self.plan(node.children[0]), node.fmt, node.path, node.options,
+            node.partition_by, node.bucket_by)
 
     def _plan_Window(self, node: L.Window):
         from ..exec.window_cpu import WindowExec

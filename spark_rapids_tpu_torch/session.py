@@ -16,6 +16,9 @@ layers are not ported; ``prepare_execution`` is the plan-and-context
 half of the reference's (no plan cache, exec lock, scheduler admission,
 cancel token or recovery).  ``execute_columnar`` is the ML export
 (``ml/``), gated by ``spark.rapids.tpu.sql.exportColumnarRdd``.
+``execute`` of a write (``DataFrame.write_parquet``) drains every
+partition, which writes the files, and keeps the write's stats in
+``last_write_stats``.
 """
 from __future__ import annotations
 
@@ -71,6 +74,8 @@ class Session:
         self.last_placements: List[dict] = []
         #: its shuffled joins' records (ExecContext.joins)
         self.last_joins: List[dict] = []
+        #: the WriteStatsTracker of the last write (files, rows, bytes)
+        self.last_write_stats = None
 
     def create_dataframe(self, data, schema=None,
                          n_partitions: int = 2) -> DataFrame:
@@ -107,10 +112,13 @@ class Session:
         return self.physical_plan(plan), ExecContext(self.conf, self.device)
 
     def finish_execution(self, ctx: ExecContext) -> None:
-        """Keep the finished execution's metrics, placements and joins."""
+        """Keep the finished execution's metrics, placements, joins and
+        (of a write) its write stats."""
         self.last_metrics = dict(ctx.metrics)
         self.last_placements = list(ctx.placements)
         self.last_joins = list(ctx.joins)
+        if ctx.write_stats is not None:
+            self.last_write_stats = ctx.write_stats
 
     def execute(self, plan: L.LogicalPlan) -> HostBatch:
         phys, ctx = self.prepare_execution(plan)

@@ -1,5 +1,7 @@
 """Boundaries of spark_rapids_tpu_torch: it imports neither jax nor the
-JAX package, it never drops silently to the CPU, its kernel wrappers take
+JAX package, nor pyarrow or pandas (a GPU host need not have them; the
+``io/`` package encodes Parquet itself), it never drops silently to the
+CPU, its kernel wrappers take
 the plain version only for CPU tensors, and nothing builds at import."""
 import ast
 import pathlib
@@ -24,7 +26,7 @@ PORT_FILES = sorted((ROOT / "spark_rapids_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-def _forbidden_imports(path):
+def _forbidden_imports(path, tops=("jax", "jaxlib", "spark_rapids_tpu")):
     bad = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         names = []
@@ -34,7 +36,7 @@ def _forbidden_imports(path):
             names = [node.module or ""]
         for name in names:
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "spark_rapids_tpu"):
+            if top in tops:
                 bad.append(name)
     return bad
 
@@ -44,6 +46,20 @@ def _forbidden_imports(path):
 def test_port_file_imports_no_jax_and_no_reference(path):
     assert path.exists()
     assert _forbidden_imports(path) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_pyarrow_or_pandas(path):
+    assert _forbidden_imports(path, ("pyarrow", "pandas")) == []
+
+
+def test_io_package_is_covered():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"spark_rapids_tpu_torch/io/parquet.py",
+            "spark_rapids_tpu_torch/io/writers.py",
+            "spark_rapids_tpu_torch/io/scans.py",
+            "spark_rapids_tpu_torch/exec/write.py"} <= names
 
 
 def test_session_without_cuda_raises(monkeypatch):

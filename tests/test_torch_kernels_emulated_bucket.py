@@ -15,7 +15,17 @@ rows included (zero and invalid); one launch a split.
 
 Mutation check: a K25 that ignores each bucket's start in the order,
 built from an edited copy of ``bucket.cu``, must disagree with the plain
-version."""
+version.
+
+Also B.26, the write's sort by its partition columns
+(``exec/write.py:TpuDataWritingCommandExec._sort_by_keys``: K1's
+lexsort, padding rows last, then K4's gather of every column), on the
+emulated K1 and K4 against its plain version (``lexsort_plain`` and
+torch indexing), by one int64 key (a store_sales date key with nulls)
+and by two one-byte string keys (lineitem's flags, with nulls), the row
+number riding along: 200 rows padded to 256, since an emulated launch
+costs 0.05-1 s with the machine's load and B.26 makes 20-30 of them;
+every column compared to the byte, padding rows included."""
 import numpy as np
 import pytest
 import torch
@@ -23,7 +33,10 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.data.column import DeviceBatch, DeviceColumn
 from spark_rapids_tpu_torch.exec import joins as PJ
+from spark_rapids_tpu_torch.exec import write as W
 from spark_rapids_tpu_torch.ops.kernels import _build as B
+from spark_rapids_tpu_torch.ops.kernels import gather as G
+from spark_rapids_tpu_torch.ops.kernels import segment as S
 from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
 from spark_rapids_tpu_torch.utils import hashing as H
 from test_torch_kernels_emulated import _build_emulated
@@ -160,3 +173,59 @@ def test_k25_without_starts_mutant_differs(emu):
     want = DS.bucket_split_plain(batch, order, counts.tolist())
     with pytest.raises(AssertionError):
         _same(got, want)
+
+
+def _write_batch(seed, n=200, padded=256):
+    """A store_sales date key (int64), lineitem's two flags (one byte
+    each) and the row number; real rows first, then invalid zero
+    padding."""
+    rng = np.random.default_rng(seed)
+    valid = np.zeros(padded, np.bool_)
+    valid[:n] = rng.random(n) > 0.1
+    date = np.zeros(padded, np.int64)
+    date[:n] = rng.integers(0, 40, n)
+    cols = [DeviceColumn(T.INT64, torch.from_numpy(np.where(valid, date, 0)),
+                         torch.from_numpy(valid))]
+    for letters in ("ANR", "FO"):
+        v = np.zeros(padded, np.bool_)
+        v[:n] = rng.random(n) > 0.05
+        data = np.zeros((padded, 1), np.uint8)
+        data[:n, 0] = np.frombuffer(letters.encode(), np.uint8)[
+            rng.integers(0, len(letters), n)]
+        data[~v] = 0
+        cols.append(DeviceColumn(T.STRING, torch.from_numpy(data),
+                                 torch.from_numpy(v),
+                                 torch.from_numpy(v.astype(np.int32))))
+    live = np.arange(padded) < n
+    cols.append(DeviceColumn(T.INT32, torch.from_numpy(np.where(
+        live, np.arange(padded, dtype=np.int32), 0)), torch.from_numpy(live)))
+    names = ["ss_sold_date_sk", "l_returnflag", "l_linestatus", "row"]
+    schema = T.Schema([T.Field(nm, c.dtype) for nm, c in zip(names, cols)])
+    return DeviceBatch(schema, cols, torch.tensor(n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("keys", [["ss_sold_date_sk"],
+                                  ["l_returnflag", "l_linestatus"]],
+                         ids=["int64", "two_flags"])
+def test_b26_sort_by_keys_matches_plain(emu, keys):
+    batch = _write_batch(len(keys))
+    child = type("Child", (), {"schema": batch.schema, "children": []})()
+    plan = type("Plan", (), {"partition_by": keys})()
+    ex = W.TpuDataWritingCommandExec(child, plan)
+    counters = (S.SORT_LAUNCHES, G.GATHER_LAUNCHES)
+    before = [c.count for c in counters]
+    got = ex._sort_by_keys(batch, kernels=emu)
+    k1, k4 = [c.count - b for c, b in zip(counters, before)]
+    assert k1 > 0 and k4 > 0
+    cols = [batch.columns[batch.schema.index_of(k)] for k in keys]
+    order = S.lexsort_plain(cols, pad_valid=batch.row_mask())
+    want = G.gather_batch(batch, order, batch.num_rows)
+    assert int(got.num_rows) == int(want.num_rows) == 200
+    for g, w in zip(got.columns, want.columns):
+        assert torch.equal(g.validity, w.validity)
+        assert torch.equal(g.data, w.data)
+        assert (g.lengths is None) == (w.lengths is None)
+        if w.lengths is not None:
+            assert torch.equal(g.lengths, w.lengths)
+    row = got.columns[-1].data[:200].numpy()
+    assert sorted(row.tolist()) == list(range(200))
