@@ -172,6 +172,25 @@
    its device busy and idle share and DtoH bytes and ms; files, bytes,
    MB/s, host ms a file, peak device memory; the phase's seconds on a
    line of their own;
+2m. the multi-process runner (``parallel/multiprocess.py``), after phase
+   2j: two worker processes spawned (``run_multiprocess``; every kernel
+   library and every K12 segment of their plans built before), each
+   joining a gloo group with ``init_multiprocess(..., device="cuda",
+   local_shards=2)`` on ``cuda:0`` and owning two of four shards; M1:
+   TPC-H Q1, Q3, Q5, Q16 and Q18 at SF1 on phase 2i's tables (four
+   partitions a table), cold and warm (median of 3), each process's rows
+   equal to ``tpch_oracle``'s and to phase 2i's four-shard rows; M2: Q3
+   and Q18 at SF10 on phase 2j's draw, cold and one warm run, rows equal
+   to numpy's.  The tables are staged once as ``.npy`` (``stage_tables``)
+   and each worker maps them and uploads only the partitions it drains.
+   Per process and cell: walls, the partitions drained (disjoint across
+   the processes and covering every leaf), collectives, bytes sent to the
+   other process, ``collectiveTimeNs``, host-staged bytes, H2D upload
+   bytes, peak device memory and K27's launches (required in every
+   worker); a check run of each cell after its timed runs, in which every
+   K27 call (each agreement's max, each trim) is held against its plain
+   version on the same inputs; which gloo collectives take CUDA tensors;
+   a worker that fails, hangs or writes no result fails the run;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
    inputs of Q3's second join as the run above gave them, K6 for inner
@@ -205,6 +224,11 @@
    rows as one batch, and bit for bit again on the same batches with
    nulls set at seeded rows of three columns and in every row of one
    batch, so that rows are dropped)
+   K27 (the multi-process retile) as phase 2m's workers time it on the
+   inputs of their check runs: retile_max at the largest agreement with
+   torch.amax of the stacked vectors as yardstick and gloo's all-reduce
+   of an agreed vector beside it, retile_trim at the largest trim the
+   path made (Q18's cut after its limit) with a clone a buffer,
    and B.26 (the write's sort: K1 + K4) at the first partition's batch
    of W1 and W2, bit for bit, with its event, enqueue, K1 and gather
    (behind a spin) times and argsort + index_select at W1's int64 key)
@@ -269,6 +293,14 @@ SF10_QUERIES = (1, 3, 6, 9, 18, 21)
 SF10_CHUNKED = (3, 21)
 #: the cells whose largest hash exchange K24 is checked and timed at
 DIST_K24 = ((3, 4), (18, 4))
+# the multi-process runner (phase 2m): two processes share the card over
+# gloo, each owning two of four shards; M1 is phase 2i's queries (DIST) at
+# SF1, M2 these at SF10 on phase 2j's draw
+MP_PROCESSES = 2
+MP_SHARDS = 4
+MP_SF10 = (3, 18)
+MP_CONF = {"spark.rapids.tpu.fault.peer.collectiveTimeoutMs": 120_000}
+MP_TIMEOUT_S = 420
 # the ML hand-off (phase 2k): the Mortgage ETL at sf 50 (5,000,000 loans,
 # 60,000,000 monthly records) and its export, and TPCx-BB's ML-prep
 # queries at BB_SF
@@ -928,6 +960,372 @@ def measure_b26(b26_inputs):
 
 
 # --------------------------------------------------------------------------
+# the multi-process runner (phase 2m): two spawned workers share the card
+# over gloo, each owning two of four shards
+# --------------------------------------------------------------------------
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def stage_tables(root, name, tables):
+    """Every array of ``tables`` (table -> HostBatch) as ``.npy`` under
+    ``root/name``; returns the manifest ``load_tables`` reads: table ->
+    [(field, type name, [file or None for data, validity, lengths])]."""
+    os.makedirs(os.path.join(root, name), exist_ok=True)
+    manifest = {}
+    for t, b in tables.items():
+        cols = []
+        for f, c in zip(b.schema, b.columns):
+            files = []
+            for part in ("data", "validity", "lengths"):
+                a = getattr(c, part)
+                if a is None:
+                    files.append(None)
+                    continue
+                rel = os.path.join(name, f"{t}.{f.name}.{part}.npy")
+                np.save(os.path.join(root, rel), np.ascontiguousarray(a))
+                files.append(rel)
+            cols.append((f.name, f.dtype.sql_name, files))
+        manifest[t] = cols
+    return manifest
+
+
+def load_tables(root, manifest):
+    """``stage_tables``'s tables, every array mapped read-only from its
+    file (a process reads the pages of the partitions it uploads)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.data.column import HostBatch, HostColumn
+
+    out = {}
+    for t, cols in manifest.items():
+        fields, hcols = [], []
+        for name, tname, files in cols:
+            dt = T.from_name(tname)
+            arrays = [None if f is None else
+                      np.load(os.path.join(root, f), mmap_mode="r")
+                      for f in files]
+            fields.append(T.Field(name, dt))
+            hcols.append(HostColumn(dt, *arrays))
+        out[t] = HostBatch(T.Schema(fields), hcols)
+    return out
+
+
+def mp_worker(coordinator, rank, root, manifests, out_path):
+    """Phase 2m's worker ``rank`` of ``MP_PROCESSES``: joins the gloo group
+    on ``cuda:0`` and runs a cell a staged table set of ``manifests``
+    (``m1_q<n>``: query n at SF1, cold and three warm runs; ``m2_q<n>``: at
+    SF10, cold and one warm run) through ``run_distributed_mp`` at
+    ``MP_SHARDS`` partitions a table; then runs each cell once more, a
+    check run in which every K27 call of the path is held against its
+    plain version on the same inputs (its launches are not counted, and
+    nothing is kept from the timed runs, so that their peak memory is the
+    path's own); times K27 at the largest agreement and the largest trim
+    the path gave it, and gloo's all-reduce of an agreed vector; and
+    pickles its rows and figures to ``out_path``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from spark_rapids_tpu_torch import Session
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.ops.kernels import gather as G
+    from spark_rapids_tpu_torch.ops.kernels import retile as R
+    from spark_rapids_tpu_torch.parallel import multiprocess as MPR
+    from spark_rapids_tpu_torch.parallel.elastic import guarded_call
+    from spark_rapids_tpu_torch.parallel.runner import DistributedRunner
+    from spark_rapids_tpu_torch.shuffle import device_shuffle as DS
+    from spark_rapids_tpu_torch.utils import hashing as H
+
+    t_start = time.perf_counter()
+    mesh = MPR.init_multiprocess(coordinator, MP_PROCESSES, rank,
+                                 device="cuda",
+                                 local_shards=MP_SHARDS // MP_PROCESSES,
+                                 conf=MP_CONF)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.zeros(1, device=dev)
+    owned = mesh.owned_shards(rank)
+    result = {"rank": rank, "owned": owned, "backend": dist.get_backend(),
+              "device": str(dev), "cells": {},
+              "init_s": time.perf_counter() - t_start}
+    tables = {name: load_tables(root, m) for name, m in manifests.items()}
+    result["tables_s"] = time.perf_counter() - t_start
+
+    k27 = [R.RETILE_MAX_LAUNCHES, R.RETILE_TRIM_LAUNCHES]
+    watched = {"K4": [G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES],
+               "K9": [H.HASH_LAUNCHES],
+               "K10": [DS.BUILD_LAUNCHES, DS.SLICE_LAUNCHES],
+               "K24": [DS.TILE_LAUNCHES], "K27 max": k27[:1],
+               "K27 trim": k27[1:]}
+    every = [c for cs in watched.values() for c in cs]
+    state = {"cell": None, "upload": 0, "check": False}
+    #: per cell, what its check run held against the plain versions
+    checked = {}
+    #: the largest agreement and the largest trim the path gave K27 in the
+    #: check runs, kept for phase 3's line
+    timed = {}
+    max_impl, trim_impl = R.retile_max, R.retile_trim
+    stack_impl = DistributedRunner._stack_host
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    def checked_max(stats, k, n_bucket, min_bucket, device, kernels=None):
+        """K27's max as the path calls it; in a check run also its plain
+        version on the same statistics."""
+        got = max_impl(stats, k, n_bucket, min_bucket, device, kernels)
+        if state["check"]:
+            want = R.retile_max_plain(stats, k, n_bucket, min_bucket, device)
+            require(torch.equal(got, want), f"{state['cell']}: K27 "
+                    f"retile_max differs from its plain version at k={k}: "
+                    f"{got.tolist()} {want.tolist()}")
+            checked[state["cell"]]["max_k"].append(k)
+            if k >= timed.get("max", {}).get("k", -1):
+                timed["max"] = {"cell": state["cell"], "k": k,
+                                "n_bucket": n_bucket,
+                                "min_bucket": min_bucket,
+                                "stats": list(stats)}
+        return got
+
+    def checked_trim(batches, need, kernels=None):
+        """K27's trim as the path calls it; in a check run, where it
+        launches, also its plain version on the same batches."""
+        got = trim_impl(batches, need, kernels)
+        if state["check"] and any(b.padded_rows > need for b in batches):
+            want = R.retile_trim_plain(batches, need)
+            require(all(x.padded_rows == y.padded_rows and all(
+                same(p, q) for c, d in zip(x.columns, y.columns)
+                for p, q in ((c.data, d.data), (c.validity, d.validity),
+                             (c.lengths, d.lengths)) if q is not None)
+                for x, y in zip(got, want)), f"{state['cell']}: K27 "
+                f"retile_trim at {need} rows differs from its plain version")
+            nbytes = R.retile_trim_bytes(batches, need)
+            checked[state["cell"]]["trims"].append({
+                "need": need, "padded_rows": [b.padded_rows
+                                              for b in batches],
+                "bytes": nbytes})
+            if nbytes >= timed.get("trim", {}).get("bytes", -1):
+                timed["trim"] = {"cell": state["cell"], "need": need,
+                                 "bytes": nbytes, "batches": list(batches)}
+        return got
+
+    def recording_stack(self, shards, shard_ids=None, layout=None):
+        out = stack_impl(self, shards, shard_ids, layout)
+        state["upload"] += sum(b.device_bytes() for b in out)
+        return out
+
+    R.retile_max, R.retile_trim = checked_max, checked_trim
+    MPR.MultiProcessRunner._stack_host = recording_stack
+
+    def uncounted(fn):
+        """``fn()`` with every launch it makes left out of the counts."""
+        saved = [c.count for c in every]
+        try:
+            return fn()
+        finally:
+            for c, n in zip(every, saved):
+                c.count = n
+
+    names = [m for m in manifests if m.startswith("m1_")] + \
+        [m for m in manifests if m.startswith("m2_")]
+    cells = [(f"M{m[1]} q{m.split('_q')[1]}", int(m.split("_q")[1]), m,
+              3 if m.startswith("m1_") else 1) for m in names]
+    for cell, q, tname, n_warm in cells:
+        sess = Session(MP_CONF)
+        tabs = {t: sess.create_dataframe(b, n_partitions=MP_SHARDS)
+                for t, b in tables[tname].items()}
+        df = tpch.QUERIES[q](tabs)
+        state["cell"], state["upload"] = cell, 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in every:
+            c.reset()
+        dist.barrier()
+        t0 = time.perf_counter()
+        rows = MPR.run_distributed_mp(sess, df, mesh).to_rows()
+        cold = time.perf_counter() - t0
+        info = {
+            "rows": rows, "cold_s": cold,
+            "launches": {k: sum(c.count for c in cs)
+                         for k, cs in watched.items()},
+            "drained": sess.last_drained,
+            "upload_bytes": state["upload"],
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "metrics": {k: v for k, v in sess.last_metrics.items()
+                        if k.startswith("shuffle.")},
+            "placements": [{k: p.get(k) for k in (
+                "exchange", "capacity", "partition_rows", "rows_written",
+                "bytes_swapped", "process_bytes_sent")}
+                for p in sess.last_placements]}
+        runs = []
+        for _ in range(n_warm):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            MPR.run_distributed_mp(sess, df, mesh)
+            runs.append(time.perf_counter() - t0)
+        info["warm_s"] = statistics.median(runs)
+        info["warm_runs_s"] = runs
+        # the check run: the query once more, after the timed runs, with
+        # every K27 call held against its plain version on its own inputs
+        checked[cell] = {"max_k": [], "trims": []}
+        state["check"] = True
+        dist.barrier()
+        try:
+            uncounted(lambda: MPR.run_distributed_mp(sess, df, mesh))
+        finally:
+            state["check"] = False
+        require(checked[cell]["max_k"], f"{cell}: the check run made no "
+                "K27 agreement")
+        info["k27_check"] = {
+            "agreements": len(checked[cell]["max_k"]),
+            "largest_k": max(checked[cell]["max_k"]),
+            "trims": checked[cell]["trims"]}
+        result["cells"][cell] = info
+        del tabs, df, sess
+
+    # phase 3's K27 line: K27's functions at the largest agreement and the
+    # largest trim the path gave them in this worker
+    n = mesh.size
+    mx = timed.pop("max")
+    stats, k = mx["stats"], mx["k"]
+    vecs = []
+    for st in stats:
+        v = torch.zeros(k, dtype=torch.int64, device=dev)
+        w = torch.as_tensor(st.value, device=dev).reshape(-1)
+        v[st.slot:st.slot + w.numel()] = w.to(torch.int64)
+        vecs.append(v)
+
+    def k27_max():
+        return max_impl(stats, k, mx["n_bucket"], mx["min_bucket"], dev)
+
+    def k27_max_plain():
+        return R.retile_max_plain(stats, k, mx["n_bucket"],
+                                  mx["min_bucket"], dev)
+
+    def measure_max():
+        return {"max_ms": cuda_ms(k27_max), "max_device_ms":
+                device_ms(k27_max), "max_enqueue_ms": enqueue_ms(k27_max),
+                "max_plain_ms": cuda_ms(k27_max_plain),
+                "max_library_ms": cuda_ms(lambda: torch.stack(vecs).amax(0))}
+
+    k27_time = uncounted(measure_max)
+    k27_time.update(
+        max_cell=mx["cell"], k=k, entries=len(stats),
+        # the table (4 words an entry), each tensor statistic's words,
+        # the output words
+        max_bytes=len(stats) * 32 + sum(
+            0 if isinstance(st.value, int)
+            else st.value.numel() * st.value.element_size()
+            for st in stats) + (k + 1) * 8)
+    if "trim" in timed:
+        tr = timed.pop("trim")
+        out, need = tr["batches"], tr["need"]
+        bufs = [t for b in out if b.padded_rows > need for c in b.columns
+                for t in (c.data, c.validity, c.lengths) if t is not None]
+
+        def measure_trim():
+            return {
+                "trim_ms": cuda_ms(lambda: trim_impl(out, need)),
+                "trim_device_ms": device_ms(lambda: trim_impl(out, need)),
+                "trim_enqueue_ms": enqueue_ms(lambda: trim_impl(out, need)),
+                "trim_plain_ms": cuda_ms(
+                    lambda: R.retile_trim_plain(out, need)),
+                "trim_library_ms": cuda_ms(
+                    lambda: [t[:need].clone() for t in bufs])}
+
+        k27_time.update(uncounted(measure_trim))
+        k27_time.update(trim_cell=tr["cell"], need=need,
+                        padded_rows=[b.padded_rows for b in out],
+                        trim_bytes=tr["bytes"], trim_buffers=len(bufs))
+        del out, bufs, tr
+    # gloo's all-reduce of an agreed vector, on its own (host tensors)
+    host = torch.zeros(n + 1, dtype=torch.int64)
+    times = []
+    for _ in range(20):
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(host, op=dist.ReduceOp.MAX)
+        times.append((time.perf_counter() - t0) * 1e3)
+    k27_time["gloo_all_reduce_ms"] = statistics.median(times)
+    result["k27"] = k27_time
+    del mx, stats, vecs
+
+    # which collectives gloo takes on CUDA tensors (the transport stages
+    # through host memory either way)
+    probe = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(
+                torch.ones(4, device=dev), op=dist.ReduceOp.MAX)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty(4, device=dev), torch.ones(4, device=dev)))):
+        try:
+            guarded_call(fn, timeout_ms=20_000)
+            probe[name] = "accepted"
+        except Exception as e:  # noqa: BLE001 — what gloo says is the datum
+            probe[name] = f"refused: {type(e).__name__}: {str(e)[:300]}"
+    result["gloo_cuda"] = probe
+    result["total_s"] = time.perf_counter() - t_start
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # a refused probe may leave gloo's threads behind: end here
+    os._exit(0)
+
+
+def run_multiprocess(root, manifests, timeout_s):
+    """Spawn the ``MP_PROCESSES`` workers, join them within
+    ``timeout_s``; every worker that fails, hangs or writes no result
+    fails the run (the others are killed).  Returns their results by
+    rank and the seconds from spawn to the last exit."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    coordinator = f"127.0.0.1:{free_port()}"
+    paths = [os.path.join(root, f"result{r}.pkl")
+             for r in range(MP_PROCESSES)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mp_worker, args=(
+        coordinator, r, root, manifests, paths[r]), name=f"mp-worker-{r}")
+        for r in range(MP_PROCESSES)]
+    for p in procs:
+        p.start()
+    deadline = t0 + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"phase 2m: workers still running after "
+                                   f"{timeout_s} s")
+            failed = [p.name for p in procs
+                      if p.exitcode not in (None, 0)]
+            if failed:
+                raise RuntimeError(f"phase 2m: {failed} exited with "
+                                   f"{[p.exitcode for p in procs]}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    require(all(p.exitcode == 0 for p in procs),
+            f"phase 2m: worker exit codes {[p.exitcode for p in procs]}")
+    results = []
+    for path in paths:
+        require(os.path.exists(path), f"phase 2m: no result at {path}")
+        with open(path, "rb") as fh:
+            results.append(pickle.load(fh))
+    return results, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
 # independent numpy answers: TPC-H in benchmarks/tpch_oracle.py (imported
 # in main, with the package), TPCx-BB q30 and the clickstream windows here
 # --------------------------------------------------------------------------
@@ -1036,6 +1434,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.ops.kernels import gather as G
     from spark_rapids_tpu_torch.ops.kernels import generate as GK
     from spark_rapids_tpu_torch.ops.kernels import join as J
+    from spark_rapids_tpu_torch.ops.kernels import retile as R
     from spark_rapids_tpu_torch.ops.kernels import segment as S
     from spark_rapids_tpu_torch.ops.kernels import stringkernels as SK
     from spark_rapids_tpu_torch.ops.kernels import window as W
@@ -1216,7 +1615,8 @@ def main() -> int:
                 "K23": [GK.EXPAND_LAUNCHES],
                 "K24": [DS.TILE_LAUNCHES],
                 "K25": [DS.SPLIT_LAUNCHES],
-                "K26": [XK.FEATURE_LAUNCHES]}
+                "K26": [XK.FEATURE_LAUNCHES],
+                "K27": [R.RETILE_MAX_LAUNCHES, R.RETILE_TRIM_LAUNCHES]}
     # the string transforms and string min/max run in phase 2g alone
     # (and the explode and expand kernels in phase 2h alone)
     text_kernels = [CK.CAST_PARSE_LAUNCHES, CK.CAST_FORMAT_LAUNCHES,
@@ -2216,7 +2616,7 @@ def main() -> int:
     # deal one source partition to each shard
     t_dist = time.perf_counter()
     meshes = {4: make_mesh(4, device="cuda"), 1: make_mesh(1)}
-    dist_runs, dist_launches, dist_info = {}, {}, {}
+    dist_runs, dist_launches, dist_info, dist_rows = {}, {}, {}, {}
     for q, n in DIST_CELLS:
         tabs = {t: sess.create_dataframe(b, n_partitions=n)
                 for t, b in dist_host[q].items()}
@@ -2255,6 +2655,7 @@ def main() -> int:
             "bytes_swapped": sum(p["bytes_swapped"] for p in places),
             "collective_ns": sess.last_metrics["shuffle.collectiveTimeNs"]}
         check_rows(rows, want[q], cell, ordered=q not in O.UNORDERED)
+        dist_rows[cell] = rows
         log(f"{cell} rows match numpy: {len(rows)} rows, first {rows[:2]}; "
             f"{dist_info[cell]}")
     for cell, (q, fn) in dist_runs.items():
@@ -2301,6 +2702,12 @@ def main() -> int:
     # SF10 lineitem is 30,000,000 rows, so the join sides reach the join as
     # several batches and join bucket by bucket; Q3 and Q21 again at 64 MiB
     t_sf10 = time.perf_counter()
+    # phase 2m's workers map the tables of its cells from .npy files here
+    mp_dir = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    free = shutil.disk_usage(mp_dir).free
+    require(free > 8 << 30, f"phase 2m stages ~5 GB of tables under "
+            f"{mp_dir}, which has {free} bytes free")
+    mp_manifests, mp_want, mp_segments = {}, {}, {}
     t0 = time.perf_counter()
     cols10 = tpch_datagen.draw_all(SF10, SEED)
     log(f"SF{SF10:g}: every column drawn in {time.perf_counter() - t0:.1f} "
@@ -2367,6 +2774,20 @@ def main() -> int:
             f"{t} {b.num_rows} x {len(b.schema)}" for t, b in host10.items())
             + f"; numpy answer ({len(want10)} rows) in "
             f"{time.perf_counter() - t0:.1f} s; sizes {sizes10}")
+        if q in MP_SF10:
+            # phase 2m's M2 cell: the tables staged, the answer kept, the
+            # plan's fused segments (at MP_SHARDS partitions) to build
+            t0 = time.perf_counter()
+            mp_manifests[f"m2_q{q}"] = stage_tables(mp_dir, f"m2_q{q}",
+                                                    host10)
+            mp_want[q] = want10
+            for p in walk_plan(planner.physical_plan(tpch.QUERIES[q]({
+                    t: planner.create_dataframe(b, n_partitions=MP_SHARDS)
+                    for t, b in host10.items()}).plan)):
+                if isinstance(p, TpuFusedSegmentExec):
+                    mp_segments[p.program.key] = p.program.source
+            log(f"Q{q} SF{SF10:g} staged for phase 2m in "
+                f"{time.perf_counter() - t0:.1f} s")
         if q == 1:
             # one reader batch of lineitem's Q1 columns, packed (one pinned
             # buffer, one copy) against one copy per array, bit for bit
@@ -2516,6 +2937,96 @@ def main() -> int:
                         [cols10[c] for c in w2_names])
     del cols10, k25_calls, k9_seeded_calls
     log(f"phase 2j (SF{SF10:g}) took {time.perf_counter() - t_sf10:.1f} s")
+
+    # ---- 2m. the multi-process runner: two processes share the card -----
+    # M1: phase 2i's queries at SF1 on its tables, four partitions a table;
+    # M2: Q3 and Q18 at SF10 on phase 2j's draw.  Each worker owns two of
+    # the four shards and drains only their partitions; the rows must equal
+    # numpy's (and, at SF1, phase 2i's single-process rows)
+    t_mp = time.perf_counter()
+    for q in DIST:
+        mp_manifests[f"m1_q{q}"] = stage_tables(mp_dir, f"m1_q{q}",
+                                                dist_host[q])
+    # every library is built (phase 1); the M2 plans' segments too, so
+    # that the workers compile nothing
+    _build.CUDA.prepare(mp_segments)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 2m staged its tables in {time.perf_counter() - t_mp:.1f} s "
+        f"under {mp_dir}")
+    mp_results, mp_wall = run_multiprocess(mp_dir, mp_manifests,
+                                           MP_TIMEOUT_S)
+    shutil.rmtree(mp_dir, ignore_errors=True)
+    mp_cells = [f"M1 q{q}" for q in DIST] + [f"M2 q{q}" for q in MP_SF10]
+    mp_launches, mp_info = {}, {"workers_wall_s": mp_wall, "processes": []}
+    for res in mp_results:
+        r = res["rank"]
+        require(res["backend"] == "gloo" and res["owned"] == [
+            s for s in range(MP_SHARDS)
+            if s // (MP_SHARDS // MP_PROCESSES) == r],
+            f"phase 2m worker {r}: backend {res['backend']}, shards "
+            f"{res['owned']}")
+        log(f"phase 2m worker {r} on {res['device']} ({res['backend']}), "
+            f"shards {res['owned']}: joined in {res['init_s']:.1f} s, tables "
+            f"mapped by {res['tables_s']:.1f} s, done at "
+            f"{res['total_s']:.1f} s; gloo with CUDA tensors: "
+            f"{res['gloo_cuda']}")
+        k27_total = 0
+        for cell in mp_cells:
+            v = res["cells"][cell]
+            q = int(cell.split("q")[1])
+            if cell.startswith("M1"):
+                check_rows(v["rows"], want[q], f"{cell} worker {r}",
+                           ordered=q not in O.UNORDERED)
+                check_rows(v["rows"], dist_rows[f"q{q}/4 shards"],
+                           f"{cell} worker {r} against phase 2i",
+                           ordered=q not in O.UNORDERED)
+            else:
+                check_rows(v["rows"], mp_want[q], f"{cell} worker {r}",
+                           ordered=q not in O.UNORDERED)
+            for pl in v["placements"]:
+                if pl["capacity"] is not None:
+                    require(sum(pl["partition_rows"]) == pl["rows_written"],
+                            f"{cell}: {pl['exchange']} lost or duplicated "
+                            "rows")
+            k27_n = v["launches"]["K27 max"] + v["launches"]["K27 trim"]
+            k27_total += k27_n
+            mp_launches[f"{cell} rank {r}"] = {"K27": k27_n}
+            m = v["metrics"]
+            log(f"{cell} worker {r}: {len(v['rows'])} rows equal numpy's"
+                + (" and phase 2i's" if cell.startswith("M1") else "")
+                + f"; cold {v['cold_s'] * 1e3:.1f} ms, warm "
+                f"{v['warm_s'] * 1e3:.1f} ms (median of "
+                f"{len(v['warm_runs_s'])}); drained partitions "
+                f"{v['drained']}; collectives "
+                f"{m['shuffle.processCollectives']}, bytes sent to the other "
+                f"process {m['shuffle.processBytesSent']}, collectiveTimeNs "
+                f"{m['shuffle.collectiveTimeNs']}, host-staged bytes "
+                f"{m['shuffle.hostStagedBytes']}, H2D upload bytes "
+                f"{v['upload_bytes']}, peak device memory "
+                f"{v['peak_device_bytes']} bytes; launches {v['launches']}; "
+                f"K27 equals its plain version at {v['k27_check']}; on "
+                f"{card}")
+        require(k27_total > 0, f"phase 2m worker {r} launched no K27")
+        mp_info["processes"].append({
+            "rank": r, "owned": res["owned"], "init_s": res["init_s"],
+            "gloo_cuda": res["gloo_cuda"],
+            "cells": {c: {k: v for k, v in res["cells"][c].items()
+                          if k != "rows"} for c in mp_cells}})
+    # every leaf's partitions drained by exactly one process
+    for cell in mp_cells:
+        per_rank = [res["cells"][cell]["drained"] for res in mp_results]
+        require(len({len(d) for d in per_rank}) == 1 and per_rank[0],
+                f"{cell}: leaves drained {per_rank}")
+        for leaf in zip(*per_rank):
+            parts = [p for d in leaf for p in d]
+            require(sorted(parts) == list(range(len(parts))) and
+                    all(d for d in leaf),
+                    f"{cell}: a leaf's partitions by process {leaf} are not "
+                    "disjoint or do not cover it")
+    log(f"phase 2m: partition ownership disjoint and covering in every "
+        f"cell; K27 launched in every worker")
+    log(f"phase 2m (multi-process) took {time.perf_counter() - t_mp:.1f} s")
 
     # phase 2l's read-back check runs in spawned processes; they start
     # now, so that their imports overlap phase 2k (they are daemons: the
@@ -2877,6 +3388,7 @@ def main() -> int:
                  "K24": [dist_launches],
                  "K25": [sf10_launches],
                  "K26": [ml_launches],
+                 "K27": [mp_launches],
                  # B.26 is K1 + K4: its launches are theirs in the write
                  # cells, where phase 2l found no other kernel launched
                  "B.26": [{c: {k: v["K1"] + v["K4"]}
@@ -4181,6 +4693,67 @@ def main() -> int:
           one_batch_write_device_ms=one_write_dev)
     del got, ref, plans, counts, sel, nulled, n_got, n_ref, n_plans, n_counts
 
+    # K27: the multi-process retile as phase 2m's workers timed it, at
+    # the largest agreement and the largest trim the path gave it (worker
+    # 0's max figures in the row, worker 1's beside them; the trim runs
+    # on the worker that holds shard 0 after a limit)
+    k27w = [res["k27"] for res in mp_results]
+    a = k27w[0]
+    t = next((w for w in k27w if "trim_ms" in w), None)
+    require(t is not None, "phase 2m: no worker trimmed a stage output")
+    k27_launch = {
+        part: sum(res["cells"][c]["launches"][f"K27 {part}"]
+                  for res in mp_results for c in mp_cells)
+        for part in ("max", "trim")}
+    log(f"K27 retile_max at {a['max_cell']}'s largest agreement (worker 0: "
+        f"{a['entries']} statistics into {a['k']} words): device "
+        f"{_ms_text(a['max_device_ms'])}, event {a['max_ms']:.3f} ms, "
+        f"enqueue {a['max_enqueue_ms']:.3f} ms, plain "
+        f"{a['max_plain_ms']:.3f} ms, torch.amax of the stacked vectors "
+        f"{a['max_library_ms']:.3f} ms; gloo all_reduce(MAX) of an agreed "
+        f"vector {a['gloo_all_reduce_ms']:.3f} ms (host clock); "
+        f"retile_trim at {t['trim_cell']}'s trim to {t['need']} rows "
+        f"({t['padded_rows']} padded rows, {t['trim_buffers']} buffers, "
+        f"{t['trim_bytes']} bytes moved, bound "
+        f"{t['trim_bytes'] / HBM_BYTES_PER_S * 1e3:.6f} ms) device "
+        f"{_ms_text(t['trim_device_ms'])}, event {t['trim_ms']:.3f} ms, "
+        f"enqueue {t['trim_enqueue_ms']:.3f} ms, plain "
+        f"{t['trim_plain_ms']:.3f} ms, per-buffer clone "
+        f"{t['trim_library_ms']:.3f} ms; worker 1: {k27w[1]}; on {card}")
+    entry("K27 retile_max", "spark_rapids_tpu_torch/csrc/retile.cu",
+          "spark_rapids_tpu/parallel/multiprocess.py:348",
+          a["max_ms"] if a["max_device_ms"] is None else a["max_device_ms"],
+          a["max_plain_ms"], a["max_library_ms"], a["max_bytes"],
+          a["entries"] * a["k"], FP32_PER_S, 0.0,
+          launches=k27_launch["max"],
+          library_call="torch.stack of the shards' statistics vectors and "
+          "amax(0)",
+          shape=f"{a['max_cell']}'s largest agreement: {a['entries']} "
+          f"statistics into {a['k']} words", event_ms=a["max_ms"],
+          device_ms=a["max_device_ms"], enqueue_ms=a["max_enqueue_ms"],
+          gloo_all_reduce_ms=a["gloo_all_reduce_ms"],
+          bound_note="launch latency in practice: a few hundred bytes",
+          worker1={k: k27w[1][k] for k in (
+              "max_cell", "k", "max_ms", "max_device_ms", "max_plain_ms",
+              "max_library_ms", "gloo_all_reduce_ms")})
+    entry("K27 retile_trim", "spark_rapids_tpu_torch/csrc/retile.cu",
+          "spark_rapids_tpu/parallel/multiprocess.py:358",
+          t["trim_ms"] if t["trim_device_ms"] is None
+          else t["trim_device_ms"], t["trim_plain_ms"], t["trim_library_ms"],
+          t["trim_bytes"], 0, FP32_PER_S, 0.0,
+          launches=k27_launch["trim"],
+          status="ported; launched in " + ", ".join(
+              f"{c} rank {res['rank']}" for res in mp_results
+              for c in mp_cells
+              if res["cells"][c]["launches"]["K27 trim"]),
+          library_call="Tensor.clone of each buffer's first need rows",
+          shape=f"{t['trim_cell']}'s largest trim: {t['padded_rows']} "
+          f"padded rows cut to {t['need']}, {t['trim_buffers']} buffers",
+          event_ms=t["trim_ms"], device_ms=t["trim_device_ms"],
+          enqueue_ms=t["trim_enqueue_ms"],
+          bound_note="launch latency in practice: the path trims only "
+          "after a limit")
+
     # B.26: the write's sort by its partition columns, at phase 2l's W1
     # and W2 batches (``measure_b26``); the row's numbers are W1's, whose
     # one int64 key has a library call, W2's ride beside them
@@ -4236,6 +4809,7 @@ def main() -> int:
                                              **dist_info[cell]}
                                       for cell in dist_runs},
                       "sf10": sf10_info, "packed_upload": upload,
+                      "multiprocess": mp_info,
                       "ml": ml_info, "writes": write_info,
                       "sf": SF, "rows": hb.num_rows, "padded_rows": P}))
     print(card)

@@ -170,6 +170,31 @@ SHUFFLE_MODE = conf("spark.rapids.tpu.shuffle.mode").doc(
     "ported yet) or auto (device while the card has headroom)"
 ).string_conf("auto")
 
+SHUFFLE_TRANSPORT_CLASS = conf("spark.rapids.tpu.shuffle.transport.class").doc(
+    "Transport of the distributed runner's exchanges, a class path "
+    "instantiated by reflection as the reference's makeTransport "
+    "(parallel/collective.py:make_transport).  The default, the "
+    "reference's own, takes the transport the runner needs: "
+    "spark_rapids_tpu_torch.parallel.collective.DeviceCollectiveTransport "
+    "moves the shards' tiles between devices of one process "
+    "(run_distributed), ProcessGroupTransport between the processes of a "
+    "torch.distributed group (run_distributed_mp)"
+).string_conf("spark_rapids_tpu.parallel.collective.IciCollectiveTransport")
+
+# --- faults (parallel/multiprocess.py, parallel/elastic.py) ---------------
+FAULT_STAGE_TIMEOUT_MS = conf("spark.rapids.tpu.fault.stageTimeoutMs").doc(
+    "Deadline of a process's leaf drain: a drain with partitions left "
+    "past it raises TpuStageTimeout (0 disables; every process must share "
+    "the conf)"
+).int_conf(0)
+FAULT_PEER_COLLECTIVE_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.fault.peer.collectiveTimeoutMs").doc(
+    "Deadline of every guarded collective (parallel/elastic.py): a "
+    "collective that has not finished by then is abandoned with "
+    "TpuPeerLost instead of wedging the surviving processes; also the "
+    "process group's timeout (0: no deadline, torch.distributed's default "
+    "timeout)").int_conf(0)
+
 # --- ML interop (ml/) -----------------------------------------------------
 EXPORT_COLUMNAR_RDD = conf("spark.rapids.tpu.sql.exportColumnarRdd").doc(
     "Allow the export of device batches to user code (torch tensors on "

@@ -131,6 +131,10 @@ KERNELS: Dict[str, tuple] = {
     "bucket": ("bucket.cu", {
         "k25_bucket_split": ([P, I, I, Q, P, P], 1),
     }),
+    "retile": ("retile.cu", {
+        "k27_retile_max": ([P, I, I, I, Q, P, P], 1),
+        "k27_retile_trim": ([P, I, Q, P], 1),
+    }),
     "feature_matrix": ("feature_matrix.cu", {
         "k26_count": ([P, I, Q, P, P, P, P], 2),
         "k26_write": ([P, I, Q, P, P, P, P], 1),

@@ -22,6 +22,21 @@ shard.  After the compaction each result is cut to the bucket of the rows
 it received (known from the same counts, so no second read back): the
 rows are the reference's, the padding lanes may differ.
 
+Across processes (``process_exchange``, ``process_replicate``: the
+reference's ``collective_exchange`` and ``gather_replicate`` on a mesh
+whose shards belong to several processes, ``multiprocess.py``), each
+process builds its own shards' K10 orders and K24 tiles as above; the
+capacity, every shard's count to every destination and the string tile
+widths come from one agreement (K27's max over the owned shards, then an
+all-reduce MAX across the processes, read back once: ``comm.agree``), so
+every process takes the same decisions.  A destination's slices from
+shards of the same process are device views; the others arrive by one
+``all_to_all_single`` a call (``comm.all_to_all``), each source's rows
+for a destination sent at their exact count (the counts are replicated),
+every column packed into one byte matrix a row.  The destination joins
+every source's slice in global shard order and compacts with K4, so its
+rows come out in the order of the single-process runner.
+
 ``device_partition_ids`` (K9), ``bucket_rows`` (the reference's formula,
 for the tests), ``_gather_tiles`` (K24), ``_compact`` (K4),
 ``collective_exchange``, ``gather_replicate``, ``stack_partitions`` and
@@ -245,3 +260,220 @@ def unstack_partitions(stacked: DeviceBatch) -> List[DeviceBatch]:
         DeviceColumn(c.dtype, c.data[p], c.validity[p],
                      None if c.lengths is None else c.lengths[p])
         for c in stacked.columns], stacked.num_rows[p]) for p in range(n)]
+
+
+# --------------------------------------------------------------------------
+# across processes
+# --------------------------------------------------------------------------
+def _buffers(cols: Sequence[DeviceColumn]) -> List[torch.Tensor]:
+    return [t for c in cols for t in (c.data, c.validity, c.lengths)
+            if t is not None]
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return int(np.prod(t.shape[1:], dtype=np.int64)) * t.element_size()
+
+
+def pack_rows(cols: Sequence[DeviceColumn]) -> torch.Tensor:
+    """Every buffer of ``cols`` (data, validity, lengths) side by side as
+    one uint8 ``[rows, row bytes]`` matrix (a device copy)."""
+    bufs = _buffers(cols)
+    rows = bufs[0].shape[0]
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(
+        rows, _row_bytes(t)) for t in bufs], dim=1)
+
+
+def unpack_rows(packed: torch.Tensor,
+                like: Sequence[DeviceColumn]) -> List[DeviceColumn]:
+    """``pack_rows``'s inverse: columns shaped as ``like``'s (widths
+    included) over ``packed``'s rows."""
+    rows = packed.shape[0]
+    out, at = [], 0
+
+    def take(t):
+        nonlocal at
+        rb = _row_bytes(t)
+        # a fresh dense copy (a slice of one row counts as contiguous, but
+        # its stride and offset do not fit a wider element)
+        part = torch.empty((rows, rb), dtype=torch.uint8,
+                           device=packed.device).copy_(
+            packed[:, at:at + rb]).view(t.dtype).reshape(
+            (rows,) + tuple(t.shape[1:]))
+        at += rb
+        return part
+
+    for c in like:
+        data, valid = take(c.data), take(c.validity)
+        out.append(DeviceColumn(c.dtype, data, valid,
+                                None if c.lengths is None else
+                                take(c.lengths)))
+    return out
+
+
+def _rows(cols: Sequence[DeviceColumn], lo: int,
+          hi: int) -> List[DeviceColumn]:
+    """Rows ``[lo, hi)`` of every column (views)."""
+    return [DeviceColumn(c.dtype, c.data[lo:hi], c.validity[lo:hi],
+                         None if c.lengths is None else c.lengths[lo:hi])
+            for c in cols]
+
+
+def _width_stats(batches: Sequence[DeviceBatch], first_slot: int):
+    """The string columns' indices and, per column, its widest width over
+    ``batches`` at slot ``first_slot + j``."""
+    from ..ops.kernels.retile import Stat
+
+    widths = string_widths(batches)
+    idx = [i for i, w in enumerate(widths) if w is not None]
+    return idx, [Stat(first_slot + j, int(widths[i]))
+                 for j, i in enumerate(idx)]
+
+
+def process_exchange(batches: List[DeviceBatch], pids: List[torch.Tensor],
+                     num_parts: int, owners: Sequence[int], rank: int, comm,
+                     capacity: int = 0, min_bucket: int = 128,
+                     record: Optional[dict] = None) -> List[DeviceBatch]:
+    """``collective_exchange`` over the shards of every process:
+    ``batches``/``pids`` are this process's shards (``owners[s] == rank``,
+    in global order); returns its shards' results.  ``comm`` is the
+    transport (``agree``, ``all_to_all``).  ``record`` as
+    ``collective_exchange``'s, over every shard of every process, with
+    ``bytes_swapped`` the bytes that crossed between processes, all
+    processes together, and ``process_bytes_sent`` this process's."""
+    from ..ops.kernels.retile import Stat
+
+    n = len(owners)
+    if num_parts != n:
+        raise ValueError(f"{n} shards cannot exchange into {num_parts} "
+                         "destinations")
+    mine = [s for s, o in enumerate(owners) if o == rank]
+    if len(batches) != len(mine):
+        raise ValueError(f"process {rank} holds shards {mine}, got "
+                         f"{len(batches)} batches")
+    builds = [DS.partition_order(p, b.num_rows, num_parts)
+              for b, p in zip(batches, pids)]
+    # one agreement: every shard's count to every destination at its own
+    # slots (the capacity is the bucket of their max), then the widths
+    stats = [Stat(s * num_parts, c) for s, (_o, c, _st) in zip(mine, builds)]
+    str_idx, wstats = _width_stats(batches, n * num_parts)
+    agreed = comm.agree(stats + wstats, n * num_parts + len(str_idx),
+                        n * num_parts)
+    sent = agreed[:n * num_parts].reshape(n, num_parts)
+    cap = capacity or int(agreed[-1])
+    widths: List[Optional[int]] = [None] * len(batches[0].columns)
+    for j, i in enumerate(str_idx):
+        widths[i] = int(agreed[n * num_parts + j])
+    tiled = [_gather_tiles(b, o, st, c, cap, widths)
+             for b, (o, c, st) in zip(batches, builds)]
+    take = np.minimum(sent, cap)
+    # the rows for other processes' destinations, grouped by process, each
+    # destination's slices in source order; only those rows are packed
+    send = [pack_rows(_rows(tiled[0][0], 0, 0))]
+    send_rows, recv_rows = [], []
+    for r in range(max(owners) + 1):
+        theirs = [d for d, o in enumerate(owners) if o == r]
+        if r == rank:
+            send_rows.append(0)
+            recv_rows.append(0)
+            continue
+        send_rows.append(int(sum(take[s, d] for d in theirs for s in mine)))
+        recv_rows.append(int(sum(take[s, d] for d in mine for s in theirs)))
+        send += [pack_rows(_rows(tiled[i][0], d * cap,
+                                 d * cap + int(take[s, d])))
+                 for d in theirs for i, s in enumerate(mine)]
+    lb = send[0].shape[1]
+    got_all = comm.all_to_all(torch.cat(send), send_rows, recv_rows)
+    recv = unpack_rows(got_all, tiled[0][0])
+    # where each (source, destination) piece sits in the received rows
+    at, where = 0, {}
+    for r in range(max(owners) + 1):
+        if r == rank:
+            continue
+        for d in mine:
+            for s in (s for s, o in enumerate(owners) if o == r):
+                where[(s, d)] = (at, at + int(take[s, d]))
+                at += int(take[s, d])
+    got = [int(take[:, d].sum()) for d in range(n)]
+    out = []
+    for d in mine:
+        pieces, masks = [], []
+        for s in range(n):
+            if owners[s] == rank:
+                tiles, lane = tiled[mine.index(s)]
+                pieces.append(_rows(tiles, d * cap, (d + 1) * cap))
+                masks.append(lane[d * cap:(d + 1) * cap])
+            else:
+                lo, hi = where[(s, d)]
+                pieces.append(_rows(recv, lo, hi))
+                masks.append(torch.ones(hi - lo, dtype=torch.bool,
+                                        device=batches[0].device))
+        out.append(_trim(concat_compact(pieces, masks, batches[0].schema,
+                                        batches[0].device), got[d],
+                         min_bucket))
+    if record is not None:
+        cross = sum(int(take[s, d]) for s in range(n) for d in range(n)
+                    if owners[s] != owners[d])
+        record.update(capacity=cap, rows_sent=sent.tolist(),
+                      partition_rows=got, rows_written=int(sent.sum()),
+                      bytes_swapped=cross * lb,
+                      process_bytes_sent=sum(send_rows) * lb)
+    return out
+
+
+def process_replicate(batches: List[DeviceBatch], owners: Sequence[int],
+                      rank: int, comm, min_bucket: int = 128,
+                      record: Optional[dict] = None) -> List[DeviceBatch]:
+    """``gather_replicate`` over the shards of every process: every
+    shard's rows, in global shard order, on every shard this process holds
+    (one batch they share).  ``record`` as ``gather_replicate``'s, with
+    ``bytes_swapped`` the bytes that crossed between processes."""
+    from ..ops.kernels.retile import Stat
+
+    n = len(owners)
+    mine = [s for s, o in enumerate(owners) if o == rank]
+    stats = [Stat(s, b.num_rows) for s, b in zip(mine, batches)]
+    str_idx, wstats = _width_stats(batches, n)
+    agreed = comm.agree(stats + wstats, n + len(str_idx), n)
+    rows = [int(r) for r in agreed[:n]]
+    width = {i: int(agreed[n + j]) for j, i in enumerate(str_idx)}
+    schema, dev = batches[0].schema, batches[0].device
+
+    def widened(b: DeviceBatch) -> List[DeviceColumn]:
+        return [DeviceColumn(c.dtype, _padded(c, width.get(i)), c.validity,
+                             c.lengths) for i, c in enumerate(b.columns)]
+
+    local = [widened(b) for b in batches]
+    # this process's rows, to every other process
+    mine_packed = torch.cat([pack_rows(_rows(cols, 0, rows[s]))
+                             for s, cols in zip(mine, local)])
+    world = max(owners) + 1
+    peers = [r for r in range(world) if r != rank]
+    own_rows = sum(rows[s] for s in mine)
+    send_rows = [0 if r == rank else own_rows for r in range(world)]
+    recv_rows = [0 if r == rank else sum(rows[s] for s in range(n)
+                                         if owners[s] == r)
+                 for r in range(world)]
+    got_all = comm.all_to_all(
+        torch.cat([mine_packed] * len(peers)) if peers else mine_packed[:0],
+        send_rows, recv_rows)
+    recv = unpack_rows(got_all, local[0])
+    pieces, masks, at = [], [], 0
+    for s in range(n):
+        if owners[s] == rank:
+            i = mine.index(s)
+            pieces.append(local[i])
+            masks.append(batches[i].row_mask())
+        else:
+            pieces.append(_rows(recv, at, at + rows[s]))
+            masks.append(torch.ones(rows[s], dtype=torch.bool, device=dev))
+            at += rows[s]
+    total = sum(rows)
+    one = _trim(concat_compact(pieces, masks, schema, dev), total, min_bucket)
+    if record is not None:
+        lb = mine_packed.shape[1]
+        record.update(capacity=None, rows_sent=[[r] for r in rows],
+                      partition_rows=[total] * n, rows_written=total,
+                      bytes_swapped=sum(
+                          rows[s] * (world - 1) for s in range(n)) * lb,
+                      process_bytes_sent=own_rows * len(peers) * lb)
+    return [one] * len(batches)

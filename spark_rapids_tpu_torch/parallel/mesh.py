@@ -10,9 +10,20 @@ there are fewer.  ``make_mesh(n, device="cpu")`` or ``device="cuda"``
 puts all ``n`` shards on that one device: the counterpart of the
 reference's ``--xla_force_host_platform_device_count`` simulation, which
 is how the tests run several shards on the CPU and how one card runs
-several.  ``surviving_devices`` and ``make_shrunken_mesh`` come with the
-elastic layer (ROADMAP A11); ``shard_batch_arrays`` and ``replicate``
-place stacked arrays for shard_map, which the port does not use.
+several.
+
+A mesh may span processes (``multiprocess.init_multiprocess``): each
+shard then has an ``owners`` entry, the rank of the process that holds
+its rows, and ``owned_shards(rank)`` lists a process's shards in global
+order.  Ranks own contiguous runs of shards in rank order, the
+reference's rule (``multiprocess.py:110``: shards of devices sorted by
+id, a process's devices together), so that concatenating the processes'
+shards in rank order gives global shard order.  A mesh built by
+``make_mesh`` belongs to one process (every owner 0).
+``surviving_devices`` and ``make_shrunken_mesh`` come with the rest of
+the elastic layer (ROADMAP A step 9); ``shard_batch_arrays`` and
+``replicate`` place stacked arrays for shard_map, which the port does
+not use.
 """
 from __future__ import annotations
 
@@ -25,21 +36,39 @@ DATA_AXIS = "dp"
 
 class Mesh:
     """``devices``: one ``torch.device`` a shard (shards may share one);
-    ``axis_names``: the one data axis."""
+    ``axis_names``: the one data axis; ``owners``: the rank of the
+    process holding each shard (default: all 0)."""
 
     def __init__(self, devices: Sequence[torch.device],
-                 axis_names: Sequence[str] = (DATA_AXIS,)):
+                 axis_names: Sequence[str] = (DATA_AXIS,),
+                 owners: Optional[Sequence[int]] = None):
         if not devices:
             raise ValueError("a mesh needs at least one device")
         self.devices: List[torch.device] = list(devices)
         self.axis_names = tuple(axis_names)
+        self.owners: List[int] = [0] * len(self.devices) if owners is None \
+            else [int(o) for o in owners]
+        if len(self.owners) != len(self.devices):
+            raise ValueError(f"{len(self.owners)} owners for "
+                             f"{len(self.devices)} shards")
+        if self.owners != sorted(self.owners):
+            raise ValueError(f"processes own contiguous runs of shards in "
+                             f"rank order, not {self.owners}")
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def num_processes(self) -> int:
+        return max(self.owners) + 1
+
+    def owned_shards(self, rank: int) -> List[int]:
+        """The shards process ``rank`` holds, in global order."""
+        return [s for s, o in enumerate(self.owners) if o == rank]
+
     def __repr__(self):  # pragma: no cover
-        return f"Mesh({self.devices}, {self.axis_names})"
+        return f"Mesh({self.devices}, {self.axis_names}, {self.owners})"
 
 
 def _pinned(device) -> torch.device:

@@ -28,9 +28,14 @@ Left out, each with its module: stage re-execution, the watchdog, the
 host round-trip checksum and fault injection (``fault/``); stage
 checkpoints and ``run_distributed(recovery=...)`` (``recovery/``); stage
 statistics (``adaptive/``); spans, events and ``finish_query``
-(``telemetry/``); cancellation (``scheduler/``); the collective deadline,
-guarded calls and drain speculation (``elastic.py``); the task thread
-pool (the leaves drain one partition at a time).  Aggregates run in the
+(``telemetry/``); cancellation (``scheduler/``); drain speculation
+(``elastic.py``); the task thread pool (the leaves drain one partition
+at a time).
+Hooks for ``multiprocess.MultiProcessRunner``, where a process holds some
+of the shards (``local``): ``_run_leaf``, ``_agreed_widths`` and
+``_all_samples`` (the range bounds from every process's samples),
+``_retile`` after each stage, and ``_collect_output``; the broadcast
+build side is replicated by the transport.  Aggregates run in the
 partial and final modes the port's planner emits; a global (keyless)
 final aggregate over rows gathered to shard 0 runs there alone, the
 other shards yielding no rows, so that the runner returns the one row
@@ -104,6 +109,10 @@ class DistributedRunner:
         self.min_bucket = min_bucket_rows
         self.transport = transport or DeviceCollectiveTransport(
             mesh, min_bucket_rows)
+        #: the shards this runner holds, in global order: the lists
+        #: ``_lower`` passes around hold these shards' batches (all of them
+        #: here; a process's own in ``multiprocess.MultiProcessRunner``)
+        self.local: List[int] = list(range(self.n))
 
     # ---------------- stage splitting ---------------------------------
     def _split(self, node, stages: List[_Stage], leaves: List[_LeafRef]):
@@ -151,27 +160,37 @@ class DistributedRunner:
         return stages, leaves
 
     # ---------------- leaves ------------------------------------------
-    def _run_leaf(self, node, ctx) -> List[DeviceBatch]:
-        """Run a subtree that does not distribute and deal its partitions
-        round robin to the shards (``pid % n``); when at most ``max(1, n //
-        4)`` shards got rows, split the rows evenly instead.  The host
-        batches under a HostToDeviceExec are taken as they are."""
+    @staticmethod
+    def _leaf_source(node, ctx):
+        """Execute a subtree that does not distribute: its partition count
+        and a function draining partition ``p`` to host batches (the host
+        batches under a HostToDeviceExec are taken as they are)."""
         from ..exec.base import TpuExec
         from ..exec.transitions import HostToDeviceExec
-        from ..plan.physical import _empty_batch
 
         if isinstance(node, HostToDeviceExec):
             data = node.children[0].execute(ctx)
-            per_pid = [list(data.iterator(p))
-                       for p in range(data.n_partitions)]
-        elif isinstance(node, TpuExec):
+            return data.n_partitions, lambda p: list(data.iterator(p))
+        if isinstance(node, TpuExec):
             data = node.execute_columnar(ctx)
-            per_pid = [device_to_host_many(list(data.iterator(p)))
-                       for p in range(data.n_partitions)]
-        else:
-            data = node.execute(ctx)
-            per_pid = [list(data.iterator(p))
-                       for p in range(data.n_partitions)]
+            return data.n_partitions, lambda p: device_to_host_many(
+                list(data.iterator(p)))
+        data = node.execute(ctx)
+        return data.n_partitions, lambda p: list(data.iterator(p))
+
+    def _run_leaf(self, node, ctx) -> List[DeviceBatch]:
+        """Run a subtree that does not distribute and deal its partitions
+        to the shards (``_deal``)."""
+        n_parts, drain = self._leaf_source(node, ctx)
+        return self._stack_host(self._deal(
+            [drain(p) for p in range(n_parts)], node.schema))
+
+    def _deal(self, per_pid: List[List[HostBatch]],
+              schema) -> List[HostBatch]:
+        """The n shards' host rows: partition ``p``'s batches to shard ``p %
+        n``; when at most ``max(1, n // 4)`` shards got rows, the rows split
+        evenly instead."""
+        from ..plan.physical import _empty_batch
 
         shard_lists: List[List[HostBatch]] = [[] for _ in range(self.n)]
         for pid, bs in enumerate(per_pid):
@@ -180,7 +199,7 @@ class DistributedRunner:
         def joined(bs: List[HostBatch]) -> HostBatch:
             # a shard's one batch is taken as it is, with no host copy
             if not bs:
-                return _empty_batch(node.schema)
+                return _empty_batch(schema)
             return bs[0] if len(bs) == 1 else HostBatch.concat(bs)
 
         if nonempty <= max(1, self.n // 4):
@@ -192,21 +211,30 @@ class DistributedRunner:
                       for p in range(self.n)]
         else:
             shards = [joined(bs) for bs in shard_lists]
-        return self._stack_host(shards)
+        return shards
 
-    def _stack_host(self, shards: List[HostBatch]) -> List[DeviceBatch]:
-        """One device batch a shard, on the shard's device, all at the
-        bucket of the largest shard and with every string column at its
-        widest width over the shards."""
-        from ..data.column import HostColumn
-
+    def _host_layout(self, shards: List[HostBatch]):
+        """The bucket of the largest shard and every string column's
+        widest width over the shards (None for other columns)."""
         bucket = bucket_rows(max(max(b.num_rows for b in shards), 1),
                              self.min_bucket)
         widths = [max(b.columns[i].data.shape[1] for b in shards)
                   if f.dtype.is_string else None
                   for i, f in enumerate(shards[0].schema)]
+        return bucket, widths
+
+    def _stack_host(self, shards: List[HostBatch], shard_ids=None,
+                    layout=None) -> List[DeviceBatch]:
+        """One device batch a shard (shards ``shard_ids``, default all), on
+        the shard's device, all at ``layout``'s bucket and string widths
+        (default ``_host_layout`` of ``shards``)."""
+        from ..data.column import HostColumn
+
+        bucket, widths = layout or self._host_layout(shards)
+        devices = [self.mesh.devices[s] for s in (shard_ids or
+                                                  range(len(shards)))]
         out = []
-        for b, dev in zip(shards, self.mesh.devices):
+        for b, dev in zip(shards, devices):
             cols = [c if w is None else HostColumn(
                 c.dtype, dstrings.pad_width(c.data, w), c.validity,
                 c.lengths) for c, w in zip(b.columns, widths)]
@@ -261,7 +289,8 @@ class DistributedRunner:
                     sort_keys) -> List[torch.Tensor]:
         """Range partition ids by sampled bounds: K1's passes of every
         sort key per shard (string keys at their widest width over the
-        shards); 64 strided samples a shard, read back together; the
+        shards, ``_agreed_widths``); 64 strided samples a shard, read back
+        together (every shard's, ``_all_samples``); the
         samples sorted with those of empty shards last; bounds at ``(V *
         i) // n`` of the V valid samples; pid = the number of bounds the
         row exceeds lexicographically (K11).  Any bounds keep the order;
@@ -281,12 +310,13 @@ class DistributedRunner:
                          for c in (as_device_column(k.expr.eval_tpu(b),
                                                     b.padded_rows, b.device)
                                    for k in sort_keys)])
-        for j, c0 in enumerate(keys[0]):
-            if c0.data.dim() == 2:
-                w = max(ks[j].data.shape[1] for ks in keys)
-                for ks in keys:
-                    ks[j] = DeviceColumn(ks[j].dtype, X._padded(ks[j], w),
-                                         ks[j].validity, ks[j].lengths)
+        str_keys = [j for j, c0 in enumerate(keys[0]) if c0.data.dim() == 2]
+        key_widths = self._agreed_widths(
+            [max(ks[j].data.shape[1] for ks in keys) for j in str_keys])
+        for j, w in zip(str_keys, key_widths):
+            for ks in keys:
+                ks[j] = DeviceColumn(ks[j].dtype, X._padded(ks[j], w),
+                                     ks[j].validity, ks[j].lengths)
         passes = [seg.key_passes_device(
             ks, descending=[not k.ascending for k in sort_keys],
             nulls_first=[k.nulls_first for k in sort_keys]) for ks in keys]
@@ -296,7 +326,7 @@ class DistributedRunner:
             nr = b.num_rows.to(torch.int64).reshape(1)
             idx = lane.to(p.device) * torch.clamp(nr, min=1) // RANGE_SAMPLES
             samples.append(torch.cat([nr, p[:, idx].reshape(-1)]))
-        host = X.to_host(samples)
+        host = self._all_samples(samples)
         k = passes[0].shape[0]
         g = np.concatenate([h[1:].reshape(k, RANGE_SAMPLES) for h in host],
                            axis=1)
@@ -311,6 +341,16 @@ class DistributedRunner:
         return [_where_rows(b, range_pids_from_bounds(
             p, bounds.to(p.device)), self.n)
             for p, b in zip(passes, batches)]
+
+    def _agreed_widths(self, widths: List[int]) -> List[int]:
+        """String key widths as every holder of shards agrees on them (one
+        process: as they are)."""
+        return widths
+
+    def _all_samples(self, samples: List[torch.Tensor]) -> List[np.ndarray]:
+        """Every shard's range samples as host int64 rows, in global shard
+        order (one process: its own)."""
+        return X.to_host(samples)
 
     # ---------------- collectives -------------------------------------
     def _gather_single(self, batches: List[DeviceBatch],
@@ -458,7 +498,7 @@ class DistributedRunner:
         if isinstance(op, B.TpuUnionExec):
             pieces = [self._lower(k, env) for k in kids]
             return [self._concat_compact([p[i] for p in pieces], op.schema)
-                    for i in range(self.n)]
+                    for i in range(len(self.local))]
         if isinstance(op, B.TpuLocalLimitExec):
             child = self._lower(kids[0], env)
             if isinstance(op, B.TpuGlobalLimitExec) and not self._is_single(
@@ -505,8 +545,9 @@ class DistributedRunner:
                 # a global aggregate over rows gathered to shard 0: one row
                 # there, as collect() gives, and no row of nulls from each
                 # empty shard (C.13; the reference runner returns n rows)
-                return [op.compute_batch(child[0])] + [
-                    self._empty_like(op.schema, b.device) for b in child[1:]]
+                return [op.compute_batch(b) if s == 0 else
+                        self._empty_like(op.schema, b.device)
+                        for s, b in zip(self.local, child)]
             return [op.compute_batch(b) for b in child]
         if isinstance(op, (B.TpuProjectExec, B.TpuFilterExec,
                            TpuGenerateExec)):
@@ -565,9 +606,15 @@ class DistributedRunner:
             env[self._env_key(leaf)] = self._run_leaf(leaf.node, ctx)
         out = None
         for stage in stages:
-            out = self._run_stage(stage, env)
+            out = self._retile(self._run_stage(stage, env))
             env[f"stage{stage.sid}"] = out
         return self._collect_output(out, stages)
+
+    def _retile(self, out: List[DeviceBatch]) -> List[DeviceBatch]:
+        """A stage's output as the next stage takes it: here as it is (each
+        shard is already cut to its own bucket); the multi-process runner
+        trims it to the bucket of the largest shard of any process (K27)."""
+        return out
 
     def _collect_output(self, out: List[DeviceBatch], stages) -> HostBatch:
         """The shards' rows downloaded (one read back of the row counts a
@@ -601,10 +648,12 @@ def run_distributed(session, df, mesh=None, n_devices: int = 8,
     session on ``cuda``, all on the CPU for one on ``cpu``).  Afterwards
     ``session.last_metrics`` holds the execution's metrics and the
     ``shuffle.*`` counters (``collectiveTimeNs``), and
-    ``session.last_placements`` one record a collective."""
+    ``session.last_placements`` one record a collective.  The transport is
+    the one ``spark.rapids.tpu.shuffle.transport.class`` names
+    (``collective.make_transport``)."""
     from ..plan.physical import ExecContext
     from ..shuffle.device_shuffle import GLOBAL as shuffle_stats
-    from .collective import DeviceCollectiveTransport
+    from .collective import make_transport
 
     if recovery is not None:
         raise NotImplementedError(
@@ -620,7 +669,7 @@ def run_distributed(session, df, mesh=None, n_devices: int = 8,
                          f"mesh devices {wrong}")
     phys = session.physical_plan(df.plan)
     ctx = ExecContext(session.conf, session.device)
-    transport = DeviceCollectiveTransport(mesh)
+    transport = make_transport(session.conf, mesh)
     mark = shuffle_stats.counters()
     try:
         return DistributedRunner(mesh, transport=transport).run(phys, ctx)

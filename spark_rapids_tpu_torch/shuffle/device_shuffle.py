@@ -27,7 +27,9 @@ launch writes every column of every non-empty bucket into a dense batch
 of its own at ``bucket_rows(count)`` rows, the padding zero and invalid.
 ``split_by_bucket`` chains the two.
 
-``ShuffleStats`` keeps ``deviceBytes`` and ``collectiveTimeNs``.  Not
+``ShuffleStats`` keeps ``deviceBytes``, ``collectiveTimeNs`` and the
+cross-process counters of ``parallel/multiprocess.py`` (collectives,
+bytes sent, host-staged bytes).  Not
 ported, for later slices: the host-staged path and its CRC stamping
 (``shuffle.mode=host`` needs the spill tier, ROADMAP A6, and raises),
 fallbacks and checkpoint bytes.
@@ -35,6 +37,7 @@ fallbacks and checkpoint bytes.
 from __future__ import annotations
 
 import ctypes
+import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,24 +71,35 @@ MAX_SLICE_COLS = 32
 
 class ShuffleStats:
     """Process-wide shuffle counters: ``deviceBytes``, the bytes of the
-    packed blocks written on the card, and ``collectiveTimeNs``, the wall
-    of the distributed runner's collectives (the port runs its exchanges
-    on one thread, so no lock)."""
+    packed blocks written on the card; ``collectiveTimeNs``, the wall of
+    the distributed runner's collectives (a single-process transport's
+    whole exchange; across processes, each ``torch.distributed`` call);
+    ``processCollectives``, the ``torch.distributed`` calls this process
+    made; ``processBytesSent``, the bytes it sent to other processes; and
+    ``hostStagedBytes``, the bytes it copied between the card and host
+    memory to take part in a collective whose backend works on host
+    tensors (gloo).  Counters are added under a lock: a guarded
+    collective runs on a thread of its own."""
 
-    _KEYS = ("deviceBytes", "collectiveTimeNs")
+    _KEYS = ("deviceBytes", "collectiveTimeNs", "processCollectives",
+             "processBytesSent", "hostStagedBytes")
 
     def __init__(self):
         self._values: Dict[str, int] = {k: 0 for k in self._KEYS}
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
-        for k in self._KEYS:
-            self._values[k] = 0
+        with self._lock:
+            for k in self._KEYS:
+                self._values[k] = 0
 
     def add(self, name: str, v: int = 1) -> None:
-        self._values[name] = self._values.get(name, 0) + v
+        with self._lock:
+            self._values[name] = self._values.get(name, 0) + v
 
     def counters(self) -> Dict[str, int]:
-        return dict(self._values)
+        with self._lock:
+            return dict(self._values)
 
     def metrics_since(self, mark: Optional[Dict[str, int]]
                       ) -> Dict[str, int]:
@@ -100,14 +114,18 @@ GLOBAL = ShuffleStats()
 
 
 @contextmanager
-def collective_timer():
+def collective_timer(bytes_sent: int = 0, process: bool = False):
     """Wall-clock one collective of the distributed runner into
-    ``collectiveTimeNs``."""
+    ``collectiveTimeNs``; with ``process``, a ``torch.distributed`` call
+    that sends ``bytes_sent`` bytes to other processes."""
     t0 = time.perf_counter_ns()
     try:
         yield
     finally:
         GLOBAL.add("collectiveTimeNs", time.perf_counter_ns() - t0)
+        if process:
+            GLOBAL.add("processCollectives", 1)
+            GLOBAL.add("processBytesSent", bytes_sent)
 
 
 def resolve_mode(conf_mode: str) -> str:

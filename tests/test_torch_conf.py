@@ -96,13 +96,11 @@ UNREAD_KEYS = {
     "spark.rapids.tpu.fault.injection.type",
     "spark.rapids.tpu.fault.maxStageRetries",
     "spark.rapids.tpu.fault.maxTotalAttempts",
-    "spark.rapids.tpu.fault.peer.collectiveTimeoutMs",
     "spark.rapids.tpu.fault.peer.heartbeatDir",
     "spark.rapids.tpu.fault.peer.heartbeatMs",
     "spark.rapids.tpu.fault.peer.missedHeartbeats",
     "spark.rapids.tpu.fault.queuePutTimeoutMs",
     "spark.rapids.tpu.fault.semaphoreTimeoutMs",
-    "spark.rapids.tpu.fault.stageTimeoutMs",
     "spark.rapids.tpu.memory.allocFraction",
     "spark.rapids.tpu.memory.debug",
     "spark.rapids.tpu.memory.host.spillStorageSize",
@@ -142,7 +140,6 @@ UNREAD_KEYS = {
     "spark.rapids.tpu.serving.cache.results.maxBytes",
     "spark.rapids.tpu.serving.cache.results.maxEntryBytes",
     "spark.rapids.tpu.serving.cache.templates.maxEntries",
-    "spark.rapids.tpu.shuffle.transport.class",
     "spark.rapids.tpu.speculation.enabled",
     "spark.rapids.tpu.speculation.minLatencyMs",
     "spark.rapids.tpu.speculation.minSamples",
