@@ -21,9 +21,11 @@
    hash joins and the reference's fused customer segment, and that each
    query launched the kernels of its plan and no others of K8, K12 and
    K13 (Q1: K1–K4, Q6: K3 and K4, Q3: K1–K7 and K12, Q4: K4 and K5, Q12:
-   K1–K8 and K12, Q13: K1–K7 and K12, Q14: K1–K7, K12 and K13; K12 in
-   none of Q1, Q4 and Q6); runs Q3 once with fusion off (its filter on K8
-   again); prints the table sizes after each filter and join, and times
+   K1–K8 and K12, Q13: K1–K7 and K12, Q14: K1, K3, K4's compaction, K5–K7,
+   K12 and K13 and no K2 (a join's probe runs one K1 sort and no K2 or K4
+   gather); K12 in none of Q1, Q4 and Q6); runs Q3 once with fusion off
+   (its filter on K8 again); prints the table sizes after each filter and
+   join, and times
    cold and warm runs.
    Then runs the seven queries over the reference's default of two
    partitions (``create_dataframe``'s default): shuffled joins over 2-way
@@ -192,9 +194,11 @@
    version on the same inputs; which gloo collectives take CUDA tensors;
    a worker that fails, hangs or writes no result fails the run;
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
-   8,388,608 padded rows; K4: a 2,097,152-row reader batch; K5–K7: the
-   inputs of Q3's second join as the run above gave them, K6 for inner
-   and full joins; K8: the 150,000-row c_mktsegment matrix against
+   8,388,608 padded rows, K1 also at Q1's first 8,192 rows (its one-block
+   path), W2's first partition and Q21's largest SF10 sort, each 10 times
+   against its plain version; K4: a 2,097,152-row reader batch; K5–K7:
+   the inputs of Q3's second join as the run above gave them, K5 10
+   times with has_r and 10 without, K6 for inner and full joins; K8: the 150,000-row c_mktsegment matrix against
    'BUILDING'; K9: Q3's lineitem join key, Q3's aggregate keys and Q4's
    priority key; K10: a 2-way build and slice of Q3's filtered lineitem
    batch; K11: Q3's final sort keys — K9–K11 as the two-partition runs
@@ -251,6 +255,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -265,6 +270,10 @@ import torch
 # outside the tensor cores; float32 outside the tensor cores, which stands
 # in for the 32-bit integer work of the sort, scan and gather kernels
 HBM_BYTES_PER_S = 3.35e12
+# phase 3 runs K1 and K5 this often at each shape against their plain
+# versions: their tiles take offsets from each other (decoupled
+# look-back), so a race would show as a run that differs
+REPEATS = 10
 FP64_PER_S = 34e12
 FP32_PER_S = 67e12
 SF = 1.0
@@ -491,6 +500,53 @@ def profiled_kernel_ms(fn, kernel, reps=10):
     seen = sum(e.count for e in rows)
     total = sum(e.self_device_time_total for e in rows)
     return (total / seen / 1e3 if seen else None), seen
+
+
+def frame_sum_library(values, valid, order, seg_ids, preceding):
+    """K14's "sum rows -preceding..0" composed of PyTorch calls, for its
+    like-for-like library time: the values in sorted order (nulls 0), the
+    segment starts by torch.searchsorted(ids, ids), torch.cumsum, the
+    clamped P[hi] - P[lo] gathers, and the scatter back to row order."""
+    o = order.to(torch.int64)
+    v = torch.where(valid, values, torch.zeros_like(values))[o]
+    starts = torch.searchsorted(seg_ids, seg_ids)
+    pre = torch.cat([torch.zeros(1, dtype=v.dtype, device=v.device),
+                     torch.cumsum(v, 0)])
+    i = torch.arange(v.shape[0], device=v.device)
+    s = pre[i + 1] - pre[torch.maximum(i - preceding, starts)]
+    out = torch.empty_like(s)
+    out[o] = s
+    return out
+
+
+def kernel_split(fn, reps=10):
+    """Device ms a launch and launches recorded a call, by CUDA kernel
+    name (no namespace, template or parameters), from torch.profiler over
+    ``reps`` calls of ``fn`` after a warm-up; copies and memsets by their
+    names.  The profiler can drop records (fewer launches than a call
+    makes), so the ms are a launch's, over the launches it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        head = e.key[5:] if e.key.startswith("void ") else e.key
+        head = head.replace("(anonymous namespace)::", "")
+        name = re.sub(r"<.*>", "", head.split("(", 1)[0]).strip()
+        name = name.split("::")[-1] or e.key[:40]
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    return {k: {"ms_a_launch": round(v[0] / v[1], 5),
+                "launches_recorded_a_call": v[1] / reps}
+            for k, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def _trace_events(prof):
@@ -914,9 +970,10 @@ def measure_b26(b26_inputs):
         require(same_batch(wex._sort_by_keys(wb), b26_plain(wb, key_idx)),
                 f"B.26 differs from its plain version at {cell}'s batch")
         order = S.lexsort_device(kcols, pad_valid=rm)
-        n_passes = 1 + S._n_passes(S._with_lengths(kcols, None, None)[0])
-        moved = n_passes * wb.padded_rows * 8 + 2 * wb.device_bytes() + \
-            sum(nbytes(c.data, c.validity, c.lengths) for c in kcols)
+        # K1 no longer writes its passes out: the batch read and written
+        n_passes = len(S._pass_table(kcols, [False] * len(kcols),
+                                     [True] * len(kcols), rm)[0]) // 8
+        moved = 2 * wb.device_bytes()
         b26[cell] = dict(
             rows=int(wb.num_rows), padded=wb.padded_rows, passes=n_passes,
             columns=len(wb.columns), bytes=moved,
@@ -1625,24 +1682,32 @@ def main() -> int:
                     S.STRING_MINMAX_LAUNCHES, GK.EXPLODE_LAUNCHES,
                     GK.EXPAND_LAUNCHES]
     all_counters = [c for cs in counters.values() for c in cs]
+    # K1's host reads (one a sort above S.SMALL_SORT_ROWS rows), reset
+    # with the launch counters and kept by cell
+    all_counters.append(S.SORT_READBACKS)
+    sort_readbacks = {}
     # the wrappers each query's plan reaches: Q6 has no group keys, so no
     # sort, no segment ids and no gather by a sort permutation; Q4's semi
     # join compacts the left side instead of expanding pairs; Q3's
     # customer filter runs inside its fused segment (K12), so K8 launches
-    # in Q12 alone (its aggregate's isin); K13 runs Q14's like
-    join_kernels = [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES,
-                    G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES,
+    # in Q12 alone (its aggregate's isin); K13 runs Q14's like.  A join's
+    # probe (K5) runs one K1 sort and neither K2 nor K4: Q3, Q12 and Q13
+    # launch those in their group-by aggregates, Q14 (a global aggregate
+    # over a broadcast join) not at all
+    join_kernels = [S.SORT_LAUNCHES, G.COMPACT_LAUNCHES,
                     J.JOIN_PROBE_LAUNCHES, J.JOIN_EXPAND_LAUNCHES,
                     J.GATHER_SIDE_LAUNCHES, S.SEGMENT_REDUCE_LAUNCHES]
+    grouped_kernels = [S.SEGMENT_IDS_LAUNCHES, G.GATHER_LAUNCHES]
     must_launch = {
         1: [S.SORT_LAUNCHES, S.SEGMENT_IDS_LAUNCHES,
             S.SEGMENT_REDUCE_LAUNCHES, G.GATHER_LAUNCHES,
             G.COMPACT_LAUNCHES],
         6: [S.SEGMENT_REDUCE_LAUNCHES, G.COMPACT_LAUNCHES],
-        3: join_kernels + [FK.FUSED_LAUNCHES],
+        3: join_kernels + grouped_kernels + [FK.FUSED_LAUNCHES],
         4: [G.COMPACT_LAUNCHES, J.JOIN_PROBE_LAUNCHES],
-        12: join_kernels + [FK.FUSED_LAUNCHES, SK.STRING_COMPARE_LAUNCHES],
-        13: join_kernels + [FK.FUSED_LAUNCHES],
+        12: join_kernels + grouped_kernels + [FK.FUSED_LAUNCHES,
+                                              SK.STRING_COMPARE_LAUNCHES],
+        13: join_kernels + grouped_kernels + [FK.FUSED_LAUNCHES],
         14: join_kernels + [FK.FUSED_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
     }
     # no TPC-H query runs a window (K14)
@@ -1652,7 +1717,7 @@ def main() -> int:
         3: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
         12: [SK.STRING_SEARCH_LAUNCHES],
         13: [SK.STRING_COMPARE_LAUNCHES, SK.STRING_SEARCH_LAUNCHES],
-        14: [SK.STRING_COMPARE_LAUNCHES],
+        14: [SK.STRING_COMPARE_LAUNCHES, S.SEGMENT_IDS_LAUNCHES],
     }
     for q in must_not_launch:  # no window, no substring, no cast, no concat
         must_not_launch[q] += [W.WINDOW_LAUNCHES,
@@ -1700,6 +1765,7 @@ def main() -> int:
         cold[q] = time.perf_counter() - t0
         launches[q] = {k: sum(c.count for c in cs)
                        for k, cs in counters.items()}
+        sort_readbacks[f"q{q}"] = S.SORT_READBACKS.count
         by_wrapper = {c.name: c.count for c in all_counters}
         log(f"Q{q} launches: {launches[q]} {by_wrapper}")
         check_launches(q, "")
@@ -1821,6 +1887,7 @@ def main() -> int:
             f"{DS.GLOBAL.counters()['deviceBytes']} bytes")
         launches2[q] = {k: sum(c.count for c in cs)
                         for k, cs in counters.items()}
+        sort_readbacks[f"q{q}/2"] = S.SORT_READBACKS.count
         by_wrapper = {c.name: c.count for c in all_counters}
         log(f"Q{q} two partitions launches: {launches2[q]} {by_wrapper}")
         for c in exchange_kernels:
@@ -1930,7 +1997,8 @@ def main() -> int:
     # q30: a broadcast join with item (planned on both sides of the
     # self-join), the distinct twice, the self-join, the pair count, the
     # window and its fused filter; K8 and K13 (strings) stay idle
-    q30_kernels = join_kernels + [FK.FUSED_LAUNCHES, W.WINDOW_LAUNCHES]
+    q30_kernels = join_kernels + grouped_kernels + [FK.FUSED_LAUNCHES,
+                                                    W.WINDOW_LAUNCHES]
     bb_tables = {}
     bb_runs = {}
     for n_part in (1, 2):
@@ -2058,10 +2126,12 @@ def main() -> int:
     def run_later(q):
         return tpch.QUERIES[q](later_tables[q]).collect()
 
-    # every later query joins (K1 sorts, K4 gathers, K5 probes) and runs a
-    # fused segment (K12); none runs a window (K14), and Q22's substring
-    # runs inside its K12 segment, so K15 stays idle with fusion on
-    later_must = [S.SORT_LAUNCHES, G.GATHER_LAUNCHES, G.COMPACT_LAUNCHES,
+    # every later query joins (K5 probes, each with its one K1 sort) and
+    # runs a fused segment (K12); all but Q19 (a global sum over a join)
+    # group or sort (K4 gathers); none runs a window (K14), and Q22's
+    # substring runs inside its K12 segment, so K15 stays idle with
+    # fusion on
+    later_must = [S.SORT_LAUNCHES, G.COMPACT_LAUNCHES,
                   J.JOIN_PROBE_LAUNCHES, FK.FUSED_LAUNCHES]
     later_must_not = [W.WINDOW_LAUNCHES, SK.STRING_TRANSFORM_LAUNCHES] \
         + text_kernels
@@ -2074,9 +2144,10 @@ def main() -> int:
         cold2[q] = time.perf_counter() - t0
         launches2[q] = {k: sum(c.count for c in cs)
                         for k, cs in counters.items()}
+        sort_readbacks[f"q{q}/2"] = S.SORT_READBACKS.count
         log(f"Q{q} two partitions launches: {launches2[q]} "
             f"{ {c.name: c.count for c in all_counters} }")
-        for c in later_must:
+        for c in later_must + ([G.GATHER_LAUNCHES] if q != 19 else []):
             require(c.count > 0, f"Q{q}: wrapper {c.name} launched no "
                     "kernel")
         for c in later_must_not:
@@ -2742,6 +2813,24 @@ def main() -> int:
         keep_largest(k25_calls, sum(counts), (batch, order, list(counts)))
         return split_impl(batch, order, counts, kernels, min_bucket_rows)
 
+    # K1's largest sort of Q21 at the default conf, copied for phase 3
+    q21_sort = {}
+    lexsort_impl = S.lexsort_device
+
+    def recording_lexsort(key_cols, descending=None, nulls_first=None,
+                          pad_valid=None, kernels=None):
+        n = (key_cols[0].data if key_cols else pad_valid).shape[0]
+        if current.get("cell") == f"q21 SF{SF10:g} default" and \
+                n > q21_sort.get("n", -1):
+            q21_sort.update(n=n, args=(
+                [DeviceColumn(c.dtype, c.data.clone(), c.validity.clone(),
+                              None if c.lengths is None
+                              else c.lengths.clone()) for c in key_cols],
+                descending, nulls_first,
+                None if pad_valid is None else pad_valid.clone()))
+        return lexsort_impl(key_cols, descending, nulls_first, pad_valid,
+                            kernels)
+
     def recording_hash(cols, n_out, kernels=None, seed=H.SEED):
         if seed != H.SEED:
             keep_largest(k9_seeded_calls, cols[0].data.shape[0],
@@ -2898,6 +2987,7 @@ def main() -> int:
                         f"{cell}: {pl['exchange']} lost or duplicated rows")
             current["cell"] = cell
             H.hash_pids, DS.bucket_split = recording_hash, recording_split
+            S.lexsort_device = recording_lexsort
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2905,6 +2995,7 @@ def main() -> int:
                 warm[cell] = time.perf_counter() - t0
             finally:
                 H.hash_pids, DS.bucket_split = seeded_impl, split_impl
+                S.lexsort_device = lexsort_impl
             prof = profile_query(cell, run10)
             sf10_info[cell] = {
                 "cold_s": cold[cell], "warm_s": warm[cell],
@@ -3422,22 +3513,99 @@ def main() -> int:
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
             f"max_abs_err {err}")
 
-    # K1: Q1's keys (2 one-byte strings + padding) -> 5 passes
+    # K1 at Q1's keys (2 one-byte strings + padding), at their first
+    # SMALL_SORT_ROWS rows (the one-block path), at W2's first partition
+    # (phase 2l) and at Q21's largest sort at SF10 (phase 2j): each run
+    # REPEATS times against its plain version (a look-back race between
+    # blocks would show as a difference), with its time, the launches and
+    # host reads of one call and its device time by kernel
+    def packed_key(kcols, krm):
+        """The library's one int64 key (pad, then per key its null rank
+        and value) where the keys' value ranges fit 62 bits, else None."""
+        parts = [((~krm).to(torch.int64), 1)]
+        for c in kcols:
+            v = c.data[:, 0] if c.data.dim() == 2 and c.data.shape[1] == 1 \
+                else c.data
+            if v.dim() != 1 or v.dtype.is_floating_point:
+                return None
+            v = v.to(torch.int64)
+            lo = int(torch.where(c.validity, v, v.max()).min())
+            span = int(torch.where(c.validity, v, lo).max()) - lo
+            parts += [(c.validity.to(torch.int64), 1),
+                      (torch.where(c.validity, v - lo, 0),
+                       max(1, span.bit_length()))]
+        if sum(b for _p, b in parts) > 62:
+            return None
+        key = torch.zeros_like(krm, dtype=torch.int64)
+        for part, bits in parts:
+            key = (key << bits) | part
+        return key
+
+    def k1_cell(label, kcols, desc, nf, krm, plain_reps=10):
+        want = S.lexsort_plain(kcols, desc, nf, krm)
+        for _ in range(REPEATS):
+            got = S.lexsort_device(kcols, desc, nf, krm)
+            require(torch.equal(got, want), f"K1 differs from its plain "
+                    f"version at {label}")
+        S.SORT_LAUNCHES.reset()
+        rb = S.SORT_READBACKS.count
+        S.lexsort_device(kcols, desc, nf, krm)
+        torch.cuda.synchronize()
+        lib_key = packed_key(kcols, krm)
+        cell = dict(
+            rows=krm.shape[0], launches=S.SORT_LAUNCHES.count,
+            readbacks=S.SORT_READBACKS.count - rb, equal_runs=REPEATS,
+            ms=cuda_ms(lambda: S.lexsort_device(kcols, desc, nf, krm)),
+            plain=cuda_ms(lambda: S.lexsort_plain(kcols, desc, nf, krm),
+                          reps=plain_reps, warmup=1),
+            lib=None if lib_key is None else cuda_ms(
+                lambda: torch.sort(lib_key, stable=True)),
+            bytes=nbytes(krm, want) + sum(
+                nbytes(c.data, c.validity, c.lengths) for c in kcols),
+            split=kernel_split(lambda: S.lexsort_device(kcols, desc, nf,
+                                                        krm)))
+        cell["bound"] = cell["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"K1 at {label}: {cell['rows']} padded rows, equal to its plain "
+            f"version in {REPEATS} runs; kernel {cell['ms']:.3f} ms, plain "
+            f"{cell['plain']:.3f} ms, library (torch.sort of one packed "
+            f"key) {_ms_text(cell['lib'])}, bound {cell['bound']:.4f} ms; "
+            f"one call: {cell['launches']} launches (one block: 1; else the "
+            f"masks, the pack, a gather a further word and one launch a "
+            f"digit step), {cell['readbacks']} host reads; "
+            f"device ms by kernel {cell['split']}; on {card}")
+        return cell
+
+    w2ex, w2b = b26_inputs["W2"]
+    w2keys = [w2b.columns[i] for i in w2ex._key_idx()]
+    small_n = S.SMALL_SORT_ROWS
+    k1 = {"q1": k1_cell("Q1's keys", keys, None, None, rm),
+          "q1 one block": k1_cell(
+              f"Q1's first {small_n} rows", [DeviceColumn(
+                  c.dtype, c.data[:small_n], c.validity[:small_n],
+                  c.lengths[:small_n]) for c in keys], None, None,
+              rm[:small_n]),
+          "w2": k1_cell("W2's first partition", w2keys, None, None,
+                        w2b.row_mask(), plain_reps=3)}
+    require(k1["q1 one block"]["launches"] == 1 and
+            k1["q1 one block"]["readbacks"] == 0,
+            "K1's one-block path took more than one launch or read back")
+    require(k1["q1"]["readbacks"] == 1 and k1["w2"]["readbacks"] == 1,
+            "K1's large path read back other than once")
+    if q21_sort:
+        kc, kd, knf, kpv = q21_sort["args"]
+        k1["q21 sf10"] = k1_cell(f"Q21's largest sort at SF{SF10:g}", kc,
+                                 kd, knf, kpv, plain_reps=3)
+        del q21_sort["args"]
     perm = S.lexsort_device(keys, pad_valid=rm)
-    ref = S.lexsort_plain(keys, pad_valid=rm)
-    require(torch.equal(perm, ref), "K1 differs from its plain version")
-    packed = ((~rm).to(torch.int64) << 40) | (
-        keys[0].validity.to(torch.int64) << 32) | (
-        keys[0].data[:, 0].to(torch.int64) << 16) | (
-        keys[1].validity.to(torch.int64) << 8) | \
-        keys[1].data[:, 0].to(torch.int64)
+    head = k1["q1"]
     entry("K1 sort_permutation", "spark_rapids_tpu_torch/csrc/sort.cu",
           "spark_rapids_tpu/ops/kernels/segment.py:313",
-          cuda_ms(lambda: S.lexsort_device(keys, pad_valid=rm)),
-          cuda_ms(lambda: S.lexsort_plain(keys, pad_valid=rm)),
-          cuda_ms(lambda: torch.sort(packed, stable=True)),
-          nbytes(rm, perm) + sum(nbytes(k.data, k.validity) for k in keys),
-          P * 5, FP32_PER_S, 0.0)
+          head["ms"], head["plain"], head["lib"], head["bytes"], P * 5,
+          FP32_PER_S, 0.0,
+          readbacks_by_query=sort_readbacks,
+          **{f"{f}_by_shape": {c: v[f] for c, v in k1.items()}
+             for f in ("rows", "ms", "plain", "lib", "bound", "launches",
+                       "readbacks", "equal_runs", "split")})
 
     # K2: segment ids of the sorted keys
     sorted_keys = [G.gather_column(k, perm) for k in keys]
@@ -3514,32 +3682,85 @@ def main() -> int:
           nbytes(rkeep, *arrays) * 2 - nbytes(rkeep), rb.padded_rows,
           FP32_PER_S, 0.0)
 
-    # K5: the probe of Q3's second join (its K1 sorts, K2 ids and K4
-    # gathers included in the time), on the inputs the main path gave it
+    # K5: the probe of Q3's second join (its one K1 sort included in the
+    # time), on the inputs the main path gave it, REPEATS runs each way
+    # against the plain version
     ex, lb, rb, _out = q3_join2
     lkeys = ex._keys_of(lb, ex.left_keys)
     rkeys = ex._keys_of(rb, ex.right_keys)
     l_rm, r_rm = lb.row_mask(), rb.row_mask()
     nl, nr = lb.padded_rows, rb.padded_rows
-    # checked with has_r (right/full joins ask for it); timed without it,
-    # as the main path's inner joins call it
-    pk = J.probe(lkeys, rkeys, l_rm, r_rm)
     pp = J.probe_plain(lkeys, rkeys, l_rm, r_rm)
-    for f in J.Probe._fields:
-        require(torch.equal(getattr(pk, f), getattr(pp, f)),
-                f"K5 {f} differs from its plain version")
+    for has_r in (True, False):
+        for _ in range(REPEATS):
+            pk = J.probe(lkeys, rkeys, l_rm, r_rm, with_has_r=has_r)
+            for f in J.Probe._fields[:None if has_r else -1]:
+                require(torch.equal(getattr(pk, f), getattr(pp, f)),
+                        f"K5 {f} differs from its plain version")
+    pk = J.probe(lkeys, rkeys, l_rm, r_rm)
+    k5 = {}
+    for has_r in (False, True):
+        for c in (J.JOIN_PROBE_LAUNCHES, S.SORT_LAUNCHES):
+            c.reset()
+        rb0 = S.SORT_READBACKS.count
+        J.probe(lkeys, rkeys, l_rm, r_rm, with_has_r=has_r)
+        torch.cuda.synchronize()
+        k5[has_r] = dict(
+            launches=J.JOIN_PROBE_LAUNCHES.count,
+            sort_launches=S.SORT_LAUNCHES.count,
+            sort_readbacks=S.SORT_READBACKS.count - rb0,
+            ms=cuda_ms(lambda: J.probe(lkeys, rkeys, l_rm, r_rm,
+                                       with_has_r=has_r)),
+            plain=cuda_ms(lambda: J.probe_plain(lkeys, rkeys, l_rm, r_rm,
+                                                with_has_r=has_r)),
+            split=kernel_split(lambda: J.probe(lkeys, rkeys, l_rm, r_rm,
+                                               with_has_r=has_r)))
+    require(k5[False]["sort_readbacks"] == 1,
+            "K5's probe made other than one K1 sort with one read back")
+    # like for like: one stable torch.sort of the combined key (ineligible
+    # rows last), the right rows taken from it in key order, and each
+    # left row's run among them by torch.searchsorted (Q3's one int64 key)
+    lk, rk = lkeys[0], rkeys[0]
+    big = torch.iinfo(torch.int64).max
+    lkey = torch.where(l_rm & lk.validity, lk.data.to(torch.int64), big)
+    combined = torch.cat([lkey, torch.where(r_rm & rk.validity,
+                                            rk.data.to(torch.int64), big)])
+
+    def k5_library():
+        vals, idx = torch.sort(combined, stable=True)
+        right = idx >= nl
+        sorted_r = vals[right]
+        lo = torch.searchsorted(sorted_r, lkey, side="left")
+        hi = torch.searchsorted(sorted_r, lkey, side="right")
+        return idx[right] - nl, lo, hi - lo
+
+    k5_lib = cuda_ms(k5_library) if len(lkeys) == 1 else None
     sorted_gr = pp.gr[pp.order_r.to(torch.int64)]
-    log(f"K5/K6/K7 at Q3's second join: {nl} + {nr} padded key rows")
+    k5_search_lib = cuda_ms(lambda: torch.searchsorted(sorted_gr, pp.gl))
+    log(f"K5/K6/K7 at Q3's second join: {nl} + {nr} padded key rows; K5 "
+        f"equal to its plain version in {REPEATS} runs with has_r and "
+        f"{REPEATS} without; one probe: {k5[False]['launches']} K5 "
+        f"launches (with has_r {k5[True]['launches']}), one K1 sort of "
+        f"{k5[False]['sort_launches']} launches and "
+        f"{k5[False]['sort_readbacks']} host read; kernel "
+        f"{k5[False]['ms']:.3f} ms (with has_r {k5[True]['ms']:.3f}), "
+        f"plain {k5[False]['plain']:.3f} ({k5[True]['plain']:.3f}), "
+        f"library like for like (stable torch.sort of the combined key + "
+        f"torch.searchsorted) {_ms_text(k5_lib)}, torch.searchsorted "
+        f"alone {k5_search_lib:.3f} ms; device ms by kernel "
+        f"{k5[False]['split']}; on {card}")
     entry("K5 join_probe", "spark_rapids_tpu_torch/csrc/join_probe.cu",
           "spark_rapids_tpu/ops/kernels/join.py:89",
-          cuda_ms(lambda: J.probe(lkeys, rkeys, l_rm, r_rm,
-                                  with_has_r=False)),
-          cuda_ms(lambda: J.probe_plain(lkeys, rkeys, l_rm, r_rm,
-                                        with_has_r=False)),
-          cuda_ms(lambda: torch.searchsorted(sorted_gr, pp.gl)),
+          k5[False]["ms"], k5[False]["plain"], k5_lib,
           sum(nbytes(k.data, k.validity, k.lengths) for k in lkeys + rkeys)
           + nbytes(l_rm, r_rm, *pk[:-1]),
-          (nl + nr) + nl * 2 * max(1, nr.bit_length()), FP32_PER_S, 0.0)
+          (nl + nr) + nl * 2 * max(1, nr.bit_length()), FP32_PER_S, 0.0,
+          library_call="torch.sort(stable=True) of the combined key + "
+          "torch.searchsorted of the left keys in its right rows",
+          searchsorted_ms=k5_search_lib, equal_runs=2 * REPEATS,
+          **{f"{f}_by_has_r": {str(h): v[f] for h, v in k5.items()}
+             for f in ("ms", "plain", "launches", "sort_launches",
+                       "sort_readbacks", "split")})
 
     def k6_bytes(ek, pairs, how):
         """What emit_counts + expand_pairs must move for this join type,
@@ -4018,21 +4239,35 @@ def main() -> int:
             f"ms, max_abs_err {err}")
     sorted_sales = G.gather_array(csales.data, korder)
     sorted_time = G.gather_array(ctime.data, korder)
-    k14_lib = {"sum rows -4..0": cuda_ms(lambda: torch.cumsum(
+    ksum = frame_sum_library(csales.data, csales.validity & wrm, korder,
+                             kseg, 4)
+    want_sum, want_valid = k14_cases["sum rows -4..0"][0](
+        W.frame_aggregate_plain)
+    require(torch.equal(ksum[want_valid], want_sum[want_valid]),
+            "K14's like-for-like library sum differs from the plain sum")
+    k14_lib = {"sum rows -4..0": cuda_ms(lambda: frame_sum_library(
+                   csales.data, csales.validity & wrm, korder, kseg, 4)),
+               "sum rows -4..0 cumsum alone": cuda_ms(lambda: torch.cumsum(
                    sorted_sales, 0)),
                "max running": cuda_ms(lambda: torch.cummax(
                    sorted_time, 0))}
-    log(f"K14 library calls: torch.cumsum of the sorted sales keys "
-        f"{k14_lib['sum rows -4..0']:.3f} ms, torch.cummax of the sorted "
-        f"click times {k14_lib['max running']:.3f} ms")
+    log(f"K14 library calls: sum rows -4..0 like for like (segment starts "
+        f"by torch.searchsorted, torch.cumsum, the clamped P[hi] - P[lo] "
+        f"gathers, the scatter to row order) "
+        f"{k14_lib['sum rows -4..0']:.3f} ms, equal to the plain sum on "
+        f"every valid frame; torch.cumsum of the sorted sales keys alone "
+        f"{k14_lib['sum rows -4..0 cumsum alone']:.3f} ms, torch.cummax "
+        f"of the sorted click times {k14_lib['max running']:.3f} ms")
     head = k14["sum rows -4..0"]
     entry("K14 window", "spark_rapids_tpu_torch/csrc/window.cu",
           "spark_rapids_tpu/exec/window.py:179",
           head["ms"], head["plain"], k14_lib["sum rows -4..0"],
           head["bytes"], NW, FP32_PER_S,
           max(v["err"] for v in k14.values()),
-          library_call="torch.cumsum over the sorted values (the "
-          "prefix-sum part of the sum); torch.cummax for the running max",
+          library_call="sum rows -4..0 composed: torch.searchsorted(ids, "
+          "ids) for the segment starts, torch.cumsum, the clamped "
+          "P[hi] - P[lo] gathers and the scatter to row order; "
+          "torch.cummax for the running max",
           rows=NW,
           ms_by_function={c: v["ms"] for c, v in k14.items()},
           plain_ms_by_function={c: v["plain"] for c, v in k14.items()},

@@ -7,6 +7,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#ifdef SRT_EMULATED
+#include <stdio.h>
+#include <stdlib.h>
+#endif
 
 #define SRT_API extern "C" __attribute__((visibility("default")))
 
@@ -162,8 +166,8 @@ __device__ __forceinline__ long long block_excl_scan64(long long v,
 // the number of lower lanes with its digit (__match_any_sync), and the
 // warps of the round are ordered by a prefix over their per-warp digit
 // counts.  s_cnt must be zero on entry and is left zero.  Returns the
-// row's position (0 for a lane without a row).  Used by K1's digit step
-// and K10's partition scatter.
+// row's position (0 for a lane without a row).  Used by K10's partition
+// scatter.
 // ---------------------------------------------------------------------
 constexpr int WARPS = BLOCK / 32;
 
@@ -188,6 +192,95 @@ __device__ __forceinline__ unsigned ranked_position(
   s_base[tid] = run;
   __syncthreads();
   return in ? s_off[w][dig] + rank : 0u;
+}
+
+// ---------------------------------------------------------------------
+// Decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back") over integer counts, for kernels whose
+// tiles take their index from a global atomic counter (so a tile waits
+// only on tiles whose blocks already run, and no wait can deadlock).
+// Each counter has one 64-bit status word a tile: bits 0-39 a count, bits
+// 40-41 its state (1: the tile's own count, 2: the inclusive prefix
+// through the tile), bits 48-63 an epoch.  A word of another epoch reads
+// as unset, so several launches (one epoch each) reuse one zeroed buffer
+// with no memset between them.  The value and its flag are one word, so
+// a reader that sees the flag sees the value.  Counts are integers: the
+// prefix is exact and the same on every run.
+// ---------------------------------------------------------------------
+constexpr unsigned long long LB_VALUE = (1ull << 40) - 1ull;
+constexpr unsigned LB_AGGREGATE = 1u;
+constexpr unsigned LB_PREFIX = 2u;
+
+__device__ __forceinline__ void lb_store(unsigned long long* word,
+                                         unsigned epoch, unsigned state,
+                                         unsigned long long value) {
+  *(volatile unsigned long long*)word =
+      ((unsigned long long)epoch << 48) |
+      ((unsigned long long)state << 40) | (value & LB_VALUE);
+}
+
+// spins until `word` holds a value of this epoch; returns the word
+__device__ __forceinline__ unsigned long long lb_wait(
+    const unsigned long long* word, unsigned epoch) {
+  for (;;) {
+    const unsigned long long w = *(const volatile unsigned long long*)word;
+    if ((unsigned)(w >> 48) == epoch && ((w >> 40) & 3ull) != 0ull)
+      return w;
+#ifdef SRT_EMULATED
+    // blocks run in index order here, so an unset predecessor is a fault
+    // of the caller, and spinning would hang the run
+    fprintf(stderr, "emulator: a look-back waits on an unset status word "
+            "(epoch %u)\n", epoch);
+    abort();
+#endif
+  }
+}
+
+// Publishes tile `tile`'s own count (its prefix, for tile 0).  Slot j of
+// the counter is words[j * stride].
+__device__ __forceinline__ void lookback_publish(unsigned long long* words,
+                                                 long long stride, int tile,
+                                                 unsigned epoch,
+                                                 unsigned long long count) {
+  lb_store(words + (long long)tile * stride, epoch,
+           tile == 0 ? LB_PREFIX : LB_AGGREGATE, count);
+}
+
+// After lookback_publish: the sum of the counts of tiles [0, tile),
+// walking back over the predecessors' words until one holds its prefix
+// (LB_WINDOW words read at once, so the walk pays one load latency a
+// window); then publishes this tile's inclusive prefix.
+constexpr int LB_WINDOW = 8;
+
+__device__ __forceinline__ unsigned long long lookback_prefix(
+    unsigned long long* words, long long stride, int tile, unsigned epoch,
+    unsigned long long count) {
+  unsigned long long excl = 0ull;
+  int j = tile - 1;
+  bool done = j < 0;
+  while (!done) {
+    unsigned long long w[LB_WINDOW];
+#pragma unroll
+    for (int q = 0; q < LB_WINDOW; ++q)
+      w[q] = j - q >= 0
+          ? *(const volatile unsigned long long*)(words +
+                                                  (long long)(j - q) * stride)
+          : 0ull;
+#pragma unroll
+    for (int q = 0; q < LB_WINDOW; ++q) {
+      if (done || j - q < 0) continue;
+      if ((unsigned)(w[q] >> 48) != epoch || ((w[q] >> 40) & 3ull) == 0ull)
+        w[q] = lb_wait(words + (long long)(j - q) * stride, epoch);
+      excl += w[q] & LB_VALUE;
+      done = ((w[q] >> 40) & 3ull) == LB_PREFIX;
+    }
+    j -= LB_WINDOW;
+    done = done || j < 0;
+  }
+  if (tile > 0)
+    lb_store(words + (long long)tile * stride, epoch, LB_PREFIX,
+             excl + count);
+  return excl;
 }
 
 // lower_bound / upper_bound over a nondecreasing array

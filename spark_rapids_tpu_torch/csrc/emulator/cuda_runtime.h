@@ -11,8 +11,11 @@
 // intrinsics exchange values through a per-warp slot array between two
 // warp barriers.  It checks logic only: timing, memory coalescing and
 // races between blocks are not modelled, and the threads of a block run
-// in a fixed order between barriers.
+// in a fixed order between barriers.  Since blocks run in index order, a
+// decoupled look-back (common.cuh) always finds its predecessors'
+// status words set; its wait aborts where one is not (SRT_EMULATED).
 #pragma once
+#define SRT_EMULATED 1
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -144,6 +147,34 @@ T __shfl_up_sync(unsigned, T v, int o) {
   return r;
 }
 
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  const int lane = threadIdx.x & 31;
+  SrtWarp& w = srt_warps[threadIdx.x >> 5];
+  uint64_t bits = 0;
+  memcpy(&bits, &v, sizeof(T));
+  w.slot[lane] = bits;
+  w.bar.arrive_and_wait();
+  T r;
+  memcpy(&r, &w.slot[src & 31], sizeof(T));
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int o) {
+  const int lane = threadIdx.x & 31;
+  SrtWarp& w = srt_warps[threadIdx.x >> 5];
+  uint64_t bits = 0;
+  memcpy(&bits, &v, sizeof(T));
+  w.slot[lane] = bits;
+  w.bar.arrive_and_wait();
+  T r;
+  memcpy(&r, &w.slot[lane ^ o], sizeof(T));
+  w.bar.arrive_and_wait();
+  return r;
+}
+
 inline unsigned __match_any_sync(unsigned, int v) {
   const int lane = threadIdx.x & 31;
   SrtWarp& w = srt_warps[threadIdx.x >> 5];
@@ -156,6 +187,12 @@ inline unsigned __match_any_sync(unsigned, int v) {
   return m;
 }
 
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  srt_warps[threadIdx.x >> 5].bar.arrive_and_wait();
+}
+// fibers of one OS thread: every store is seen by the next load
+inline void __threadfence() {}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __clzll(long long x) {
@@ -163,6 +200,21 @@ inline int __clzll(long long x) {
 }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicOr(unsigned long long* p,
+                                   unsigned long long v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAnd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
 }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }

@@ -2,19 +2,33 @@
 //
 // Replaces spark_rapids_tpu/ops/kernels/join.py:group_ids (53, with
 // _concat_key_cols at 32) and probe (89).  The stable sort of the
-// concatenated keys, the sort of the right ids, and the segment ids are
-// K1 and K2 (ops/kernels/segment.py); this file holds the rest:
+// concatenated keys is K1 (ops/kernels/segment.py); this file holds the
+// rest:
 //
-//   k5_ok          row eligibility: side row mask AND every key's validity
-//                  (rows with a null key or padding never join)
-//   k5_concat      row-concatenation of one key array of both sides (byte
-//                  matrices widen to the wider side with zero bytes)
-//   k5_scatter_ids segment ids in sorted order back to row order, with the
-//                  sentinels -1 (left) / -2 (right) on ineligible rows
-//   k5_search      per left row, lower and upper bound of its id in the
-//                  sorted right ids: lo and cnt = hi - lo
-//   k5_has_r       per right row, whether any left row has its id (only
-//                  right and full joins ask for it)
+//   k5_ok      row eligibility: side row mask AND every key's validity
+//              (rows with a null key or padding never join), one launch
+//              for all keys; also counts the ineligible right rows
+//   k5_concat  row-concatenation of one key array of both sides (byte
+//              matrices widen to the wider side with zero bytes)
+//   k5_ids     over the sorted positions: each row compared with its
+//              neighbour by K1's sorted packed key where K1 made one (one
+//              word held every live bit), else by its key columns read
+//              through the permutation (K2's rules, keys.cuh); the change
+//              flags scanned to group ids by decoupled look-back
+//              (common.cuh), gl / gr written in row order with the
+//              sentinels -1 (left) / -2 (right), and the right rows'
+//              order by id (order_r, sorted_gr) placed in the same pass
+//   k5_search  per left row, lower and upper bound of its id in the
+//              sorted right ids: lo and cnt = hi - lo
+//   k5_has_r   per right row, whether any left row has its id (only
+//              right and full joins ask for it)
+//
+// order_r without a second sort: the sort is stable and left rows come
+// before right rows, so the eligible right rows appear in sorted order
+// exactly by (id, row); the ineligible ones (id -2, first in the stable
+// sort of gr) sort last in row order.  An eligible right row's place is
+// the count of ineligible right rows plus its rank among eligible right
+// rows; an ineligible one's is its rank among ineligible right rows.
 //
 // has_r: the reference searches the sorted left ids; here each left id
 // marks its group in a flag array and each right row reads its group's
@@ -24,31 +38,46 @@
 // Bound on this card: bytes.  At Q3's second join (262,144 left and
 // 4,194,304 right padded rows, int64 keys) the functions of this file
 // read the keys, masks and ids and write the ids, lo, cnt and has_r:
-// about (8 + 1 + 1) B a row for the concatenation, 4 + 4 + 1 B for the
-// scatter, 4 + 8 B a left row and 4 + 1 + 1 B a right row for the probe
-// and the flags — some 100 MB in all, ~30 us at 3.35 TB/s.  Design: one
-// thread per row in every kernel; the binary searches touch log2(nr) ~ 22
-// ids a left row, which stay in the 50 MB L2; the scatter writes through
-// the sort permutation (random 4-byte stores), which is the cost to beat.
-#include "common.cuh"
+// about (8 + 1 + 1) B a row for the concatenation, 4 + 8 + 4 + 8 B a
+// position for k5_ids (the order and the sorted key read; an id and the
+// right order written), 4 + 8 B a left row and 4 + 1 + 1 B a right row
+// for the probe and the flags — some 140 MB in all, ~42 us at 3.35 TB/s.
+// Design: one thread a row or 8 positions a thread; k5_ids reads the
+// order and the sorted key in order and writes gl / gr through the
+// permutation (random 4-byte stores), its cost to beat; eligibility is a
+// position below the eligible count (k5_ok's counts), so no flag is read
+// through the permutation; the binary searches touch log2(nr) ~ 22 ids a
+// left row, which stay in the 50 MB L2.
+#include "keys.cuh"
 
 namespace {
 
 using srt::BLOCK;
+using srt::FULL_MASK;
+using srt::ITEMS;
+using srt::TILE;
 
-__global__ void row_ok(const bool* __restrict__ l_ok,
-                       const bool* __restrict__ l_valid, long long nl,
-                       const bool* __restrict__ r_ok,
-                       const bool* __restrict__ r_valid, long long nr,
-                       int first, bool* __restrict__ ok) {
+// valid: 2 * nkeys addresses, each key's left then right validity
+__global__ void row_ok(const bool* __restrict__ l_ok, long long nl,
+                       const bool* __restrict__ r_ok, long long nr,
+                       const long long* __restrict__ valid, int nkeys,
+                       bool* __restrict__ ok, unsigned* __restrict__ inelig) {
+  __shared__ unsigned s_count[2];
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0u;
+  __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nl + nr) return;
-  const bool v = i < nl ? l_valid[i] : r_valid[i - nl];
-  if (first) {
-    ok[i] = v && (i < nl ? l_ok[i] : r_ok[i - nl]);
-  } else {
-    ok[i] = ok[i] && v;
+  if (i < nl + nr) {
+    const bool left = i < nl;
+    const long long row = left ? i : i - nl;
+    bool v = left ? l_ok[row] : r_ok[row];
+    for (int c = 0; c < nkeys; ++c)
+      v = v && ((const bool*)valid[2 * c + (left ? 0 : 1)])[row];
+    ok[i] = v;
+    if (!v) atomicAdd(&s_count[left ? 0 : 1], 1u);
   }
+  __syncthreads();
+  if (threadIdx.x < 2 && s_count[threadIdx.x] != 0u)
+    atomicAdd(&inelig[threadIdx.x], s_count[threadIdx.x]);
 }
 
 template <typename E>
@@ -73,19 +102,133 @@ __global__ void concat_bytes(const uint8_t* __restrict__ l, long long nl,
   for (int j = 0; j < w; ++j) d[j] = j < sw ? s[j] : 0;
 }
 
-__global__ void scatter_ids(const int* __restrict__ order,
-                            const int* __restrict__ ids_sorted,
-                            const bool* __restrict__ ok, long long n,
-                            long long nl, int* __restrict__ gl,
-                            int* __restrict__ gr) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const long long row = order[p];
-  const bool good = ok[row];
-  if (row < nl) {
-    gl[row] = good ? ids_sorted[p] : -1;
-  } else {
-    gr[row - nl] = good ? ids_sorted[p] : -2;
+// one key column of the combined rows (k5_ids' table: 4 words a column)
+struct KeyCol {
+  const void* data;
+  int dtype;
+  int width;  // bytes a row of a byte matrix, 0 for an array
+  const int* lengths;
+};
+
+__device__ __forceinline__ KeyCol key_col(const long long* table, int c) {
+  KeyCol k;
+  k.data = (const void*)table[4 * c];
+  k.dtype = (int)table[4 * c + 1];
+  k.width = (int)table[4 * c + 2];
+  k.lengths = (const int*)table[4 * c + 3];
+  return k;
+}
+
+// counters of k5_ids, 21 bits each in one 64-bit word (a tile has 2,048
+// positions): key changes, eligible right rows, ineligible right rows
+constexpr int FIELD = 21;
+constexpr unsigned long long FIELD_MASK = (1ull << FIELD) - 1ull;
+
+constexpr int WARPS = BLOCK / 32;
+
+__global__ void __launch_bounds__(BLOCK) group_ids(
+    const int* __restrict__ order,
+    const unsigned long long* __restrict__ sorted_key, long long n,
+    long long nl, const long long* __restrict__ table, int ncols,
+    const unsigned* __restrict__ inelig,
+    unsigned long long* __restrict__ status, unsigned* __restrict__ counter,
+    int* __restrict__ gl, int* __restrict__ gr, int* __restrict__ order_r,
+    int* __restrict__ sorted_gr) {
+  __shared__ int s_tile;
+  __shared__ unsigned long long s_warp[WARPS];
+  __shared__ unsigned long long s_before[3];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  if (tid == 0) s_tile = (int)atomicAdd(counter, 1u);
+  __syncthreads();
+  const int tile = s_tile;
+  const int ntiles = (int)gridDim.x;
+  // the eligible rows sort first: position p holds one iff p < n_ok
+  const long long n_ok = n - (long long)inelig[0] - (long long)inelig[1];
+  // warp w holds positions [base, base + 256), round j the 32 from
+  // base + 32 j: loads and stores of a round are contiguous
+  const long long base = (long long)tile * TILE + w * (32 * ITEMS);
+  int row[ITEMS];
+  unsigned long long f[ITEMS], run[ITEMS];
+  unsigned long long carry = 0ull;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long p = base + j * 32 + lane;
+    f[j] = 0ull;
+    row[j] = -1;
+    if (p < n) {
+      const int r = order[p];
+      const bool good = p < n_ok;
+      // K2's rules: a new group at the first row, at every ineligible
+      // row, and where the keys differ from the row before (both
+      // eligible: p - 1 < p < n_ok)
+      bool change = p == 0 || !good;
+      if (!change && sorted_key != nullptr) {
+        change = sorted_key[p] != sorted_key[p - 1];
+      } else if (!change) {
+        const int prev = order[p - 1];
+        for (int c = 0; c < ncols && !change; ++c) {
+          const KeyCol k = key_col(table, c);
+          change = srt::column_differs(k.data, k.dtype, k.width, k.lengths,
+                                       r, prev);
+        }
+      }
+      const bool right = r >= nl;
+      f[j] = (change ? 1ull : 0ull) |
+             ((right && good ? 1ull : 0ull) << FIELD) |
+             ((right && !good ? 1ull : 0ull) << (2 * FIELD));
+      row[j] = r;
+    }
+    // the round's exclusive prefix within the warp, after the rounds
+    // before it
+    const unsigned long long incl =
+        (unsigned long long)srt::warp_incl_scan64((long long)f[j]);
+    run[j] = carry + incl - f[j];
+    carry += __shfl_sync(FULL_MASK, incl, 31);
+  }
+  if (lane == 0) s_warp[w] = carry;
+  __syncthreads();
+  unsigned long long before_warp = 0ull, tile_total = 0ull;
+#pragma unroll
+  for (int ww = 0; ww < WARPS; ++ww) {
+    const unsigned long long c = s_warp[ww];
+    if (ww < w) before_warp += c;
+    tile_total += c;
+  }
+  if (tid < 3) {
+    const unsigned long long count = (tile_total >> (FIELD * tid)) &
+                                     FIELD_MASK;
+    srt::lookback_publish(status + (long long)tid * ntiles, 1, tile, 1u,
+                          count);
+    s_before[tid] = srt::lookback_prefix(status + (long long)tid * ntiles, 1,
+                                         tile, 1u, count);
+  }
+  __syncthreads();
+  const long long first_right = (long long)inelig[1];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (row[j] < 0) continue;
+    const unsigned long long at = before_warp + run[j];
+    const bool good = base + j * 32 + lane < n_ok;
+    const long long changes = (long long)s_before[0] +
+        (long long)((at & FIELD_MASK) + (f[j] & FIELD_MASK));
+    const int id = (int)(changes - 1);
+    const int r = row[j];
+    if (r < nl) {
+      gl[r] = good ? id : -1;
+    } else {
+      gr[r - nl] = good ? id : -2;
+      if (order_r != nullptr) {
+        const long long pos = good
+            ? first_right + (long long)s_before[1] +
+                  (long long)((at >> FIELD) & FIELD_MASK)
+            : (long long)s_before[2] +
+                  (long long)((at >> (2 * FIELD)) & FIELD_MASK);
+        order_r[pos] = (int)(r - nl);
+        sorted_gr[pos] = good ? id : -2;
+      }
+    }
   }
 }
 
@@ -125,13 +268,14 @@ __global__ void right_has_left(const int* __restrict__ gr, long long nr,
 
 }  // namespace
 
-// first != 0: ok = side mask AND this key's validity; else ok &= validity
-SRT_API int k5_ok(const void* l_ok, const void* l_valid, long long nl,
-                  const void* r_ok, const void* r_valid, long long nr,
-                  int first, void* ok, void* stream) {
+// valid: int64[2 * nkeys] validity addresses (each key's left, right);
+// inelig: zeroed uint32[2] that receive the ineligible left and right rows
+SRT_API int k5_ok(const void* l_ok, long long nl, const void* r_ok,
+                  long long nr, const void* valid, int nkeys, void* ok,
+                  void* inelig, void* stream) {
   row_ok<<<srt::blocks_for(nl + nr, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-      (const bool*)l_ok, (const bool*)l_valid, nl, (const bool*)r_ok,
-      (const bool*)r_valid, nr, first, (bool*)ok);
+      (const bool*)l_ok, nl, (const bool*)r_ok, nr, (const long long*)valid,
+      nkeys, (bool*)ok, (unsigned*)inelig);
   return (int)cudaGetLastError();
 }
 
@@ -168,14 +312,23 @@ SRT_API int k5_concat(const void* l, long long nl, int lw, const void* r,
   return (int)cudaGetLastError();
 }
 
-// order: the sort permutation of the n = nl + nr concatenated rows;
-// ids_sorted: their segment ids in sorted order; ok: eligibility by row
-SRT_API int k5_scatter_ids(const void* order, const void* ids_sorted,
-                           const void* ok, long long n, long long nl,
-                           void* gl, void* gr, void* stream) {
-  scatter_ids<<<srt::blocks_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)order, (const int*)ids_sorted, (const bool*)ok, n, nl,
-      (int*)gl, (int*)gr);
+// order: the sort permutation of the n = nl + nr >= 1 concatenated rows
+// (eligible rows first); sorted_key: K1's packed key in sorted order
+// (equal keys: equal rows), or NULL: then table, int64[4 * ncols] (data
+// address, dtype code, byte-matrix width or 0, lengths address or 0) of
+// the concatenated key columns, read through the order; inelig: k5_ok's
+// counts; status: zeroed uint64[3 * ceil(n / 2048)]; counter: a zeroed
+// uint32.  order_r NULL: gl and gr only.
+SRT_API int k5_ids(const void* order, const void* sorted_key, long long n,
+                   long long nl, const void* table, int ncols,
+                   const void* inelig, void* status, void* counter,
+                   void* gl, void* gr, void* order_r, void* sorted_gr,
+                   void* stream) {
+  group_ids<<<srt::tiles_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int*)order, (const unsigned long long*)sorted_key, n, nl,
+      (const long long*)table, ncols, (const unsigned*)inelig,
+      (unsigned long long*)status, (unsigned*)counter, (int*)gl, (int*)gr,
+      (int*)order_r, (int*)sorted_gr);
   return (int)cudaGetLastError();
 }
 

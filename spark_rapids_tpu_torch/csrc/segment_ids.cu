@@ -3,9 +3,10 @@
 // Replaces spark_rapids_tpu/ops/kernels/segment.py:segment_ids_device
 // (335): a key-change flag per row over the sorted key columns (a value
 // difference counts only where both rows are valid; NaN equals NaN and
-// -0.0 equals 0.0; strings compare bytes and lengths; a validity change is
-// always a boundary), every padding row its own segment, then an inclusive
-// scan to int32 ids.
+// -0.0 equals 0.0; strings compare bytes and lengths: the rules of
+// keys.cuh, shared with K5's k5_ids; a validity change is always a
+// boundary), every padding row its own segment, then an inclusive scan to
+// int32 ids.
 //
 // Bound on this card: bytes.  Each key column is read once (data +
 // validity, and lengths for strings) and the int32 ids written once; for
@@ -15,7 +16,7 @@
 // a three-launch multi-block scan (tile sums, one-block scan of the tile
 // sums, per-row write) with warp-shuffle block scans; no atomics, so the
 // ids are the same bits on every run.
-#include "common.cuh"
+#include "keys.cuh"
 
 namespace {
 
@@ -33,19 +34,6 @@ __global__ void flags_init(const bool* __restrict__ pad_valid, long long n,
 }
 
 template <typename T>
-__device__ __forceinline__ bool differs(T a, T b) {
-  return a != b;
-}
-template <>
-__device__ __forceinline__ bool differs<float>(float a, float b) {
-  return !(a == b) && !(a != a && b != b);
-}
-template <>
-__device__ __forceinline__ bool differs<double>(double a, double b) {
-  return !(a == b) && !(a != a && b != b);
-}
-
-template <typename T>
 __global__ void flags_num(const T* __restrict__ data,
                           const bool* __restrict__ valid, long long n,
                           uint8_t* __restrict__ change) {
@@ -53,7 +41,7 @@ __global__ void flags_num(const T* __restrict__ data,
   if (i < 1 || i >= n) return;
   const bool v1 = valid[i];
   const bool v0 = valid[i - 1];
-  const bool neq = (v1 && v0 && differs<T>(data[i], data[i - 1])) ||
+  const bool neq = (v1 && v0 && srt::differs<T>(data[i], data[i - 1])) ||
                    (v1 != v0);
   if (neq) change[i] = 1;
 }
@@ -66,10 +54,7 @@ __global__ void flags_str(const uint8_t* __restrict__ bytes,
   if (i < 1 || i >= n) return;
   const bool v1 = valid[i];
   const bool v0 = valid[i - 1];
-  bool diff = lengths[i] != lengths[i - 1];
-  const uint8_t* a = bytes + i * (long long)w;
-  const uint8_t* b = a - w;
-  for (int j = 0; j < w && !diff; ++j) diff = a[j] != b[j];
+  const bool diff = srt::bytes_differ(bytes, lengths, w, i, i - 1);
   if ((v1 && v0 && diff) || (v1 != v0)) change[i] = 1;
 }
 

@@ -47,12 +47,12 @@ Q = ctypes.c_longlong
 #: cudaError of its launches
 KERNELS: Dict[str, tuple] = {
     "sort": ("sort.cu", {
-        "k1_encode_num": ([P, P, I, Q, I, I, P, P, P], 1),
-        "k1_encode_str": ([P, P, I, Q, I, I, P, P, P], 1),
-        "k1_encode_pad": ([P, Q, P, P], 1),
-        "k1_global_hist": ([P, I, Q, P, P], 1),
-        "k1_gather_keys": ([P, P, Q, P, P, P], 1),
-        "k1_digit_step": ([P, P, Q, I, P, P, P, P, P], 3),
+        "k1_encode": ([P, I, Q, P, P], 1),
+        "k1_live": ([P, I, Q, P, P], 1),
+        "k1_pack": ([P, I, Q, P, I, I, P, P, P], 1),
+        "k1_gather_keys": ([P, P, Q, P, P], 1),
+        "k1_onesweep": ([P, P, Q, I, P, P, P, I, P, P, P], 1),
+        "k1_sort_small": ([P, I, Q, P, P], 1),
     }),
     "segment_ids": ("segment_ids.cu", {
         "k2_flags_init": ([P, Q, P, P], 1),
@@ -74,9 +74,9 @@ KERNELS: Dict[str, tuple] = {
         "k7_gather_side": ([P, I, P, P, P, P, Q, Q, P, P, P, P], 1),
     }),
     "join_probe": ("join_probe.cu", {
-        "k5_ok": ([P, P, Q, P, P, Q, I, P, P], 1),
+        "k5_ok": ([P, Q, P, Q, P, I, P, P, P], 1),
         "k5_concat": ([P, Q, I, P, Q, I, I, P, P], 1),
-        "k5_scatter_ids": ([P, P, P, Q, Q, P, P, P], 1),
+        "k5_ids": ([P, P, Q, Q, P, I, P, P, P, P, P, P, P, P], 1),
         "k5_search": ([P, Q, P, Q, P, P, P], 1),
         "k5_has_r": ([P, Q, P, Q, P, P, P], 3),
     }),
@@ -385,10 +385,10 @@ def ptr(t: Optional[torch.Tensor]):
 def device_table(words, device: torch.device) -> torch.Tensor:
     """A kernel's table of int64 words on ``device``, sent from pinned
     memory with a non-blocking copy where that is a CUDA device."""
-    t = torch.tensor(list(words), dtype=torch.int64)
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+        return torch.tensor(list(words), dtype=torch.int64,
+                            pin_memory=True).to(device, non_blocking=True)
+    return torch.tensor(list(words), dtype=torch.int64)
 
 
 def launch(counter: LaunchCounter, lib: ctypes.CDLL, fn: str, *args,

@@ -4,14 +4,15 @@ expansion, K7 null-side gather.
 Counterpart of ``spark_rapids_tpu/ops/kernels/join.py``: a sort-merge
 join with static shapes.
 
-  1. group ids (K5, with K1's sort and K2's segment ids): both sides' key
-     columns concatenated, one stable sort, segment ids at key changes;
-     rows whose keys are equal (Spark's null, NaN and -0.0 rules) share
-     an id across sides; left rows with a null key or padding get -1,
-     right ones -2.
-  2. probe (K5, with K1 sorting the right ids and K4 gathering them):
-     per left row the run ``[lo, lo + cnt)`` of its matches among the
-     right rows in id order, and per right row whether it has a match.
+  1. group ids (K5, with K1's sort): both sides' key columns
+     concatenated, one stable sort, segment ids at key changes (K2's
+     rules, read through the sort's permutation); rows whose keys are
+     equal (Spark's null, NaN and -0.0 rules) share an id across sides;
+     left rows with a null key or padding get -1, right ones -2.
+  2. probe (K5): the right rows in id order, placed by the same pass that
+     writes the ids (no second sort), per left row the run
+     ``[lo, lo + cnt)`` of its matches among them, and per right row
+     whether it has a match.
   3. emit counts and expansion (K6, with K4's compaction ordering the
      unmatched right rows): rows emitted per left row by join type, the
      total (read once on the host to size the output), and per output
@@ -30,7 +31,6 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ... import types as T
 from ...data.column import DeviceColumn
 from . import _build as B
 from . import gather as G
@@ -209,12 +209,15 @@ def _row_bytes(t: torch.Tensor) -> int:
     return t.element_size() * (t.shape[1] if t.dim() == 2 else 1)
 
 
-def _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels: B.Kernels):
-    """(gl, gr, ok): ok is the eligibility of the nl + nr concatenated
-    rows.  The combined key columns carry ``ok`` as their validity: an
-    eligible row's keys are all valid, and ineligible rows sort after
-    every eligible one (the padding pass), so the ids of eligible rows —
-    the only ones kept — are the reference's."""
+def _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels: B.Kernels,
+                    with_order_r: bool):
+    """(gl, gr, order_r, sorted_gr): the rows' group ids and, with
+    ``with_order_r``, the right rows in id order and their ids (else
+    None, None).  The combined key columns carry the eligibility ``ok``
+    as their validity: an eligible row's keys are all valid, and
+    ineligible rows sort after every eligible one (the padding pass), in
+    row order, so the ids of eligible rows — the only ones kept — are the
+    reference's."""
     _check_keys(l_keys, r_keys)
     lib = kernels.library("join_probe")
     nl, nr = l_ok.shape[0], r_ok.shape[0]
@@ -222,12 +225,6 @@ def _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels: B.Kernels):
     dev = l_ok.device
     st = kernels.stream(l_ok)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
-    l_ok, r_ok = l_ok.contiguous(), r_ok.contiguous()
-    for i, (a, b) in enumerate(zip(l_keys, r_keys)):
-        B.launch(JOIN_PROBE_LAUNCHES, lib, "k5_ok", B.ptr(l_ok),
-                 B.ptr(a.validity.contiguous()), nl, B.ptr(r_ok),
-                 B.ptr(b.validity.contiguous()), nr, int(i == 0),
-                 B.ptr(ok), st)
 
     def concat(x, y, shape, dtype):
         out = torch.empty(shape, dtype=dtype, device=dev)
@@ -237,6 +234,8 @@ def _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels: B.Kernels):
                  _row_bytes(out), B.ptr(out), st)
         return out
 
+    # the concatenations first: the card starts while the host builds the
+    # tables below
     combined = []
     for a, b in zip(l_keys, r_keys):
         if a.dtype.is_string:
@@ -249,53 +248,68 @@ def _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels: B.Kernels):
                           a.data.dtype)
             lengths = None
         combined.append(DeviceColumn(a.dtype, data, ok, lengths))
-    order = seg.lexsort_device(combined, pad_valid=ok, kernels=kernels)
-    ok_sorted = G.gather_array(ok, order, kernels)
-    sorted_cols = [DeviceColumn(
-        c.dtype, G.gather_array(c.data, order, kernels), ok_sorted,
-        G.gather_array(c.lengths, order, kernels)
-        if c.lengths is not None else None) for c in combined]
-    ids_sorted = seg.segment_ids_device(sorted_cols, pad_valid=ok_sorted,
-                                        kernels=kernels)
+    # one table: each key's validity addresses (left, right) for k5_ok,
+    # then k5_ids' 4 words a combined column
+    valid = [c.validity.contiguous() for pair in zip(l_keys, r_keys)
+             for c in pair]
+    table = B.device_table([B.ptr(v) for v in valid] + [
+        x for c in combined for x in (
+            B.ptr(c.data), B.DTYPE_CODES[c.data.dtype],
+            c.data.shape[1] if c.data.dim() == 2 else 0,
+            B.ptr(c.lengths) or 0)], dev)
+    # scratch, zeroed once: the ineligible rows of each side (two uint32
+    # in word 0), k5_ids' tile counter and its look-back words (three
+    # counters a tile)
+    ntiles = B.tiles(n)
+    scratch = torch.zeros(2 + 3 * ntiles, dtype=torch.int64, device=dev)
+    B.launch(JOIN_PROBE_LAUNCHES, lib, "k5_ok", B.ptr(l_ok.contiguous()), nl,
+             B.ptr(r_ok.contiguous()), nr, B.ptr(table), len(l_keys),
+             B.ptr(ok), B.ptr(scratch[0]), st)
     gl = torch.empty(nl, dtype=torch.int32, device=dev)
     gr = torch.empty(nr, dtype=torch.int32, device=dev)
-    B.launch(JOIN_PROBE_LAUNCHES, lib, "k5_scatter_ids", B.ptr(order),
-             B.ptr(ids_sorted), B.ptr(ok), n, nl, B.ptr(gl), B.ptr(gr), st)
-    return gl, gr, ok
+    order_r = sorted_gr = None
+    if with_order_r:
+        order_r = torch.empty(nr, dtype=torch.int32, device=dev)
+        sorted_gr = torch.empty(nr, dtype=torch.int32, device=dev)
+    # the sorted packed key, where K1 made one, replaces the key columns
+    # read through the permutation
+    order, key = seg.lexsort_with_key(combined, ok, kernels)
+    if n:
+        B.launch(JOIN_PROBE_LAUNCHES, lib, "k5_ids", B.ptr(order), B.ptr(key),
+                 n, nl, B.ptr(table[len(valid):]), len(combined),
+                 B.ptr(scratch[0]), B.ptr(scratch[2:]), B.ptr(scratch[1]),
+                 B.ptr(gl), B.ptr(gr), B.ptr(order_r), B.ptr(sorted_gr), st)
+    return gl, gr, order_r, sorted_gr
 
 
 def group_ids(l_keys, r_keys, l_ok, r_ok,
               kernels: Optional[B.Kernels] = None):
-    """K5 (with K1, K2, K4): per-row join group ids, ``(gl, gr)``;
-    rows on either side with equal, fully non-null keys share an id;
-    ineligible left rows get -1, right rows -2."""
+    """K5 (with K1): per-row join group ids, ``(gl, gr)``; rows on either
+    side with equal, fully non-null keys share an id; ineligible left
+    rows get -1, right rows -2."""
     kernels = B.kernels_for(l_ok, kernels)
     if kernels is None:
         return group_ids_plain(l_keys, r_keys, l_ok, r_ok)
-    gl, gr, _ok = _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels)
+    gl, gr, _o, _s = _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels,
+                                     with_order_r=False)
     return gl, gr
 
 
 def probe(l_keys, r_keys, l_ok, r_ok, with_has_r: bool = True,
           kernels: Optional[B.Kernels] = None) -> Probe:
-    """K5 (with K1, K2, K4): group ids, the right rows in id order, each
-    left row's match run and, with ``with_has_r``, each right row's match
-    flag (the reference always computes it; only right and full joins
-    read it)."""
+    """K5 (with K1's one sort): group ids, the right rows in id order,
+    each left row's match run and, with ``with_has_r``, each right row's
+    match flag (the reference always computes it; only right and full
+    joins read it)."""
     kernels = B.kernels_for(l_ok, kernels)
     if kernels is None:
         return probe_plain(l_keys, r_keys, l_ok, r_ok, with_has_r)
     lib = kernels.library("join_probe")
     st = kernels.stream(l_ok)
-    gl, gr, ok = _group_ids_cuda(l_keys, r_keys, l_ok, r_ok, kernels)
+    gl, gr, order_r, sorted_gr = _group_ids_cuda(
+        l_keys, r_keys, l_ok, r_ok, kernels, with_order_r=True)
     nl, nr = gl.shape[0], gr.shape[0]
     dev = gl.device
-    # stable argsort of gr: ineligible right rows (gr = -2) are exactly
-    # the rows where ok is False, so as a null-first column they sort
-    # first in row order, as -2 does
-    order_r = seg.lexsort_device([DeviceColumn(T.INT32, gr, ok[nl:])],
-                                 kernels=kernels)
-    sorted_gr = G.gather_array(gr, order_r, kernels)
     lo = torch.empty(nl, dtype=torch.int32, device=dev)
     cnt = torch.empty(nl, dtype=torch.int32, device=dev)
     B.launch(JOIN_PROBE_LAUNCHES, lib, "k5_search", B.ptr(gl), nl,

@@ -33,11 +33,16 @@ from . import _build as B
 from . import gather as G
 
 INT64_MIN = -(2 ** 63)
+#: rows that K1 sorts in one block with no read back (csrc/sort.cu
+#: SMALL_ROWS)
+SMALL_SORT_ROWS = 8192
 #: signed-order value of the reference's NaN key 0xFFFFFFFFFFFFFFFE
 NAN_KEY = 2 ** 63 - 2
 
 #: CUDA kernels launched by K1 (encode + radix sort), K2 and K3
 SORT_LAUNCHES = B.LaunchCounter("sort_permutation")
+#: host reads of K1's histogram (one a sort above SMALL_SORT_ROWS rows)
+SORT_READBACKS = B.LaunchCounter("sort_readbacks")
 SEGMENT_IDS_LAUNCHES = B.LaunchCounter("segment_ids")
 SEGMENT_REDUCE_LAUNCHES = B.LaunchCounter("segment_reduce")
 
@@ -146,7 +151,8 @@ def _with_lengths(key_cols, descending, nulls_first):
         nf.append(f)
         if c.dtype.is_string:
             lengths = c.lengths.to(torch.int32)
-            first = lengths[torch.argmax(c.validity.to(torch.uint8))]
+            first = lengths[torch.argmax(c.validity.to(torch.uint8))] \
+                if lengths.numel() else lengths.new_zeros(())
             lengths = torch.where(c.validity, lengths, first)
             cols.append(DeviceColumn(T.INT32, lengths,
                                      torch.ones_like(c.validity)))
@@ -165,31 +171,45 @@ def lexsort_plain(key_cols: Sequence[DeviceColumn],
     return sort_permutation(passes)
 
 
-def _n_passes(key_cols: Sequence[DeviceColumn]) -> int:
-    return sum(1 + (-(-c.data.shape[1] // 8) if c.dtype.is_string else 1)
-               for c in key_cols)
+_SORTABLE_DTYPES = {torch.bool, torch.int8, torch.int16, torch.int32,
+                  torch.int64, torch.float32, torch.float64}
+_PASS_PAD, _PASS_NULL, _PASS_NUM, _PASS_STR, _PASS_LEN = 0, 1, 2, 3, 4
 
 
-def _encode_cuda(lib, key_cols, descending, nulls_first,
-                 passes: torch.Tensor, st) -> None:
-    """K1's encoding of ``key_cols`` into the rows of ``passes``."""
-    n = passes.shape[1]
-    p = 0
+def _pass_table(key_cols, descending, nulls_first, pad_valid=None,
+                lengths=True):
+    """K1's pass descriptors (csrc/sort.cu load_pass), 8 int64 words a
+    pass in the order of ``key_passes`` (the padding rank first where
+    ``pad_valid`` is given; with ``lengths``, each string's bytes followed
+    by its lengths, the sort's order of ``_with_lengths``), and the
+    contiguous arrays they point at (kept alive by the caller until the
+    kernel has run)."""
+    words, keep = [], []
+
+    def arr(t):
+        t = t.contiguous()
+        keep.append(t)
+        return B.ptr(t)
+
+    if pad_valid is not None:
+        words += [_PASS_PAD, arr(pad_valid), 0, 0, 0, 0, 0, 0]
     for col, desc, nf in zip(key_cols, descending, nulls_first):
-        valid = col.validity.contiguous()
-        data = col.data.contiguous()
+        valid = arr(col.validity)
+        words += [_PASS_NULL, 0, valid, 0, 0, 0, 0, int(nf)]
         if col.dtype.is_string:
-            w = data.shape[1]
-            B.launch(SORT_LAUNCHES, lib, "k1_encode_str",
-                     B.ptr(data), B.ptr(valid), w, n, int(desc), int(nf),
-                     B.ptr(passes[p]), B.ptr(passes[p + 1]), st)
-            p += 1 + -(-w // 8)
+            w = col.data.shape[1]
+            data = arr(col.data)
+            for c in range(-(-w // 8)):
+                words += [_PASS_STR, data, valid, 0, w, c, int(desc), 0]
+            if lengths:
+                words += [_PASS_LEN, arr(col.lengths.to(torch.int32)), valid,
+                          B.DTYPE_CODES[torch.int32], 0, 0, int(desc), 0]
         else:
-            B.launch(SORT_LAUNCHES, lib, "k1_encode_num",
-                     B.ptr(data), B.ptr(valid), B.DTYPE_CODES[data.dtype], n,
-                     int(desc), int(nf), B.ptr(passes[p]),
-                     B.ptr(passes[p + 1]), st)
-            p += 2
+            if col.data.dtype not in _SORTABLE_DTYPES:
+                raise TypeError(f"K1 cannot sort a {col.data.dtype} key")
+            words += [_PASS_NUM, arr(col.data), valid,
+                      B.DTYPE_CODES[col.data.dtype], 0, 0, int(desc), 0]
+    return words, keep
 
 
 def key_passes_device(key_cols: Sequence[DeviceColumn],
@@ -203,11 +223,15 @@ def key_passes_device(key_cols: Sequence[DeviceColumn],
     if kernels is None:
         return torch.stack(key_passes(key_cols, descending, nulls_first))
     descending, nulls_first = _defaults(key_cols, descending, nulls_first)
+    dev = key_cols[0].data.device
     n = key_cols[0].data.shape[0]
-    passes = torch.empty((_n_passes(key_cols), n), dtype=torch.int64,
-                         device=key_cols[0].data.device)
-    _encode_cuda(kernels.library("sort"), key_cols, descending, nulls_first,
-                 passes, kernels.stream(passes))
+    words, _keep = _pass_table(key_cols, descending, nulls_first,
+                               lengths=False)
+    table = B.device_table(words, dev)
+    k = len(words) // 8
+    passes = torch.empty((k, n), dtype=torch.int64, device=dev)
+    B.launch(SORT_LAUNCHES, kernels.library("sort"), "k1_encode",
+             B.ptr(table), k, n, B.ptr(passes), kernels.stream(passes))
     return passes
 
 
@@ -219,59 +243,129 @@ def lexsort_device(key_cols: Sequence[DeviceColumn],
     """K1: stable multi-key argsort; padding rows (``pad_valid`` False)
     sort last.  Returns an int32 permutation, bit-identical to the
     reference's ``lexsort_device`` but where string keys tie in their
-    zero-padded bytes (broken by length here)."""
+    zero-padded bytes (broken by length here).  Up to SMALL_SORT_ROWS
+    rows: one launch and no read back; above, one read back."""
     probe = key_cols[0].data if key_cols else pad_valid
     kernels = B.kernels_for(probe, kernels)
     if kernels is None:
         return lexsort_plain(key_cols, descending, nulls_first, pad_valid)
-    key_cols, descending, nulls_first = _with_lengths(key_cols, descending,
-                                                      nulls_first)
-    lib = kernels.library("sort")
-    n = probe.shape[0]
-    st = kernels.stream(probe)
-    first = 1 if pad_valid is not None else 0
-    passes = torch.empty((first + _n_passes(key_cols), n), dtype=torch.int64,
-                         device=probe.device)
-    if pad_valid is not None:
-        B.launch(SORT_LAUNCHES, lib, "k1_encode_pad", B.ptr(pad_valid), n,
-                 B.ptr(passes[0]), st)
-    _encode_cuda(lib, key_cols, descending, nulls_first, passes[first:], st)
-    return _sort_passes_cuda(lib, passes, st)
+    descending, nulls_first = _defaults(key_cols, descending, nulls_first)
+    # _keep holds the arrays the table points at while the launches run
+    words, _keep = _pass_table(key_cols, descending, nulls_first, pad_valid)
+    return _sort_cuda(kernels.library("sort"), words, probe.shape[0],
+                      probe.device, kernels.stream(probe))
 
 
-def _sort_passes_cuda(lib, passes: torch.Tensor, st) -> torch.Tensor:
-    """LSD radix sort over the [k, n] passes, 8 bits a step, from the
-    last pass's low byte to the first pass's high byte; digits with a
-    single live bucket are skipped (one histogram readback decides)."""
-    k, n = passes.shape
-    dev = passes.device
-    hist = torch.zeros((k, 8, 256), dtype=torch.int32, device=dev)
-    B.launch(SORT_LAUNCHES, lib, "k1_global_hist", B.ptr(passes), k, n,
-             B.ptr(hist), st)
-    live = ((hist > 0).sum(dim=2) > 1).cpu().tolist()
+def lexsort_with_key(key_cols: Sequence[DeviceColumn],
+                     pad_valid: Optional[torch.Tensor],
+                     kernels: B.Kernels):
+    """K1 (ascending, nulls first) on the kernels, for K5: (permutation,
+    sorted packed key or None; see ``_sort_cuda``)."""
+    descending, nulls_first = _defaults(key_cols, None, None)
+    words, _keep = _pass_table(key_cols, descending, nulls_first, pad_valid)
+    probe = key_cols[0].data
+    return _sort_cuda(kernels.library("sort"), words, probe.shape[0],
+                      probe.device, kernels.stream(probe), want_key=True)
+
+
+def _sort_cuda(lib, words, n: int, dev, st, want_key: bool = False):
+    """LSD radix sort over the passes that ``words`` describes, 8 bits a
+    step, skipping what every row shares: bytes on the one-block path,
+    bits on the large path.  Returns the permutation; with ``want_key``,
+    (permutation, sorted packed key), the key a uint64 a row in sorted
+    order as int64 where the large path packed every live bit into one
+    word (equal keys: equal on every pass), else None."""
+    k = len(words) // 8
+    perm = key = None
+    if n == 0:
+        perm = torch.empty(0, dtype=torch.int32, device=dev)
+    elif n <= SMALL_SORT_ROWS:
+        table = B.device_table(words, dev)
+        perm = torch.empty(n, dtype=torch.int32, device=dev)
+        B.launch(SORT_LAUNCHES, lib, "k1_sort_small", B.ptr(table), k, n,
+                 B.ptr(perm), st)
+    else:
+        perm, key = _sort_large(lib, words, n, dev, st, want_key)
+    return (perm, key) if want_key else perm
+
+
+def _live_runs(live):
+    """The live bits of every pass as runs of adjacent bits, least
+    significant first (the last pass's low bit), for k1_pack: pass << 16
+    | start << 8 | bits."""
+    runs = []
+    for p in reversed(range(len(live))):
+        m = live[p]
+        while m:
+            start = (m & -m).bit_length() - 1
+            width = ((m >> start) + 1 & ~(m >> start)).bit_length() - 1
+            runs.append(p << 16 | start << 8 | width)
+            m &= ~(((1 << width) - 1) << start)
+    return runs
+
+
+def _sort_large(lib, words, n: int, dev, st, want_key: bool):
+    k = len(words) // 8
+    # one copy: the masks' start values (OR 0, AND ~0), then the passes
+    both = B.device_table([0, -1] * k + list(words), dev)
+    masks, table = both[:2 * k], both[2 * k:]
+    B.launch(SORT_LAUNCHES, lib, "k1_live", B.ptr(table), k, n, B.ptr(masks),
+             st)
+    # what the steps need, made while the masks are computed: one buffer
+    # of int64 words, zeroed once: at most one word a pass and 8 digits a
+    # word of uint32 histograms, then one status word a tile and digit
+    # (an epoch a step), then one tile counter a step
+    status_words = 256 * B.tiles(n)
+    hist_words = k * 8 * 256 // 2
+    scratch = torch.zeros(hist_words + status_words + 8 * k,
+                          dtype=torch.int64, device=dev)
+    # two buffers each, so that the permutation returned holds only its own
     keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
-    perms = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    counts = torch.empty(256 * B.tiles(n), dtype=torch.int32, device=dev)
+    ids = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
+    m = masks.cpu().tolist()
+    SORT_READBACKS.add()
+    live = [(m[2 * p] & ~m[2 * p + 1]) & (2 ** 64 - 1) for p in range(k)]
+    bits = sum(x.bit_count() for x in live)
+    if bits == 0:
+        return torch.arange(n, dtype=torch.int32, device=dev), None
+    nwords = -(-bits // 64)
+    runs = _live_runs(live)
+    run_table = B.device_table(runs, dev)
+    packed = torch.empty((nwords, n), dtype=torch.int64, device=dev)
+    # raw addresses: the digit loop below makes no tensor views
+    hist = scratch.data_ptr()
+    status = hist + 8 * hist_words
+    counters = status + 8 * status_words
+    key_buf = [t.data_ptr() for t in keys]
+    id_buf = [t.data_ptr() for t in ids]
+    B.launch(SORT_LAUNCHES, lib, "k1_pack", B.ptr(table), k, n,
+             B.ptr(run_table), len(runs), nwords, B.ptr(packed), hist, st)
+    # word w's digits: 8, the most significant word's what its bits need
+    digits = [8] * (nwords - 1) + [-(-(bits - 64 * (nwords - 1)) // 8)]
+    step = 0
+    perm = None
     cur = 0
-    started = False
-    for pi in reversed(range(k)):
-        digits = [d for d in range(8) if live[pi][d]]
-        if not digits:
-            continue
-        B.launch(SORT_LAUNCHES, lib, "k1_gather_keys",
-                 B.ptr(passes[pi]), B.ptr(perms[cur]) if started else None,
-                 n, B.ptr(keys[cur]), None if started else B.ptr(perms[cur]),
-                 st)
-        started = True
-        for d in digits:
-            B.launch(SORT_LAUNCHES, lib, "k1_digit_step",
-                     B.ptr(keys[cur]), B.ptr(perms[cur]), n, 8 * d,
-                     B.ptr(counts), B.ptr(hist[pi, d]), B.ptr(keys[1 - cur]),
-                     B.ptr(perms[1 - cur]), st)
+    for w in range(nwords):  # the least significant word first
+        if perm is None:
+            keys_in = packed.data_ptr() + 8 * n * w
+        else:
+            B.launch(SORT_LAUNCHES, lib, "k1_gather_keys",
+                     packed.data_ptr() + 8 * n * w, perm, n, key_buf[cur],
+                     st)
+            keys_in = key_buf[cur]
+        for b in range(digits[w]):
+            # the keys move with the ids up to the word's last digit (and
+            # through it where the caller wants the one word's sorted key)
+            out_keys = b < digits[w] - 1 or (want_key and nwords == 1)
+            B.launch(SORT_LAUNCHES, lib, "k1_onesweep", keys_in, perm, n,
+                     8 * b, hist + 4 * 256 * (8 * w + b), status,
+                     counters + 8 * step, step + 1,
+                     key_buf[1 - cur] if out_keys else None,
+                     id_buf[1 - cur], st)
+            step += 1
             cur = 1 - cur
-    if not started:
-        return torch.arange(n, dtype=torch.int32, device=dev)
-    return perms[cur]
+            keys_in, perm = key_buf[cur], id_buf[cur]
+    return ids[cur], (keys[cur] if want_key and nwords == 1 else None)
 
 
 # ===========================================================================

@@ -174,18 +174,14 @@ def test_k1_k2_match_plain(emu, desc):
     nfs = [True, desc]
     want = S.lexsort_plain(keys, order, nfs, _pad())
     S.SORT_LAUNCHES.reset()
+    readbacks = S.SORT_READBACKS.count
     got = S.lexsort_device(keys, order, nfs, _pad(), kernels=emu)
     _same(got, want)
-    # one CUDA kernel per encoded column (the string key's lengths are
-    # a column of their own) and for the padding, one histogram, and per
-    # pass with a live digit one key gather plus 3 launches per live
-    # digit
-    cols, descs, nfs2 = S._with_lengths(keys, order, nfs)
-    passes = [S._rank_pass(~_pad())] + S.key_passes(cols, descs, nfs2)
-    digits = [[len(torch.unique((p >> (8 * d)) & 0xFF)) > 1
-               for d in range(8)] for p in passes]
-    assert S.SORT_LAUNCHES.count == len(cols) + 2 + sum(
-        any(ds) + 3 * sum(ds) for ds in digits)
+    # N rows fit one block: the encoding and every live digit of every
+    # pass in one launch, and no host read back
+    assert N <= S.SMALL_SORT_ROWS
+    assert S.SORT_LAUNCHES.count == 1
+    assert S.SORT_READBACKS.count == readbacks
     sorted_keys = [G.gather_column_plain(k, want) for k in keys]
     pad_sorted = _pad()[want.long()]
     want_ids = S.segment_ids_plain(sorted_keys, pad_sorted)
@@ -296,10 +292,13 @@ def test_k5_k6_k7_match_plain(emu, how):
     rcols, r_rm = _join_side(rng, 1200, 1111, 2)
     want = J.probe(lcols[:2], rcols[:2], l_rm, r_rm)
     J.JOIN_PROBE_LAUNCHES.reset()
+    S.SORT_LAUNCHES.reset()
     got = J.probe(lcols[:2], rcols[:2], l_rm, r_rm, kernels=emu)
-    # ok per key, concat (int64; string bytes + lengths), scatter ids,
-    # search, has_r (zero, mark, test)
-    assert J.JOIN_PROBE_LAUNCHES.count == 2 + 3 + 1 + 1 + 3
+    # ok (all keys), concat (int64; string bytes + lengths), ids (with
+    # the right rows' order), search, has_r (zero, mark, test); one K1
+    # sort, on the one-block path
+    assert J.JOIN_PROBE_LAUNCHES.count == 1 + 3 + 1 + 1 + 3
+    assert S.SORT_LAUNCHES.count == 1
     for name in J.Probe._fields:
         _same(getattr(got, name), getattr(want, name))
     assert int(want.cnt.max()) > 1
@@ -343,7 +342,7 @@ def test_k5_k6_without_has_r_match_plain(emu):
     J.JOIN_PROBE_LAUNCHES.reset()
     got = J.probe(lcols[:2], rcols[:2], l_rm, r_rm, with_has_r=False,
                   kernels=emu)
-    assert J.JOIN_PROBE_LAUNCHES.count == 2 + 3 + 1 + 1
+    assert J.JOIN_PROBE_LAUNCHES.count == 1 + 3 + 1 + 1
     assert got.has_r is None
     for name in J.Probe._fields[:-1]:
         _same(getattr(got, name), getattr(want, name))
