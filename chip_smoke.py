@@ -196,19 +196,29 @@
 3. calls each kernel's wrapper at the main paths' shapes (K1–K3: Q1's
    8,388,608 padded rows, K1 also at Q1's first 8,192 rows (its one-block
    path), W2's first partition and Q21's largest SF10 sort, each 10 times
-   against its plain version; K4: a 2,097,152-row reader batch; K5–K7:
-   the inputs of Q3's second join as the run above gave them, K5 10
-   times with has_r and 10 without, K6 for inner and full joins; K8: the 150,000-row c_mktsegment matrix against
+   against its plain version (K2 beside its like-for-like composition of
+   torch comparisons and torch.cumsum); K4: a 2,097,152-row reader
+   batch; K5–K7: the inputs of Q3's second join as the run above gave
+   them, K5 10 times with has_r and 10 without, K6 for inner and full
+   joins, K7 (both sides in one launch, required) 10 times, bit for bit,
+   with its device and enqueue times and its like-for-like and data-only
+   indexing times, and again at phase 2j's largest join output of Q18
+   and Q21 at SF10 (measured right after those cells' warm runs); K8:
+   the 150,000-row c_mktsegment matrix against
    'BUILDING'; K9: Q3's lineitem join key, Q3's aggregate keys and Q4's
    priority key; K10: a 2-way build and slice of Q3's filtered lineitem
    batch; K11: Q3's final sort keys — K9–K11 as the two-partition runs
-   gave them; K12: Q12's lineitem segment over a 2,097,152-row reader
+   gave them (K11 beside torch.searchsorted of every pass against every
+   bound with the tie-breaks); K12: Q12's lineitem segment over a
+   2,097,152-row reader
    batch and Q13's orders segment over 1,500,000 orders; K13: Q14's
    startswith over p_type and contains, endswith and locate_from over
    o_comment; K14: every window function kind over the clickstream at one
    partition, 8,388,608 padded rows, partitioned by user and ordered by
-   click date and time; K12 also over Q8's three-member segment (Year,
-   the volume, the if_) and Q22's customer segment (Substring, isin) on
+   click date and time, and a float64 sum rows -4..0, each 10 times equal
+   to its plain version and to its own first run's bits, with its
+   launches and device ms by kernel; K12 also over Q8's three-member
+   segment (Year, the volume, the if_) and Q22's customer segment (Substring, isin) on
    the inputs the main path gave them; K15: Q22's substring of c_phone
    over the customer table and an 8,388,608 x 32-byte matrix with a
    negative start; K16-K18 at the text path's shapes; K12 also over
@@ -516,6 +526,73 @@ def frame_sum_library(values, valid, order, seg_ids, preceding):
     s = pre[i + 1] - pre[torch.maximum(i - preceding, starts)]
     out = torch.empty_like(s)
     out[o] = s
+    return out
+
+
+def measure_k7(J, lcols, lidx, rcols, ridx, slot_valid, where):
+    """K7 at one join output, both sides in one ``gather_pair`` call:
+    held against its plain version in REPEATS runs (bit for bit), its
+    event, device (behind a spin) and enqueue ms, its launches and split,
+    the plain ms, and two library times: like for like (per column the
+    clamp, data, validity ANDed with ``idx >= 0`` and the slot mask,
+    lengths, as ``spark_rapids_tpu/ops/kernels/join.py:158-170``
+    formulates it) and the data arrays alone indexed by clamped indices
+    built outside the timed call.  ``bytes``: each slot's indices and mask
+    read once, each column's row read once and its row, validity and
+    length written once."""
+    def fn():
+        return J.gather_pair(lcols, lidx, rcols, ridx, slot_valid)
+
+    def plain():
+        return J.gather_pair_plain(lcols, lidx, rcols, ridx, slot_valid)
+
+    want = plain()
+    for _ in range(REPEATS):
+        for g, w in zip(fn(), want):
+            require(torch.equal(g.data, w.data) and
+                    torch.equal(g.validity, w.validity) and
+                    (w.lengths is None or torch.equal(g.lengths, w.lengths)),
+                    f"K7 differs from its plain version at {where} in a "
+                    f"{w.dtype} column")
+    pairs = [(c, i) for cols, i in ((lcols, lidx), (rcols, ridx))
+             for c in cols]
+    safe = [(c, torch.clamp(i, 0, c.data.shape[0] - 1).to(torch.int64))
+            for c, i in pairs]
+
+    def library():
+        out = []
+        for c, i in pairs:
+            k = torch.clamp(i, 0, c.data.shape[0] - 1).to(torch.int64)
+            out.append((c.data[k], c.validity[k] & (i >= 0) & slot_valid,
+                        None if c.lengths is None else c.lengths[k]))
+        return out
+
+    n_out = lidx.shape[0]
+    moved = nbytes(lidx, ridx, slot_valid) + sum(
+        2 * n_out * (J._row_bytes(c.data)
+                     + (4 if c.lengths is not None else 0)) + n_out
+        for c, _i in pairs)
+    J.GATHER_SIDE_LAUNCHES.reset()
+    fn()
+    torch.cuda.synchronize()
+    launches = J.GATHER_SIDE_LAUNCHES.count
+    out = dict(
+        slots=n_out, columns=len(pairs), launches_a_call=launches,
+        left_rows=lcols[0].data.shape[0], right_rows=rcols[0].data.shape[0],
+        ms=cuda_ms(fn), device_ms=device_ms(fn), enqueue_ms=enqueue_ms(fn),
+        plain=cuda_ms(plain), lib=cuda_ms(library),
+        lib_data_only=cuda_ms(lambda: [c.data[i] for c, i in safe]),
+        split=kernel_split(fn, reps=200), bytes=moved,
+        bound=moved / HBM_BYTES_PER_S * 1e3, equal_runs=REPEATS)
+    log(f"K7 at {where}: {n_out} slots, {len(pairs)} columns "
+        f"({out['left_rows']} + {out['right_rows']} source rows), "
+        f"{launches} launch(es) a call, equal to its plain version in "
+        f"{REPEATS} runs; events {out['ms']:.4f} ms, device "
+        f"{_ms_text(out['device_ms'])}, enqueue {out['enqueue_ms']:.4f} ms, "
+        f"plain {out['plain']:.4f} ms, library like for like "
+        f"{out['lib']:.4f} ms, data arrays alone {out['lib_data_only']:.4f} "
+        f"ms, bound {out['bound']:.4f} ms; device ms by kernel "
+        f"{out['split']}")
     return out
 
 
@@ -2813,6 +2890,21 @@ def main() -> int:
         keep_largest(k25_calls, sum(counts), (batch, order, list(counts)))
         return split_impl(batch, order, counts, kernels, min_bucket_rows)
 
+    # K7 at the largest join output (slots times row bytes) of Q18's and
+    # of Q21's warm run at the default conf, each measured right after its
+    # run and let go (held, it would count in the next cell's peak memory);
+    # phase 3 reports the larger: a bytes-bound shape
+    k7_sf10, k7_cell = {}, {}
+    expand_impl = TpuHashJoinExec._expand
+
+    def recording_expand(self, c_out, total, lb, rb, pr, e):
+        size = c_out * sum(J._row_bytes(c.data)
+                           for c in lb.columns + rb.columns)
+        if size > k7_cell.get("size", -1):
+            k7_cell.update(size=size,
+                           args=(lb, rb, J.expand_pairs(pr, e, c_out)))
+        return expand_impl(self, c_out, total, lb, rb, pr, e)
+
     # K1's largest sort of Q21 at the default conf, copied for phase 3
     q21_sort = {}
     lexsort_impl = S.lexsort_device
@@ -2988,6 +3080,8 @@ def main() -> int:
             current["cell"] = cell
             H.hash_pids, DS.bucket_split = recording_hash, recording_split
             S.lexsort_device = recording_lexsort
+            if q in (18, 21) and cname == "default":
+                TpuHashJoinExec._expand = recording_expand
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2996,6 +3090,18 @@ def main() -> int:
             finally:
                 H.hash_pids, DS.bucket_split = seeded_impl, split_impl
                 S.lexsort_device = lexsort_impl
+                TpuHashJoinExec._expand = expand_impl
+            if k7_cell:
+                k7_lb, k7_rb, (k7_l, k7_r, k7_sv) = k7_cell.pop("args")
+                if k7_cell["size"] > k7_sf10.get("size", -1):
+                    k7_sf10.clear()
+                    k7_sf10.update(size=k7_cell["size"], cell=cell,
+                                   **measure_k7(
+                                       J, k7_lb.columns, k7_l, k7_rb.columns,
+                                       k7_r, k7_sv,
+                                       f"{cell}'s largest join output"))
+                k7_cell.clear()
+                del k7_lb, k7_rb, k7_l, k7_r, k7_sv
             prof = profile_query(cell, run10)
             sf10_info[cell] = {
                 "cold_s": cold[cell], "warm_s": warm[cell],
@@ -3614,14 +3720,42 @@ def main() -> int:
     require(torch.equal(ids, S.segment_ids_plain(sorted_keys, pad_sorted)),
             "K2 differs from its plain version")
     change = torch.ones(P, dtype=torch.int32, device=dev)
+
+    def k2_library():
+        """Like for like at Q1's string keys: each key's adjacent-row
+        change flags by torch comparisons of its bytes and lengths (where
+        both rows are valid) ORed with a validity change, ORed over the
+        keys and with the padding, then torch.cumsum."""
+        flag = ~pad_sorted
+        for k in sorted_keys:
+            v = k.validity
+            neq = (k.data[1:] != k.data[:-1])
+            if k.lengths is not None:
+                neq = neq.any(1) | (k.lengths[1:] != k.lengths[:-1])
+            neq = neq & v[1:] & v[:-1]
+            flag[1:] |= neq | (v[1:] != v[:-1])
+        flag[0] = True
+        return torch.cumsum(flag, 0, dtype=torch.int32) - 1
+
+    require(torch.equal(k2_library(), ids),
+            "K2's like-for-like library composition differs from K2")
+    k2_lib = cuda_ms(k2_library)
+    k2_cumsum = cuda_ms(lambda: torch.cumsum(change, 0, dtype=torch.int32))
+    log(f"K2 library: like for like (change flags by torch comparisons of "
+        f"bytes, lengths and validity, then torch.cumsum) {k2_lib:.3f} ms; "
+        f"torch.cumsum of the flags alone {k2_cumsum:.3f} ms")
     entry("K2 segment_ids", "spark_rapids_tpu_torch/csrc/segment_ids.cu",
           "spark_rapids_tpu/ops/kernels/segment.py:335",
           cuda_ms(lambda: S.segment_ids_device(sorted_keys, pad_sorted)),
           cuda_ms(lambda: S.segment_ids_plain(sorted_keys, pad_sorted)),
-          cuda_ms(lambda: torch.cumsum(change, 0, dtype=torch.int32)),
+          k2_lib,
           nbytes(pad_sorted, ids) + sum(
               nbytes(k.data, k.validity, k.lengths) for k in sorted_keys),
-          P * 2, FP32_PER_S, 0.0)
+          P * 2, FP32_PER_S, 0.0,
+          library_call="like for like: change flags of every key by torch "
+          "comparisons of bytes, lengths and validity, ORed, then "
+          "torch.cumsum (torch.cumsum of the flags alone: "
+          "library_cumsum_alone_ms)", library_cumsum_alone_ms=k2_cumsum)
 
     # K3: sum of l_extendedprice per segment (float64), count, min, starts
     price = G.gather_array(fcols["l_extendedprice"].data, perm)
@@ -3817,33 +3951,28 @@ def main() -> int:
           library_ms_by_join={h: v["lib"] for h, v in k6.items()},
           bound_ms_by_join={h: v["bound"] for h, v in k6.items()})
 
-    # K7: both sides of Q3's second join gathered by the inner pairs
+    # K7: both sides of Q3's second join gathered by the inner pairs, one
+    # launch; and phase 2j's largest SF10 join output
     lidx, ridx, slot_valid = inner["pairs"]
-
-    def gather_both(fn):
-        return fn(lb.columns, lidx, slot_valid) + \
-            fn(rb.columns, ridx, slot_valid)
-
-    for g, r in zip(gather_both(J.gather_side),
-                    gather_both(J.gather_side_plain)):
-        require(torch.equal(g.data, r.data) and
-                torch.equal(g.validity, r.validity) and
-                (r.lengths is None or torch.equal(g.lengths, r.lengths)),
-                f"K7 differs from its plain version in a {r.dtype} column")
-    safe = [(c, torch.clamp(i, 0, c.data.shape[0] - 1).to(torch.int64))
-            for cols_, i in ((lb.columns, lidx), (rb.columns, ridx))
-            for c in cols_]
-    side_bytes = sum(2 * lidx.shape[0] * (
-        c.data.element_size() * (c.data.shape[1] if c.data.dim() == 2
-                                 else 1) + 1
-        + (4 if c.lengths is not None else 0)) for c, _i in safe)
-    entry("K7 gather_side", "spark_rapids_tpu_torch/csrc/gather.cu",
+    k7 = {"q3 join 2": measure_k7(J, lb.columns, lidx, rb.columns, ridx,
+                                  slot_valid, "Q3's second join"),
+          k7_sf10["cell"]: {k: v for k, v in k7_sf10.items()
+                            if k not in ("size", "cell")}}
+    require(k7["q3 join 2"]["launches_a_call"] == 1,
+            "K7 made more than one launch for Q3's second join")
+    q3k7 = k7["q3 join 2"]
+    entry("K7 gather_pair", "spark_rapids_tpu_torch/csrc/gather.cu",
           "spark_rapids_tpu/ops/kernels/join.py:158",
-          cuda_ms(lambda: gather_both(J.gather_side)),
-          cuda_ms(lambda: gather_both(J.gather_side_plain)),
-          cuda_ms(lambda: [c.data[i] for c, i in safe]),
-          side_bytes + nbytes(lidx, ridx, slot_valid), lidx.shape[0]
-          * len(safe), FP32_PER_S, 0.0)
+          q3k7["ms"], q3k7["plain"], q3k7["lib"], q3k7["bytes"],
+          q3k7["slots"] * q3k7["columns"], FP32_PER_S, 0.0,
+          library_call="like for like: per column torch.clamp of the "
+          "slot's index, the data, validity & (idx >= 0) & slot_valid and "
+          "the lengths indexed by it (the data arrays alone by indices "
+          "clamped outside the call: library_data_only_ms_by_shape)",
+          **{f"{f}_by_shape": {c: v[f] for c, v in k7.items()}
+             for f in ("slots", "columns", "launches_a_call", "ms",
+                       "device_ms", "enqueue_ms", "plain", "lib",
+                       "lib_data_only", "bound", "split", "equal_runs")})
 
     # K8: Q3's customer filter, c_mktsegment == 'BUILDING'
     cb = host_to_device(host[3]["customer"], 128, dev)
@@ -3984,14 +4113,43 @@ def main() -> int:
     log(f"K11 at Q3's final sort: {k} passes x {n} rows, "
         f"{rbounds.shape[1]} bound(s); pids per partition "
         f"{torch.bincount(rp.to(torch.int64), minlength=2).tolist()}")
+    rb_dev = rbounds.to(device=dev, dtype=rpasses.dtype)
+
+    def k11_library():
+        """Like for like: for each bound and each pass, torch.searchsorted
+        of the rows' pass values against the bound's (left and right:
+        below and equal), combined lexicographically (a later pass counts
+        only where every earlier one tied), summed over the bounds."""
+        pid = torch.zeros(n, dtype=torch.int64, device=dev)
+        for m in range(rb_dev.shape[1]):
+            tied = torch.ones(n, dtype=torch.bool, device=dev)
+            above = torch.zeros(n, dtype=torch.bool, device=dev)
+            for j in range(k):
+                b = rb_dev[j, m:m + 1].contiguous()
+                lt = torch.searchsorted(b, rpasses[j], side="left") > 0
+                le = torch.searchsorted(b, rpasses[j], side="right") > 0
+                above |= tied & lt
+                tied &= le & ~lt
+            pid += above
+        return pid.to(torch.int32)
+
+    require(torch.equal(k11_library(), rp),
+            "K11's like-for-like library composition differs from K11")
+    k11_lib = cuda_ms(k11_library)
+    k11_first = cuda_ms(lambda: torch.searchsorted(first_bounds, first_pass))
+    log(f"K11 library: like for like (torch.searchsorted of every pass "
+        f"against every bound, with the tie-breaks) {k11_lib:.3f} ms; the "
+        f"first pass alone {k11_first:.3f} ms")
     entry("K11 range_pids", "spark_rapids_tpu_torch/csrc/range_partition.cu",
           "spark_rapids_tpu/exec/exchange.py:98",
           cuda_ms(lambda: EX.range_pids_from_bounds(rpasses, rbounds)),
           cuda_ms(lambda: EX.range_pids_plain(rpasses, rbounds)),
-          cuda_ms(lambda: torch.searchsorted(first_bounds, first_pass)),
+          k11_lib,
           nbytes(rpasses, rbounds, rp), n * k * rbounds.shape[1],
-          FP32_PER_S, 0.0, library_call="torch.searchsorted over the first "
-          "pass only")
+          FP32_PER_S, 0.0, library_call="like for like: torch.searchsorted "
+          "of every pass against every bound (left and right), combined "
+          "lexicographically (the first pass alone: "
+          "library_first_pass_ms)", library_first_pass_ms=k11_first)
 
     # K12: Q12's lineitem segment over its first 2,097,152-row reader
     # batch, Q13's orders segment (1,500,000 orders, one batch), and the
@@ -4193,8 +4351,12 @@ def main() -> int:
                            "rows -2..2")]
     fa_cases += [(k, "rows -4..0", csales.data, sales_valid)
                  for k in ("first", "last")]
+    # a float64 sum (the sales keys / 100): the fixed-order prefix path,
+    # whose bits must repeat from run to run
+    fsales = csales.data.to(torch.float64) * 0.01
+    fa_cases += [("sum", "rows -4..0 float64", fsales, csales.validity)]
     for kind, fname, vals, vvalid in fa_cases:
-        lo, up = frames[fname]
+        lo, up = frames[fname.replace(" float64", "")]
         for ignore in ((False, True) if kind in ("first", "last")
                        else (False,)):
             case = f"{kind} {fname}" + (" ignore_nulls" if ignore else "")
@@ -4215,28 +4377,50 @@ def main() -> int:
         f"{ctime.data.element_size()} B = "
         f"{levels * NW * ctime.data.element_size()} bytes")
     k14 = {}
+    # float sums: rel 1e-9 of max(|result|, |P[hi]|), |P| at most the sum
+    # of |v| (ops/kernels/window.py); avg of integers: a float division of
+    # exact integer sums and counts, rel 1e-9 of the result
+    fscale = float(fsales.abs().sum())
     for case, (call, kernel, plain, moved) in k14_cases.items():
-        got, want = call(kernel), call(plain)
+        want = call(plain)
+        err, first_bits = 0.0, None
+        for _ in range(REPEATS):
+            got = call(kernel)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                require(g.dtype == w.dtype and g.shape == w.shape,
+                        f"K14 {case}: dtype or shape differs")
+                if g.dtype.is_floating_point:
+                    err = max(err, float((g - w).abs().max()))
+                    floor = fscale if "float64" in case else 0.0
+                    require(bool(((g - w).abs() <= 1e-9 * torch.clamp(
+                        w.abs(), min=floor)).all()),
+                        f"K14 {case} differs beyond its tolerance ({err})")
+                else:
+                    require(torch.equal(g, w),
+                            f"K14 {case} differs from its plain version")
+            bits = [g.view(torch.uint8) for g in got]
+            if first_bits is None:
+                first_bits = bits
+            require(all(torch.equal(a, b) for a, b in zip(bits, first_bits)),
+                    f"K14 {case}: two runs gave different bits")
+        W.WINDOW_LAUNCHES.reset()
+        call(kernel)
         torch.cuda.synchronize()
-        err = 0.0
-        for g, w in zip(got, want):
-            require(g.dtype == w.dtype and g.shape == w.shape,
-                    f"K14 {case}: dtype or shape differs")
-            if g.dtype.is_floating_point:
-                # avg: a float division of exact integer sums and counts
-                err = max(err, float((g - w).abs().max()))
-                require(torch.allclose(g, w, rtol=1e-9, atol=0),
-                        f"K14 {case} differs beyond rel 1e-9 ({err})")
-            else:
-                require(torch.equal(g, w),
-                        f"K14 {case} differs from its plain version")
+        launched = W.WINDOW_LAUNCHES.count
+        # many calls in the profiled window: with few device records a
+        # session comes back empty (PERF.md section 7)
         k14[case] = dict(ms=cuda_ms(lambda: call(kernel)),
                          plain=cuda_ms(lambda: call(plain)),
                          bound=moved / HBM_BYTES_PER_S * 1e3, bytes=moved,
-                         err=err)
+                         err=err, launches=launched,
+                         split=kernel_split(lambda: call(kernel), reps=100),
+                         equal_runs=REPEATS)
         log(f"K14 {case}: kernel {k14[case]['ms']:.3f} ms, plain "
             f"{k14[case]['plain']:.3f} ms, bound {k14[case]['bound']:.4f} "
-            f"ms, max_abs_err {err}")
+            f"ms, {k14[case]['launches']} launch(es), equal to its plain "
+            f"version with the same bits in {REPEATS} runs, max_abs_err "
+            f"{err}; device ms by kernel {k14[case]['split']}")
     sorted_sales = G.gather_array(csales.data, korder)
     sorted_time = G.gather_array(ctime.data, korder)
     ksum = frame_sum_library(csales.data, csales.validity & wrm, korder,
@@ -4272,6 +4456,10 @@ def main() -> int:
           ms_by_function={c: v["ms"] for c, v in k14.items()},
           plain_ms_by_function={c: v["plain"] for c, v in k14.items()},
           bound_ms_by_function={c: v["bound"] for c, v in k14.items()},
+          launches_a_call_by_function={c: v["launches"]
+                                       for c, v in k14.items()},
+          split_by_function={c: v["split"] for c, v in k14.items()},
+          equal_runs=REPEATS,
           library_ms_by_function=k14_lib)
 
     # K15: Q22's substring(c_phone, 1, 2) over the customer table

@@ -5,8 +5,8 @@ Counterpart of ``spark_rapids_tpu/exec/joins.py``: ``TpuHashJoinExec``
 ``_join``), ``TpuShuffledHashJoinExec`` (326-377),
 ``TpuBroadcastHashJoinExec`` (394-492) and ``register`` (495-522).  The
 device work is the sort-merge pipeline of ``ops/kernels/join.py``: K5
-probe (with K1, K2, K4), K6 emit counts and expansion, K7 gathers, and
-K4 compaction for semi/anti joins.  The output capacity is
+probe (with K1, K2, K4), K6 emit counts and expansion, K7's gather of
+both sides in one launch, and K4 compaction for semi/anti joins.  The output capacity is
 ``bucket_rows(total)`` after one host read of the total, the reference's
 own sync.
 
@@ -115,8 +115,8 @@ class TpuHashJoinExec(TpuExec):
     def _expand(self, c_out: int, total: int, lb: DeviceBatch,
                 rb: DeviceBatch, pr: J.Probe, e: J.Emit) -> DeviceBatch:
         lidx, ridx, slot_valid = J.expand_pairs(pr, e, c_out)
-        cols = (J.gather_side(lb.columns, lidx, slot_valid)
-                + J.gather_side(rb.columns, ridx, slot_valid))
+        cols = J.gather_pair(lb.columns, lidx, rb.columns, ridx,
+                             slot_valid)
         return DeviceBatch(self._schema, cols, torch.full(
             (), total, dtype=torch.int32, device=lb.device))
 

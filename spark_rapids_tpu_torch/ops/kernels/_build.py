@@ -71,7 +71,7 @@ KERNELS: Dict[str, tuple] = {
         "k4_gather_rows": ([P, P, Q, Q, I, P, P], 1),
         "k4_gather_valid": ([P, P, P, Q, Q, P, P], 1),
         "k4_compact_order": ([P, P, Q, P, P, P, P, P, P], 5),
-        "k7_gather_side": ([P, I, P, P, P, P, Q, Q, P, P, P, P], 1),
+        "k7_gather": ([P, I, P, P, P, Q, P], 1),
     }),
     "join_probe": ("join_probe.cu", {
         "k5_ok": ([P, Q, P, Q, P, I, P, P, P], 1),
@@ -149,17 +149,17 @@ KERNELS: Dict[str, tuple] = {
         "k23_expand": ([P, I, Q, P, P], 1),
     }),
     "window": ("window.cu", {
-        "k14_bounds": ([P, P, P, P, Q, P, P, P, P, P], 3),
+        "k14_bounds": ([P, Q, P, P, P, P, P], 3),
         "k14_rank": ([I, P, P, P, P, P, Q, P, P, P], 1),
-        "k14_prefix": ([P, I, P, P, P, Q, P, P, P, P], 3),
-        "k14_frame_sum": ([I, P, P, I, P, P, P, P, Q, Q, Q, I, P, P, P], 1),
-        "k14_seg_scan": ([P, I, P, P, P, P, Q, I, I, P, P, P, P], 3),
-        "k14_masked": ([P, I, P, P, P, Q, I, P, P], 1),
-        "k14_sparse_level": ([P, P, I, Q, Q, I, P], 1),
-        "k14_frame_minmax": ([I, P, I, I, I, P, P, P, P, P, Q, Q, Q, I, P,
-                              P, P], 1),
-        "k14_frame_pick": ([I, I, P, I, P, P, P, P, P, P, Q, Q, Q, I, P, P,
-                            P], 1),
+        "k14_frame_halo": ([I, I, I, P, P, P, P, P, Q, I, I, P, P, P], 1),
+        "k14_frame_sums": ([I, P, I, P, P, P, P, P, Q, Q, Q, I, P, P, P, P,
+                            P, P, P, P], 4),
+        # 4 + n_levels - 1 for a wide bounded frame
+        "k14_frame_minmax": ([I, P, I, I, P, P, P, P, P, P, Q, Q, Q, I, I,
+                              P, P, P, P, P, P, P, P, P], 4),
+        # 5 with ignore_nulls
+        "k14_frame_pick": ([I, I, P, I, P, P, P, P, P, Q, Q, Q, I, P, P, P,
+                            P, P, P, P, P], 2),
     }),
 }
 LAUNCHES_PER_CALL = {fn: n for _src, fns in KERNELS.values()

@@ -13,7 +13,13 @@ the sorted segment ids from K2; these wrappers do the rest:
     a row frame [lower, upper] clamped to the segment, as the reference
     formulates them (prefix-sum differences; segment-reset scans or a
     sparse table for min/max; edge-row gathers, through next/previous
-    valid-index scans with ``ignore_nulls``).
+    valid-index scans with ``ignore_nulls``).  The kernels read the
+    values, their validity and the row mask through ``order`` in one
+    pass and write the result through it in one: a bounded frame within
+    ``HALO`` rows of the row (except a float sum) is one launch
+    (``k14_frame_halo``), any other frame stages the sorted values and
+    scans them (``k14_frame_sums``, ``k14_frame_minmax``,
+    ``k14_frame_pick``).
 
 Each returns its column in ROW order (``out[order[i]]`` = the value of
 sorted row ``i``), with validity ANDed with the row mask and the data
@@ -42,7 +48,12 @@ from . import _build as B
 WINDOW_LAUNCHES = B.LaunchCounter("window")
 
 RANK_KINDS = {"row_number": 0, "rank": 1, "dense_rank": 2}
-SUM_KINDS = {"count": 0, "sum": 1, "avg": 2}
+#: frame kinds of csrc/window.cu (K_COUNT..K_LAST)
+FRAME_KINDS = {"count": 0, "sum": 1, "avg": 2, "min": 3, "max": 4,
+               "first": 5, "last": 6}
+#: rows a halo block reads on each side of its tile (csrc/window.cu HALO):
+#: bounded frames within [i - HALO, i + HALO] take one launch
+HALO = 32
 #: min/max frame modes of k14_frame_minmax
 _UNBOUNDED, _RUNNING, _REVERSE, _BOUNDED = range(4)
 _LOWER_UNBOUNDED, _UPPER_UNBOUNDED = 1, 2
@@ -256,9 +267,8 @@ def segment_bounds(seg_ids: torch.Tensor,
     end = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty((2, B.tiles(n)), dtype=torch.int32, device=dev)
     B.launch(WINDOW_LAUNCHES, kernels.library("window"), "k14_bounds",
-             B.ptr(_i32(seg_ids)), None, None, None, n, B.ptr(start),
-             B.ptr(end), B.ptr(scratch[0]), B.ptr(scratch[1]),
-             kernels.stream(seg_ids))
+             B.ptr(_i32(seg_ids)), n, B.ptr(start), B.ptr(end),
+             B.ptr(scratch[0]), B.ptr(scratch[1]), kernels.stream(seg_ids))
     return start, end
 
 
@@ -291,6 +301,16 @@ def _frame_args(lower, upper):
         flags
 
 
+def in_halo(kind: str, lower: Optional[int], upper: Optional[int],
+            dtype: Optional[torch.dtype]) -> bool:
+    """True where ``frame_aggregate`` takes the one-launch halo path: a
+    bounded frame within ``HALO`` rows of the row, and no float sum."""
+    if lower is None or upper is None or max(abs(lower), abs(upper)) > HALO:
+        return False
+    return not (kind in ("sum", "avg") and dtype is not None
+                and dtype.is_floating_point)
+
+
 def frame_aggregate(kind: str, lower: Optional[int], upper: Optional[int],
                     ignore_nulls: bool, values: Optional[torch.Tensor],
                     valid: Optional[torch.Tensor], order, row_mask, seg_ids,
@@ -306,6 +326,11 @@ def frame_aggregate(kind: str, lower: Optional[int], upper: Optional[int],
         return frame_aggregate_plain(kind, lower, upper, ignore_nulls,
                                      values, valid, order, row_mask,
                                      seg_ids, start, end)
+    if kind not in FRAME_KINDS:
+        raise ValueError(kind)
+    vals = None if values is None else values.contiguous()
+    if kind in ("min", "max") and vals.dtype not in _MINMAX_DTYPES:
+        raise TypeError(f"window {kind} over {vals.dtype} is not supported")
     lib = kernels.library("window")
     st = kernels.stream(order)
     n = order.shape[0]
@@ -313,90 +338,75 @@ def frame_aggregate(kind: str, lower: Optional[int], upper: Optional[int],
     nt = B.tiles(n)
     order = _i32(order)
     row_mask = row_mask.contiguous()
+    valid_p = B.ptr(None if valid is None else valid.contiguous())
+    float_vals = vals is not None and vals.dtype.is_floating_point
+    if kind in ("count", "sum", "avg"):
+        out_t = torch.float64 if kind == "avg" or (
+            kind == "sum" and float_vals) else torch.int64
+    else:
+        out_t = vals.dtype
+    out = torch.empty(n, dtype=out_t, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    code = 0 if vals is None else B.DTYPE_CODES[vals.dtype]
+    if in_halo(kind, lower, upper, None if vals is None else vals.dtype):
+        B.launch(WINDOW_LAUNCHES, lib, "k14_frame_halo", FRAME_KINDS[kind],
+                 code, int(ignore_nulls),
+                 B.ptr(None if kind == "count" else vals), valid_p,
+                 B.ptr(order), B.ptr(row_mask), B.ptr(_i32(seg_ids)), n,
+                 lower, upper, B.ptr(out), B.ptr(out_valid), st)
+        return out, out_valid
     start, end = _i32(start), _i32(end)
     lo_v, up_v, flags = _frame_args(lower, upper)
-    valid_p = B.ptr(None if valid is None else valid.contiguous())
-    vals = None if values is None else values.contiguous()
-    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
-
-    def prefix(v):
-        """Exclusive prefix counts (n + 1) of the valid sorted rows and,
-        for values ``v``, their prefix sums (int64, or float64 for
-        floats), both from one pass."""
-        counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
-        sums = None
-        if v is not None:
-            sums = torch.empty(n + 1, dtype=torch.float64
-                               if v.dtype.is_floating_point else torch.int64,
-                               device=dev)
-        tiles = torch.empty(2 * nt, dtype=torch.int64, device=dev)
-        B.launch(WINDOW_LAUNCHES, lib, "k14_prefix", B.ptr(v),
-                 4 if v is None else B.DTYPE_CODES[v.dtype], valid_p,
-                 B.ptr(order), B.ptr(row_mask), n, B.ptr(counts),
-                 B.ptr(sums), B.ptr(tiles), st)
-        return counts, sums
-
-    if kind in ("first", "last"):
-        edge = None
-        if ignore_nulls:
-            edge = torch.empty(n, dtype=torch.int32, device=dev)
-            scratch = torch.empty((2, nt), dtype=torch.int32, device=dev)
-            prev_p, next_p = (None, B.ptr(edge)) if kind == "first" \
-                else (B.ptr(edge), None)
-            B.launch(WINDOW_LAUNCHES, lib, "k14_bounds", None, valid_p,
-                     B.ptr(order), B.ptr(row_mask), n, prev_p, next_p,
-                     B.ptr(scratch[0]), B.ptr(scratch[1]), st)
-        out = torch.empty(n, dtype=vals.dtype, device=dev)
-        B.launch(WINDOW_LAUNCHES, lib, "k14_frame_pick",
-                 int(kind == "last"), int(ignore_nulls), B.ptr(vals),
-                 vals.element_size(), valid_p, B.ptr(order),
-                 B.ptr(row_mask), B.ptr(edge), B.ptr(start), B.ptr(end), n,
-                 lo_v, up_v, flags, B.ptr(out), B.ptr(out_valid), st)
-        return out, out_valid
+    fl = torch.empty(n, dtype=torch.uint8, device=dev)
     if kind in ("count", "sum", "avg"):
-        counts, sums = prefix(None if kind == "count" else vals)
-        out_t = torch.int64 if sums is None else sums.dtype
-        if kind == "avg":
-            out_t = torch.float64
-        out = torch.empty(n, dtype=out_t, device=dev)
-        B.launch(WINDOW_LAUNCHES, lib, "k14_frame_sum", SUM_KINDS[kind],
-                 B.ptr(counts), B.ptr(sums),
-                 int(sums is not None and sums.dtype == torch.float64),
-                 B.ptr(order), B.ptr(row_mask), B.ptr(start), B.ptr(end),
-                 n, lo_v, up_v, flags, B.ptr(out), B.ptr(out_valid), st)
+        v = None if kind == "count" else vals
+        acc_t = torch.float64 if float_vals else torch.int64
+        staged = sums = None
+        if v is not None:
+            staged = torch.empty(n, dtype=acc_t, device=dev)
+            sums = torch.empty(n + 1, dtype=acc_t, device=dev)
+        counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+        tiles = torch.empty(2 * nt, dtype=torch.int64, device=dev)
+        B.launch(WINDOW_LAUNCHES, lib, "k14_frame_sums", FRAME_KINDS[kind],
+                 B.ptr(v), code, valid_p, B.ptr(order), B.ptr(row_mask),
+                 B.ptr(start), B.ptr(end), n, lo_v, up_v, flags,
+                 B.ptr(staged), B.ptr(fl), B.ptr(tiles), B.ptr(counts),
+                 B.ptr(sums), B.ptr(out), B.ptr(out_valid), st)
         return out, out_valid
-    if kind not in ("min", "max"):
-        raise ValueError(kind)
-    if vals.dtype not in _MINMAX_DTYPES:
-        raise TypeError(f"window {kind} over {vals.dtype} is not supported")
-    code = B.DTYPE_CODES[vals.dtype]
-    is_min = int(kind == "min")
-    counts = prefix(None)[0]
-    if lower is not None and upper is not None:
-        mode = _BOUNDED
-        n_levels = max(1, min(upper - lower + 1, n).bit_length())
-        src = torch.empty((n_levels, n), dtype=vals.dtype, device=dev)
-        B.launch(WINDOW_LAUNCHES, lib, "k14_masked", B.ptr(vals), code,
-                 valid_p, B.ptr(order), B.ptr(row_mask), n, is_min,
-                 B.ptr(src[0]), st)
-        for k in range(1, n_levels):
-            B.launch(WINDOW_LAUNCHES, lib, "k14_sparse_level",
-                     B.ptr(src[k - 1]), B.ptr(src[k]), code, n,
-                     1 << (k - 1), is_min, st)
-    else:
-        mode = (_UNBOUNDED if upper is None else _RUNNING) \
-            if lower is None else _REVERSE
-        n_levels = 1
-        src = torch.empty(n, dtype=vals.dtype, device=dev)
+    if kind in ("min", "max"):
+        bounded = lower is not None and upper is not None
+        if bounded:
+            mode = _BOUNDED
+            n_levels = max(1, min(upper - lower + 1, n).bit_length())
+        else:
+            mode = (_UNBOUNDED if upper is None else _RUNNING) \
+                if lower is None else _REVERSE
+            n_levels = 1
+        table = torch.empty((n_levels, n), dtype=vals.dtype, device=dev)
+        tile_c = torch.empty(nt, dtype=torch.int64, device=dev)
+        tile_f = tile_acc = None
+        if not bounded:
+            tile_f = torch.empty(nt, dtype=torch.int32, device=dev)
+            tile_acc = torch.empty(nt, dtype=vals.dtype, device=dev)
+        counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+        B.launch(WINDOW_LAUNCHES, lib, "k14_frame_minmax", mode, B.ptr(vals),
+                 code, int(kind == "min"), valid_p, B.ptr(order),
+                 B.ptr(row_mask), B.ptr(_i32(seg_ids)), B.ptr(start),
+                 B.ptr(end), n, lo_v, up_v, flags, n_levels, B.ptr(table),
+                 B.ptr(fl), B.ptr(tile_c), B.ptr(tile_f), B.ptr(tile_acc),
+                 B.ptr(counts), B.ptr(out), B.ptr(out_valid), st,
+                 launched=4 + n_levels - 1)
+        return out, out_valid
+    staged = torch.empty(n, dtype=vals.dtype, device=dev)
+    edge = tile_f = tile_r = None
+    if ignore_nulls:
+        edge = torch.empty(n, dtype=torch.int32, device=dev)
         tile_f = torch.empty(nt, dtype=torch.int32, device=dev)
-        tile_acc = torch.empty(nt, dtype=vals.dtype, device=dev)
-        B.launch(WINDOW_LAUNCHES, lib, "k14_seg_scan", B.ptr(vals), code,
-                 valid_p, B.ptr(order), B.ptr(row_mask),
-                 B.ptr(_i32(seg_ids)), n, is_min, int(mode == _REVERSE),
-                 B.ptr(src), B.ptr(tile_f), B.ptr(tile_acc), st)
-    out = torch.empty(n, dtype=vals.dtype, device=dev)
-    B.launch(WINDOW_LAUNCHES, lib, "k14_frame_minmax", mode, B.ptr(src),
-             n_levels, code, is_min, B.ptr(counts), B.ptr(order),
-             B.ptr(row_mask), B.ptr(start), B.ptr(end), n, lo_v, up_v,
-             flags, B.ptr(out), B.ptr(out_valid), st)
+        tile_r = torch.empty(nt, dtype=torch.int32, device=dev)
+    B.launch(WINDOW_LAUNCHES, lib, "k14_frame_pick", int(kind == "last"),
+             int(ignore_nulls), B.ptr(vals), vals.element_size(), valid_p,
+             B.ptr(order), B.ptr(row_mask), B.ptr(start), B.ptr(end), n,
+             lo_v, up_v, flags, B.ptr(staged), B.ptr(fl), B.ptr(edge),
+             B.ptr(tile_f), B.ptr(tile_r), B.ptr(out), B.ptr(out_valid), st,
+             launched=5 if ignore_nulls else 2)
     return out, out_valid
