@@ -656,10 +656,15 @@ def _dtoh_of(prof):
 
 def dtoh_copies(run):
     """(copies, bytes, device ms) of the device-to-host copies in one run
-    of ``run`` under torch.profiler (``_dtoh_of``)."""
+    of ``run`` under torch.profiler (``_dtoh_of``).  An empty session
+    comes first and takes any device records an earlier session delivers
+    late (on the card a session has counted two 48-byte copies of the
+    run before it, and that run's own profile two fewer)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -3757,7 +3762,10 @@ def main() -> int:
           "torch.cumsum (torch.cumsum of the flags alone: "
           "library_cumsum_alone_ms)", library_cumsum_alone_ms=k2_cumsum)
 
-    # K3: sum of l_extendedprice per segment (float64), count, min, starts
+    # K3: sum of l_extendedprice per segment (float64), count, min, starts;
+    # then every buffer of Q1's partial aggregate node in one call, as the
+    # node makes it (segment.segment_reduce_many), REPEATS runs against
+    # the plain version with the same bits every run
     price = G.gather_array(fcols["l_extendedprice"].data, perm)
     pvalid = G.gather_array(fcols["l_extendedprice"].validity & rm, perm)
     got_sum, got_cnt = S.segment_aggregate(price, pvalid, ids, P, "sum")
@@ -3775,6 +3783,49 @@ def main() -> int:
         S.segment_min_index(ids, P),
         S.segment_aggregate_plain(None, None, ids, P, "min")[0]),
         "K3 segment starts differ")
+    node_cols = [G.gather_column(fcols[c], perm)
+                 for c in ("l_quantity", "l_extendedprice", "l_discount",
+                           "l_tax")]
+    node_specs = [(c.data, c.validity & rm, op) for c in node_cols
+                  for op in ("sum", "count")] + \
+        [(node_cols[1].data, node_cols[1].validity & rm, op)
+         for op in ("min", "max", "first", "last_any")]
+
+    def k3_node():
+        return S.segment_reduce_many(node_specs, ids, P, present=rm,
+                                     starts=True)
+
+    want_node, want_starts = S.segment_reduce_many(
+        [tuple(t.cpu() for t in sp[:2]) + (sp[2],) for sp in node_specs],
+        ids.cpu(), P, present=rm.cpu(), starts=True)
+    first_node = None
+    for _ in range(REPEATS):
+        S.SEGMENT_REDUCE_LAUNCHES.reset()
+        node, starts_k = k3_node()
+        k3_node_launches = S.SEGMENT_REDUCE_LAUNCHES.count
+        require(torch.equal(starts_k.cpu(), want_starts),
+                "K3 node: the segment starts differ")
+        for (gd, gv), (wd, wv), sp in zip(node, want_node, node_specs):
+            gd, gv = gd.cpu(), gv.cpu()
+            require(torch.equal(gv, wv), f"K3 node: {sp[2]} validity "
+                    "differs")
+            require(torch.allclose(gd, wd, rtol=1e-9, atol=0)
+                    if gd.dtype.is_floating_point else torch.equal(gd, wd),
+                    f"K3 node: {sp[2]} differs from its plain version")
+        bits = [d.reshape(-1).view(torch.uint8) for d, _v in node]
+        if first_node is None:
+            first_node = bits
+        require(all(torch.equal(a, b) for a, b in zip(bits, first_node)),
+                "K3 node: two runs differ in bits")
+    require(k3_node_launches == 2, f"K3 node took {k3_node_launches} "
+            "launches")
+    k3_node_ms = cuda_ms(k3_node)
+    log(f"K3 at Q1's partial node shape: {len(node_specs)} buffers and the "
+        f"segment starts over {P} rows in {k3_node_launches} K3 launches "
+        f"(+ {sum(sp[2] in ('first', 'last_any') for sp in node_specs)} K4 "
+        f"gathers of the picks), {REPEATS} runs equal to the plain version "
+        f"with the same bits; {k3_node_ms:.3f} ms")
+    del first_node, node, want_node
     n_seg = int(ids[P - 1]) + 1
     lengths = torch.bincount(ids.to(torch.int64), minlength=n_seg)
     masked = torch.where(pvalid, price, torch.zeros_like(price))
@@ -3786,35 +3837,85 @@ def main() -> int:
                                                     "sum")),
           cuda_ms(lambda: torch.segment_reduce(masked, "sum",
                                                lengths=lengths)),
-          nbytes(price, pvalid, ids, got_sum, got_cnt), P, FP64_PER_S, err)
+          nbytes(price, pvalid, ids, got_sum, got_cnt), P, FP64_PER_S, err,
+          node_buffers=len(node_specs), node_launches=k3_node_launches,
+          node_ms=k3_node_ms)
 
-    # K4: compaction of one reader batch by Q1's filter, gather at P
+    # K4: compaction of one reader batch by Q1's filter (two scan launches
+    # and one move of every column), then the gather of Q1's partial node
+    # (its keys and buffer inputs by the sort's order, one launch),
+    # REPEATS runs each against the plain version
     rb = host_to_device(hb.slice(0, READER_ROWS), 128, dev)
     rcols = {f.name: c for f, c in zip(rb.schema, rb.columns)}
     rkeep = (rcols["l_shipdate"].data <= O._days(1998, 9, 2)) & \
         rcols["l_shipdate"].validity
-    got = G.compact(rb, rkeep)
     ref = G.compact_plain(rb, rkeep)
-    require(torch.equal(got.num_rows, ref.num_rows), "K4 row count differs")
-    for g, r in zip(got.columns, ref.columns):
-        require(torch.equal(g.data, r.data) and
-                torch.equal(g.validity, r.validity) and
-                (g.lengths is None or torch.equal(g.lengths, r.lengths)),
-                f"K4 compact differs in a {g.dtype} column")
-    gathered = G.gather_column(fcols["l_extendedprice"], perm, rm)
-    plain_g = G.gather_column_plain(fcols["l_extendedprice"], perm, rm)
-    require(torch.equal(gathered.data, plain_g.data) and
-            torch.equal(gathered.validity, plain_g.validity),
-            "K4 gather differs")
+    gather_in = keys + node_cols
+    ref_g = [G.gather_column_plain(c, perm) for c in gather_in]
+    for _ in range(REPEATS):
+        G.COMPACT_LAUNCHES.reset()
+        got = G.compact(rb, rkeep)
+        compact_launches = G.COMPACT_LAUNCHES.count
+        require(torch.equal(got.num_rows, ref.num_rows),
+                "K4 row count differs")
+        for g, r in zip(got.columns, ref.columns):
+            require(torch.equal(g.data, r.data) and
+                    torch.equal(g.validity, r.validity) and
+                    (g.lengths is None or torch.equal(g.lengths, r.lengths)),
+                    f"K4 compact differs in a {g.dtype} column")
+        G.GATHER_LAUNCHES.reset()
+        gathered = G.gather_columns(gather_in, perm)
+        gather_launches = G.GATHER_LAUNCHES.count
+        for g, r in zip(gathered, ref_g):
+            require(torch.equal(g.data, r.data) and
+                    torch.equal(g.validity, r.validity) and
+                    (g.lengths is None or torch.equal(g.lengths, r.lengths)),
+                    f"K4 gather differs in a {g.dtype} column")
+    require(compact_launches == 3 and gather_launches == 1,
+            f"K4 took {compact_launches} launches to compact and "
+            f"{gather_launches} to gather {len(gather_in)} columns")
     arrays = [a for c in rb.columns for a in (c.data, c.validity, c.lengths)
               if a is not None]
+    valid_arrays = {id(c.validity) for c in rb.columns}
+    rrm = rb.row_mask()
+    rlane = torch.arange(rb.padded_rows, device=dev)
+
+    def k4_library():
+        """Like for like: a stable argsort of the dropped flags, then
+        index_select of every array, the validity cleared past the kept
+        count."""
+        kept = rkeep & rrm
+        o = torch.argsort((~kept).to(torch.uint8), stable=True)
+        live = rlane < kept.sum()
+        return [torch.index_select(a, 0, o) & live
+                if id(a) in valid_arrays else torch.index_select(a, 0, o)
+                for a in arrays]
+
+    require(all(torch.equal(x, y) for x, y in zip(
+        k4_library(), [a for c in ref.columns
+                       for a in (c.data, c.validity, c.lengths)
+                       if a is not None])),
+            "K4's like-for-like library composition differs from K4")
+    k4_gather_ms = cuda_ms(lambda: G.gather_columns(gather_in, perm))
+    log(f"K4 at Q1's reader batch: compact {compact_launches} launches, "
+        f"the partial node's gather of {len(gather_in)} columns "
+        f"{gather_launches} launch ({k4_gather_ms:.3f} ms), {REPEATS} runs "
+        "each equal to the plain version")
     entry("K4 compact+gather", "spark_rapids_tpu_torch/csrc/gather.cu",
           "spark_rapids_tpu/ops/kernels/gather.py:33",
           cuda_ms(lambda: G.compact(rb, rkeep)),
           cuda_ms(lambda: G.compact_plain(rb, rkeep)),
-          cuda_ms(lambda: [a[rkeep] for a in arrays]),
+          cuda_ms(k4_library),
           nbytes(rkeep, *arrays) * 2 - nbytes(rkeep), rb.padded_rows,
-          FP32_PER_S, 0.0)
+          FP32_PER_S, 0.0,
+          library_call="like for like: torch.argsort(stable=True) of the "
+          "dropped flags, torch.index_select of every array, the validity "
+          "cleared past the kept count (boolean-mask indexing of every "
+          "array alone: library_mask_only_ms)",
+          library_mask_only_ms=cuda_ms(lambda: [a[rkeep] for a in arrays]),
+          compact_launches=compact_launches,
+          node_gather_ms=k4_gather_ms, node_gather_launches=gather_launches,
+          node_gather_columns=len(gather_in))
 
     # K5: the probe of Q3's second join (its one K1 sort included in the
     # time), on the inputs the main path gave it, REPEATS runs each way
@@ -4088,17 +4189,52 @@ def main() -> int:
     log(f"K10 at Q3's lineitem batch: {int(kb.num_rows)} rows ({P2} "
         f"padded) into {kn} partitions {counts_h}; build {k10_build_ms:.3f}"
         f" ms, slices {k10_slice_ms:.3f} ms")
+    k_arrays = [(a, a is c.validity) for c in kb.columns
+                for a in (c.data, c.validity, c.lengths) if a is not None]
+    lane2l = lane2.to(torch.int64)
+
+    def k10_library():
+        """Like for like: the build's order (a stable argsort of the
+        bucket ids), counts (bincount) and starts (cumsum), the block by
+        index_select of every array, and each partition's slice by
+        index_select at its clamped rows, the validity ANDed with the
+        slice's row mask."""
+        o = torch.argsort(bucket, stable=True)
+        counts = torch.bincount(bucket, minlength=kn + 1)[:kn]
+        starts = torch.cumsum(counts, 0) - counts
+        blk = [(torch.index_select(a, 0, o), v) for a, v in k_arrays]
+        out = [counts, starts]
+        for p in range(kn):
+            idx = torch.clamp(starts_h[p] + lane2l, 0, P2 - 1)
+            live = lane2l < counts_h[p]
+            out += [torch.index_select(a, 0, idx) & live if v
+                    else torch.index_select(a, 0, idx) for a, v in blk]
+        return out
+
+    lib10 = k10_library()
+    require(torch.equal(lib10[0].to(torch.int32), built[1].to(torch.int32))
+            and torch.equal(lib10[1].to(torch.int32),
+                            built[2].to(torch.int32)),
+            "K10's like-for-like counts and starts differ from K10's")
+    k10_lib = cuda_ms(k10_library)
+    log(f"K10 library, like for like (argsort + bincount + cumsum + "
+        f"index_select of the block and of every slice): {k10_lib:.3f} ms")
     entry("K10 partition_build+slice",
           "spark_rapids_tpu_torch/csrc/shuffle.cu",
           "spark_rapids_tpu/shuffle/device_shuffle.py:96",
           k10_build_ms + k10_slice_ms, k10_build_plain + k10_slice_plain,
-          cuda_ms(lambda: torch.argsort(bucket, stable=True)),
+          k10_lib,
           nbytes(kpids, built[0], built[1], built[2])
           + (1 + kn) * block.device_bytes(), 4 * P2, FP32_PER_S, 0.0,
           ms_build=k10_build_ms, ms_slices=k10_slice_ms,
           plain_ms_build=k10_build_plain, plain_ms_slices=k10_slice_plain,
-          library_call="torch.argsort(stable=True) of the bucket ids "
-          "(the build's order only)")
+          library_call="like for like: torch.argsort(stable=True) of "
+          "the bucket ids, torch.bincount and torch.cumsum of them, "
+          "torch.index_select of every array into the block and of each "
+          "slice's clamped rows with the validity ANDed with its row mask; "
+          "the build's order alone: library_partial_ms",
+          library_partial_ms=cuda_ms(
+              lambda: torch.argsort(bucket, stable=True)))
 
     # K11: the range partition ids of Q3's final sort keys
     _q, rpasses, rbounds = max(
@@ -4284,14 +4420,46 @@ def main() -> int:
                                            b"PROMO")),
             "the library form of startswith disagrees on p_type")
     sw = k13["startswith"]
+
+    def startswith_library():
+        """Like for like: the prefix compare and the lengths test."""
+        return (ptype.data[:, :5] == needle_t).all(1) & (ptype.lengths >= 5)
+
+    special = torch.tensor(list(b"special"), dtype=torch.uint8, device=dev)
+    k_sp = special.shape[0]
+    at = torch.arange(comment.data.shape[1] - k_sp + 1, device=dev)
+
+    def contains_library():
+        """Like for like: every window of the bytes against the needle by
+        an unfold compare, masked to the row's length."""
+        hit = (comment.data.unfold(1, k_sp, 1) == special).all(2)
+        return (hit & (at + k_sp <= comment.lengths[:, None])).any(1)
+
+    require(torch.equal(startswith_library(),
+                        SK.startswith(ptype.data, ptype.lengths, b"PROMO")),
+            "K13's like-for-like startswith differs from K13")
+    require(torch.equal(contains_library(),
+                        SK.contains(comment.data, comment.lengths,
+                                    b"special")),
+            "K13's like-for-like contains differs from K13")
+    k13_lib = {"startswith": cuda_ms(startswith_library),
+               "contains": cuda_ms(contains_library)}
+    log(f"K13 library, like for like: startswith with the lengths test "
+        f"{k13_lib['startswith']:.3f} ms, contains by an unfold compare "
+        f"masked to the length {k13_lib['contains']:.3f} ms")
     entry("K13 string_search",
           "spark_rapids_tpu_torch/csrc/string_search.cu",
           "spark_rapids_tpu/ops/kernels/stringkernels.py:160",
-          sw["ms"], sw["plain"],
-          cuda_ms(lambda: (ptype.data[:, :5] == needle_t).all(1)),
+          sw["ms"], sw["plain"], k13_lib["startswith"],
           sw["bytes"], sw["ops"], FP32_PER_S, 0.0,
-          library_call="(p_type[:, :5] == b'PROMO').all(1), startswith "
-          "only; contains, endswith, locate_from and locate have none",
+          library_call="like for like: (p_type[:, :5] == b'PROMO').all(1) "
+          "& (lengths >= 5), startswith; contains over o_comment by an "
+          "unfold compare masked to the length (library_ms_by_function); "
+          "the prefix compare alone: library_partial_ms; endswith, "
+          "locate_from and locate have none",
+          library_partial_ms=cuda_ms(
+              lambda: (ptype.data[:, :5] == needle_t).all(1)),
+          library_ms_by_function=k13_lib,
           ms_by_function={f: v["ms"] for f, v in k13.items()},
           plain_ms_by_function={f: v["plain"] for f, v in k13.items()},
           bound_ms_by_function={f: bound(v["bytes"], v["ops"],
@@ -4794,6 +4962,32 @@ def main() -> int:
         outs.append(torch.stack([e.data for e in xelems], 1).reshape(-1))
         return outs
 
+    def k22_like():
+        """Like for like: repeat_interleave of every column's data and
+        validity (the validity ANDed with the row mask), the pos column,
+        the elements stacked with their validity and the row mask."""
+        mask_k = torch.repeat_interleave(prm, k)
+        outs = []
+        for c in xcols:
+            outs += [torch.repeat_interleave(c.data, k, dim=0),
+                     torch.repeat_interleave(c.validity, k) & mask_k]
+            if c.lengths is not None:
+                outs.append(torch.repeat_interleave(c.lengths, k))
+        if xpos:
+            outs.append(torch.arange(k, dtype=torch.int32,
+                                     device=dev).repeat(prm.shape[0]))
+        outs.append(torch.stack([e.data for e in xelems], 1).reshape(-1))
+        outs.append(torch.stack([e.validity for e in xelems],
+                                1).reshape(-1) & mask_k)
+        return outs
+
+    like = k22_like()
+    require(torch.equal(like[0], got[0].data) and
+            torch.equal(like[1], got[0].validity) and
+            torch.equal(like[-2], got[-1].data) and
+            torch.equal(like[-1], got[-1].validity),
+            "K22's like-for-like library differs from K22")
+    del like
     k22 = dict(ms=cuda_ms(lambda: GK.explode(xcols, xnr, xelems, xdt,
                                               xpos)),
                dev=device_ms(lambda: GK.explode(xcols, xnr, xelems, xdt,
@@ -4804,7 +4998,8 @@ def main() -> int:
                                                 xpos)),
                plain=cuda_ms(lambda: GK.explode_plain(xcols, prm, xelems,
                                                       xdt, xpos)),
-               lib=cuda_ms(k22_library), bytes=k22_bytes,
+               lib=cuda_ms(k22_library), lib_like=cuda_ms(k22_like),
+               bytes=k22_bytes,
                rows=xelems[0].validity.shape[0])
     log(f"K22 explode at the unpivot's shape: {k22['rows']} padded rows x "
         f"{k}, {len(xcols)} pass-through columns, {k22_bytes} bytes; call "
@@ -4813,7 +5008,7 @@ def main() -> int:
         f"{_ms_text(k22['prof'][0])} a launch, {k22['prof'][1]} of 10 "
         "launches recorded), plain "
         f"{k22['plain']:.3f} ms, repeat_interleave + stack "
-        f"{k22['lib']:.3f} ms")
+        f"{k22['lib']:.3f} ms, like for like {k22['lib_like']:.3f} ms")
     ib = host_to_device(bb_host["item"], 128, dev)
     icols = {f.name: col for f, col in zip(ib.schema, ib.columns)}
     s_elems = [icols["i_category"], icols["i_class"]]
@@ -4832,9 +5027,13 @@ def main() -> int:
     entry("K22 explode", "spark_rapids_tpu_torch/csrc/generate.cu",
           "spark_rapids_tpu/exec/generate.py:47",
           k22["ms"] if k22["dev"] is None else k22["dev"], k22["plain"],
-          k22["lib"], k22_bytes, k22["rows"] * k, FP32_PER_S, 0.0,
-          library_call="torch.repeat_interleave of each pass-through column "
-          "+ torch.stack of the elements", enqueue_ms=k22["enq"],
+          k22["lib_like"], k22_bytes, k22["rows"] * k, FP32_PER_S, 0.0,
+          library_call="like for like: torch.repeat_interleave of each "
+          "pass-through column's data and validity ANDed with the row "
+          "mask, the pos column, torch.stack of the elements and of their "
+          "validity ANDed with the row mask; the data arrays alone "
+          "(repeat_interleave + stack): library_partial_ms",
+          library_partial_ms=k22["lib"], enqueue_ms=k22["enq"],
           event_ms=k22["ms"], device_ms=k22["dev"],
           profiler_kernel_ms=k22["prof"][0],
           profiler_launches_of_10=k22["prof"][1],

@@ -27,6 +27,11 @@ enum DtypeCode {
   DT_F32 = 5, DT_F64 = 6, DT_U8 = 7
 };
 
+// 16 bytes that load and store as one 128-bit access
+struct alignas(16) Bytes16 {
+  unsigned long long lo, hi;
+};
+
 inline unsigned blocks_for(long long n, int per_block) {
   long long b = (n + per_block - 1) / per_block;
   return (unsigned)(b < 1 ? 1 : b);

@@ -9,103 +9,78 @@
 // gather is an indexed copy of rows (1-D data, validity, lengths, or a
 // byte matrix's rows), with the index clamped into range as XLA does.
 //
-// Bound on this card: bytes.  compact reads the flags once for the scan
-// and every column once, and writes every column once at its destination;
-// for a 2,097,152-row Q1 reader batch (53 B a row) that is ~225 MB, about
-// 67 us at 3.35 TB/s.  Design: a three-launch multi-block scan of the keep
-// flags (tile sums, one-block scan, per-row destination), then one
-// scatter launch per array with 1/2/4/8-byte element copies (or a byte
-// loop for matrix rows); reads are coalesced, and the writes of kept rows
-// are contiguous runs.  No atomics: the destinations come from the scan.
+// Bound on this card: bytes.  A gather reads its indices once and every
+// array's rows once, and writes every output once; compact reads the
+// keep flags once for the scan and once more for the move.  For a
+// 2,097,152-row Q1 reader batch (53 B a row) that is ~225 MB, about 67 us
+// at 3.35 TB/s.
 //
-// K7 gathers a join output's columns, both sides' in one launch, by the
-// output slots' row indices, where -1 gives a null row: validity =
-// valid[idx] && idx >= 0 && slot_valid.  At Q3's second join (32,768
-// slots, 9 columns of 4-8 B) it reads two indices and the slot mask a
-// slot and a row of each column, and writes the row, its validity and
-// (strings) its length: ~10 B a slot a column, well under a microsecond
-// at 3.35 TB/s, so launches and the host set its time.  Design: the
-// columns travel as a descriptor table in the kernel parameters (a
-// __grid_constant__ struct, K7_COLS columns and ~2 KB, inside the 4 KB
-// every CUDA version takes, so no copy to the card comes first); the
-// wrapper splits a wider join into as few launches as it needs.  A block
-// takes K7_SLOTS slots, loads their left and right indices and slot mask
-// into shared memory once and walks the columns; a column's rows are cut
-// into units of 16, 8, 4, 2 or 1 bytes (the largest that divides the row
-// width and both base addresses), and the block's threads take the
-// tile's units in order, so neighbouring threads read neighbouring units
-// of a row and write neighbouring units of the output: a byte-matrix
-// row is read and written contiguously by a group of threads, and writes
-// are coalesced for every width.  One launch a join output, against one
-// a column before.
+// Design: every array of a call moves in ONE launch.  The arrays travel
+// as a descriptor table in the kernel parameters (a __grid_constant__
+// struct of MOVE_COLS columns, ~2 KB, inside the 4 KB every CUDA version
+// takes, so no copy to the card comes first): a column is its data (1-D
+// data of any element size, or a byte matrix of any width), its validity
+// and its lengths, each optional but the data.  The wrapper splits a
+// wider call into as few launches as it needs.  A block loads its rows'
+// indices (and their row mask) into shared memory once.  A column's rows
+// are cut into units of 16, 8, 4, 2 or 1 bytes (the largest that divides
+// the row width and both base addresses), and neighbouring threads read
+// neighbouring units of a row and write neighbouring units of the
+// output: a byte-matrix row is read and written contiguously by a group
+// of threads (a warp a row where the row has 16 units or more), and
+// writes are coalesced for every width (no thread loops over a row's
+// bytes).  A thread loads several rows or units before it stores any.
+//
+//   * gather (k4_gather, K7's k7_gather): a block takes MOVE_ROWS output
+//     rows of one column, the blocks in column order, so those that run
+//     together share one column's reads in L2 (a random gather of 8-byte
+//     elements reads 32-byte sectors); validity = valid[idx] && mask
+//     (K4: the caller's mask and, after a compaction order, row < count;
+//     K7: idx >= 0 and the slot mask, -1 being a null row);
+//   * compaction (k4_compact_plan + k4_compact_move): two launches scan
+//     the keep flags (tile sums, one block of tile offsets and the kept
+//     count); then one launch moves every array: a block takes one scan
+//     tile of SOURCE rows, turns its flags and its tile offset into each
+//     row's destination in shared memory (kept rows to [0, count) in
+//     order, dropped rows after them in order) and scatters the tile's
+//     units there, so reads are contiguous and the kept rows' writes
+//     land in contiguous runs.  No atomics: the destinations come from
+//     the scan.  k4_compact_order writes the same destinations as an
+//     order (order[dest[i]] = i) for callers that want the permutation.
+//     Scatter against an order and a gather (4 launches): the scatter was
+//     faster at Q1's reader batch and the export's 147-byte rows
+//     (tools/k3_k4_split.py, PERF.md §6).
 #include "common.cuh"
 
 namespace {
 
 using srt::BLOCK;
+using srt::Bytes16;
 using srt::ITEMS;
 using srt::TILE;
 
-__global__ void keep_flags(const bool* __restrict__ keep,
-                           const int* __restrict__ num_rows, long long n,
-                           uint8_t* __restrict__ flags) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  flags[i] = (keep[i] && i < (long long)(*num_rows)) ? 1 : 0;
-}
+constexpr int MOVE_COLS = 32;   // columns a launch (the wrapper's table)
+constexpr int MOVE_ROWS = TILE;  // output rows a gather block
+// blocks an SM keeps resident (at most 64 registers a thread), so enough
+// reads are in flight
+constexpr int MIN_BLOCKS = 4;
 
-// dest[i]: kept rows to [0, count), dropped rows to [count, n), stable
-__global__ void destinations(const uint8_t* __restrict__ flags, long long n,
-                             const int* __restrict__ tile_offsets,
-                             const int* __restrict__ count,
-                             int* __restrict__ dest) {
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  int f[ITEMS];
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j;
-    f[j] = (i < n && flags[i]) ? 1 : 0;
-  }
-  int tile_total;
-  int kept_before = tile_offsets[blockIdx.x] + srt::thread_prefix(f, &tile_total);
-  const int total = *count;
-#pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j;
-    if (i < n)
-      dest[i] = f[j] ? kept_before : total + (int)(i - kept_before);
-    kept_before += f[j];
-  }
-}
+struct MoveCol {
+  const uint8_t* src;
+  const bool* valid;    // NULL: no validity (a bare array)
+  const int* lengths;   // NULL for 1-D data
+  uint8_t* dst;
+  bool* dst_valid;
+  int* dst_lengths;     // NULL for 1-D data
+  long long n_src;
+  int row_bytes;        // the element size, or the byte matrix's width
+  int side;             // K7: 0 reads the left indices, 1 the right ones
+};
 
-template <typename E>
-__global__ void scatter_elems(const E* __restrict__ src,
-                              const int* __restrict__ dest, long long n,
-                              E* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  dst[dest[i]] = src[i];
-}
-
-__global__ void scatter_bytes(const uint8_t* __restrict__ src,
-                              const int* __restrict__ dest, long long n,
-                              int row_bytes, uint8_t* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t* s = src + i * (long long)row_bytes;
-  uint8_t* d = dst + (long long)dest[i] * row_bytes;
-  for (int j = 0; j < row_bytes; ++j) d[j] = s[j];
-}
-
-__global__ void scatter_valid(const bool* __restrict__ valid,
-                              const uint8_t* __restrict__ flags,
-                              const int* __restrict__ dest, long long n,
-                              bool* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  dst[dest[i]] = flags[i] ? valid[i] : false;
-}
+struct MoveTable {
+  int n;
+  MoveCol col[MOVE_COLS];
+};
 
 __device__ __forceinline__ long long clamp_index(int v, long long n_src) {
   long long k = v;
@@ -114,74 +89,9 @@ __device__ __forceinline__ long long clamp_index(int v, long long n_src) {
   return k;
 }
 
-template <typename E>
-__global__ void gather_elems(const E* __restrict__ src,
-                             const int* __restrict__ idx, long long n_out,
-                             long long n_src, E* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  dst[i] = src[clamp_index(idx[i], n_src)];
-}
-
-__global__ void gather_bytes(const uint8_t* __restrict__ src,
-                             const int* __restrict__ idx, long long n_out,
-                             long long n_src, int row_bytes,
-                             uint8_t* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const uint8_t* s = src + clamp_index(idx[i], n_src) * row_bytes;
-  uint8_t* d = dst + i * (long long)row_bytes;
-  for (int j = 0; j < row_bytes; ++j) d[j] = s[j];
-}
-
-__global__ void gather_valid(const bool* __restrict__ valid,
-                             const int* __restrict__ idx,
-                             const bool* __restrict__ mask, long long n_out,
-                             long long n_src, bool* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  bool v = valid[clamp_index(idx[i], n_src)];
-  if (mask != nullptr) v = v && mask[i];
-  dst[i] = v;
-}
-
-// order[dest[i]] = i: the stable argsort of ~keep as a row index array
-__global__ void invert_dest(const int* __restrict__ dest, long long n,
-                            int* __restrict__ order) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  order[dest[i]] = (int)i;
-}
-
-// K7: a join output's columns, described by a table in the kernel
-// parameters; side 0 reads the left indices, side 1 the right ones
-constexpr int K7_COLS = 32;    // columns a launch (the wrapper's table)
-constexpr int K7_SLOTS = 512;  // output slots a block
-
-struct K7Col {
-  const uint8_t* src;
-  const bool* valid;
-  const int* lengths;  // NULL for 1-D data
-  uint8_t* dst;
-  bool* dst_valid;
-  int* dst_lengths;    // NULL for 1-D data
-  long long n_src;
-  int row_bytes;       // the element size, or the byte matrix's width
-  int side;
-};
-
-struct K7Table {
-  int n;
-  K7Col col[K7_COLS];
-};
-
-struct alignas(16) Bytes16 {
-  unsigned long long lo, hi;
-};
-
 // the widest unit (16, 8, 4, 2 or 1 bytes) that divides the row width and
 // both base addresses
-__device__ __forceinline__ int unit_bytes(const K7Col& d) {
+__device__ __forceinline__ int unit_bytes(const MoveCol& d) {
   const unsigned long long a = (unsigned long long)(uintptr_t)d.src |
                                (unsigned long long)(uintptr_t)d.dst |
                                (unsigned long long)d.row_bytes;
@@ -189,204 +99,259 @@ __device__ __forceinline__ int unit_bytes(const K7Col& d) {
        : (a & 1ull) == 0 ? 2 : 1;
 }
 
-// the tile's rows x units of one column, unit q to thread q % BLOCK: the
-// output tile is one contiguous run of units
-template <typename E>
-__device__ __forceinline__ void copy_units(const K7Col& d, const int* ix,
+// A thread takes ROW_BATCH rows at a time and loads them all before it
+// stores any, so that many independent (random) reads are in flight.
+constexpr int ROW_BATCH = 4;
+
+// Rows of one column, rows r + k * BLOCK (k < ROW_BATCH) to thread r: with
+// DATA their element (E: the row's one unit), their validity ANDed with
+// the row's ok flag and their length.  Gather: output row base + r read
+// from source row clamp(ix[r]).  Scatter: source row base + r written to
+// row ix[r].
+template <typename E, bool SCATTER, bool DATA>
+__device__ __forceinline__ void move_rows(const MoveCol& d, const int* ix,
+                                          const bool* ok, int rows,
+                                          long long base) {
+  const E* src = (const E*)d.src;
+  E* dst = (E*)d.dst;
+  for (int r0 = threadIdx.x; r0 < rows; r0 += ROW_BATCH * BLOCK) {
+    E v[ROW_BATCH];
+    bool val[ROW_BATCH];
+    int len[ROW_BATCH];
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k) {
+      const int r = r0 + k * BLOCK;
+      if (r >= rows) continue;
+      const long long from = SCATTER ? base + r : clamp_index(ix[r], d.n_src);
+      if (DATA) v[k] = src[from];
+      if (d.valid != nullptr) val[k] = d.valid[from];
+      if (d.lengths != nullptr) len[k] = d.lengths[from];
+    }
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k) {
+      const int r = r0 + k * BLOCK;
+      if (r >= rows) continue;
+      const long long to = SCATTER ? (long long)ix[r] : base + r;
+      if (DATA) dst[to] = v[k];
+      if (d.valid != nullptr) d.dst_valid[to] = val[k] && ok[r];
+      if (d.lengths != nullptr) d.dst_lengths[to] = len[k];
+    }
+  }
+}
+
+// rows of WARP_ROW_UNITS units or more go a warp a row
+constexpr int WARP_ROW_UNITS = 16;
+
+// The rows x units of a byte-matrix column (several units a row), so that
+// neighbouring threads read neighbouring units of a row and write
+// neighbouring units of the output.  Wide rows: a warp takes two rows at a
+// time, its lanes on the rows' units (no division).  Narrow rows: the
+// rows' units are one contiguous run, units q and q + BLOCK to thread q.
+template <typename E, bool SCATTER>
+__device__ __forceinline__ void move_units(const MoveCol& d, const int* ix,
                                            int rows, long long base) {
   const int u_row = d.row_bytes / (int)sizeof(E);
   const E* src = (const E*)d.src;
-  E* dst = (E*)d.dst + base * u_row;
-  const int units = rows * u_row;
-  if (u_row == 1) {
-    for (int q = threadIdx.x; q < units; q += blockDim.x)
-      dst[q] = src[clamp_index(ix[q], d.n_src)];
+  E* dst = (E*)d.dst;
+  if (u_row >= WARP_ROW_UNITS) {
+    const int lane = threadIdx.x & 31;
+    constexpr int WARPS = BLOCK / 32;
+    for (int r0 = threadIdx.x >> 5; r0 < rows; r0 += 2 * WARPS) {
+      const int r1 = r0 + WARPS < rows ? r0 + WARPS : r0;
+      const E* s0 =
+          src + (SCATTER ? base + r0 : clamp_index(ix[r0], d.n_src)) * u_row;
+      const E* s1 =
+          src + (SCATTER ? base + r1 : clamp_index(ix[r1], d.n_src)) * u_row;
+      E* o0 = dst + (SCATTER ? (long long)ix[r0] : base + r0) * u_row;
+      E* o1 = dst + (SCATTER ? (long long)ix[r1] : base + r1) * u_row;
+      for (int c = lane; c < u_row; c += 32) {
+        const E a = s0[c];
+        const E b = s1[c];
+        o0[c] = a;
+        o1[c] = b;
+      }
+    }
     return;
   }
-  for (int q = threadIdx.x; q < units; q += blockDim.x) {
-    const int r = q / u_row;
-    dst[q] = src[clamp_index(ix[r], d.n_src) * u_row + (q - r * u_row)];
+  const int units = rows * u_row;
+  for (int q0 = threadIdx.x; q0 < units; q0 += 2 * BLOCK) {
+    E v[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = q0 + k * BLOCK;
+      if (q >= units) continue;
+      const int r = q / u_row;
+      v[k] = src[(SCATTER ? base + r : clamp_index(ix[r], d.n_src)) * u_row +
+                 (q - r * u_row)];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int q = q0 + k * BLOCK;
+      if (q >= units) continue;
+      const int r = q / u_row;
+      dst[(SCATTER ? (long long)ix[r] : base + r) * u_row + (q - r * u_row)] =
+          v[k];
+    }
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
-    gather_pair(__grid_constant__ const K7Table t,
+template <typename E, bool SCATTER>
+__device__ __forceinline__ void move_by(const MoveCol& d, const int* ix,
+                                        const bool* ok, int rows,
+                                        long long base) {
+  if (d.row_bytes == (int)sizeof(E)) {
+    move_rows<E, SCATTER, true>(d, ix, ok, rows, base);
+    return;
+  }
+  move_units<E, SCATTER>(d, ix, rows, base);
+  if (d.valid != nullptr || d.lengths != nullptr)
+    move_rows<uint8_t, SCATTER, false>(d, ix, ok, rows, base);
+}
+
+// one column of the block's rows, in units of the widest size (16, 8, 4,
+// 2 or 1 bytes) that divides its row width and both base addresses
+template <bool SCATTER>
+__device__ __forceinline__ void move_column(const MoveCol& d, const int* ix,
+                                            const bool* ok, int rows,
+                                            long long base) {
+  switch (unit_bytes(d)) {
+    case 16: move_by<Bytes16, SCATTER>(d, ix, ok, rows, base); break;
+    case 8: move_by<unsigned long long, SCATTER>(d, ix, ok, rows, base); break;
+    case 4: move_by<uint32_t, SCATTER>(d, ix, ok, rows, base); break;
+    case 2: move_by<uint16_t, SCATTER>(d, ix, ok, rows, base); break;
+    default: move_by<uint8_t, SCATTER>(d, ix, ok, rows, base);
+  }
+}
+
+// K4 and K7's gather: block b moves output rows [base, base + MOVE_ROWS)
+// of column b / tiles, tile b % tiles, so the blocks that run together
+// read one column (random reads hit L2 where the column fits it) and a
+// block loads its rows' indices once.  A row's ok flag: the mask (NULL:
+// true), row < *count (count NULL: no bound), and with neg_null
+// idx >= 0 (K7's null rows).
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+    gather_cols(__grid_constant__ const MoveTable t,
                 const int* __restrict__ lidx, const int* __restrict__ ridx,
-                const bool* __restrict__ slot_valid, long long n_out) {
-  __shared__ int s_idx[2][K7_SLOTS];
-  __shared__ bool s_ok[2][K7_SLOTS];
-  const long long base = (long long)blockIdx.x * K7_SLOTS;
+                const bool* __restrict__ mask, const int* __restrict__ count,
+                int neg_null, long long n_out) {
+  __shared__ int s_idx[MOVE_ROWS];
+  __shared__ bool s_ok[MOVE_ROWS];
+  const long long tiles = (n_out + MOVE_ROWS - 1) / MOVE_ROWS;
+  const MoveCol& d = t.col[blockIdx.x / tiles];
+  const long long base = (long long)(blockIdx.x % tiles) * MOVE_ROWS;
   const long long left = n_out - base;
-  const int rows = left < K7_SLOTS ? (left > 0 ? (int)left : 0) : K7_SLOTS;
+  const int rows = left < MOVE_ROWS ? (int)left : MOVE_ROWS;
+  const long long bound = count == nullptr ? n_out : (long long)*count;
+  const int* idx = d.side == 0 ? lidx : ridx;
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const bool sv = slot_valid[base + r];
-    const int l = lidx[base + r];
-    s_idx[0][r] = l;
-    s_ok[0][r] = sv && l >= 0;
-    if (ridx != nullptr) {
-      const int x = ridx[base + r];
-      s_idx[1][r] = x;
-      s_ok[1][r] = sv && x >= 0;
-    }
+    const int x = idx[base + r];
+    s_idx[r] = x;
+    s_ok[r] = (mask == nullptr || mask[base + r]) && base + r < bound &&
+              (!neg_null || x >= 0);
   }
   __syncthreads();
-  for (int c = 0; c < t.n; ++c) {
-    const K7Col& d = t.col[c];
-    const int* ix = s_idx[d.side];
-    const bool* ok = s_ok[d.side];
-    switch (unit_bytes(d)) {
-      case 16: copy_units<Bytes16>(d, ix, rows, base); break;
-      case 8: copy_units<unsigned long long>(d, ix, rows, base); break;
-      case 4: copy_units<uint32_t>(d, ix, rows, base); break;
-      case 2: copy_units<uint16_t>(d, ix, rows, base); break;
-      default: copy_units<uint8_t>(d, ix, rows, base);
-    }
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const long long k = clamp_index(ix[r], d.n_src);
-      d.dst_valid[base + r] = d.valid[k] && ok[r];
-      if (d.dst_lengths != nullptr) d.dst_lengths[base + r] = d.lengths[k];
-    }
+  move_column<false>(d, s_idx, s_ok, rows, base);
+}
+
+// the tile's keep flags: keep[i] && i < num_rows
+__device__ __forceinline__ void load_flags(const bool* keep, int num_rows,
+                                           long long n, long long base,
+                                           int* f) {
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = base + j;
+    f[j] = (i < n && keep[i] && i < (long long)num_rows) ? 1 : 0;
   }
 }
 
-}  // namespace
-
-// flags: scratch uint8[n]; tile_sums: scratch int32[ceil(n / 2048)];
-// dest: int32[n]; count: int32 scalar (the new num_rows)
-SRT_API int k4_compact_plan(const void* keep, const void* num_rows,
-                            long long n, void* flags, void* tile_sums,
-                            void* dest, void* count, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int ntiles = srt::tiles_for(n);
-  keep_flags<<<srt::blocks_for(n, BLOCK), BLOCK, 0, st>>>(
-      (const bool*)keep, (const int*)num_rows, n, (uint8_t*)flags);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  srt::scan_tile_sums<<<ntiles, BLOCK, 0, st>>>((const uint8_t*)flags, n,
-                                                (int*)tile_sums);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  srt::scan_tile_offsets<<<1, srt::scan_threads(ntiles), 0, st>>>((int*)tile_sums, ntiles,
-                                             (int*)count);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  destinations<<<ntiles, BLOCK, 0, st>>>((const uint8_t*)flags, n,
-                                         (const int*)tile_sums,
-                                         (const int*)count, (int*)dest);
-  return (int)cudaGetLastError();
+__global__ void keep_tile_sums(const bool* __restrict__ keep,
+                               const int* __restrict__ num_rows, long long n,
+                               int* __restrict__ sums) {
+  int f[ITEMS];
+  load_flags(keep, *num_rows, n,
+             (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS,
+             f);
+  int total;
+  srt::thread_prefix(f, &total);
+  if (threadIdx.x == 0) sums[blockIdx.x] = total;
 }
 
-// rows of row_bytes bytes (1-D data: the element size; byte matrix: width)
-SRT_API int k4_scatter_rows(const void* src, const void* dest, long long n,
-                            int row_bytes, void* dst, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned g = srt::blocks_for(n, BLOCK);
-  const int* d = (const int*)dest;
-  switch (row_bytes) {
-    case 1:
-      scatter_elems<uint8_t><<<g, BLOCK, 0, st>>>((const uint8_t*)src, d, n,
-                                                  (uint8_t*)dst);
-      break;
-    case 2:
-      scatter_elems<uint16_t><<<g, BLOCK, 0, st>>>((const uint16_t*)src, d,
-                                                   n, (uint16_t*)dst);
-      break;
-    case 4:
-      scatter_elems<uint32_t><<<g, BLOCK, 0, st>>>((const uint32_t*)src, d,
-                                                   n, (uint32_t*)dst);
-      break;
-    case 8:
-      scatter_elems<unsigned long long><<<g, BLOCK, 0, st>>>(
-          (const unsigned long long*)src, d, n, (unsigned long long*)dst);
-      break;
-    default:
-      scatter_bytes<<<g, BLOCK, 0, st>>>((const uint8_t*)src, d, n,
-                                         row_bytes, (uint8_t*)dst);
+// each row's destination (kept rows to [0, count), dropped rows to
+// [count, n), both in order) into dest[tile row], and its flag into ok
+__device__ __forceinline__ void tile_destinations(
+    const bool* keep, const int* num_rows, long long n,
+    const int* tile_offsets, const int* count, int* dest, bool* ok) {
+  const long long tile = (long long)blockIdx.x * TILE;
+  const int r0 = threadIdx.x * ITEMS;
+  int f[ITEMS];
+  load_flags(keep, *num_rows, n, tile + r0, f);
+  int tile_total;
+  int kept_before = tile_offsets[blockIdx.x] + srt::thread_prefix(f, &tile_total);
+  const int total = *count;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = tile + r0 + j;
+    dest[r0 + j] = f[j] ? kept_before : total + (int)(i - kept_before);
+    ok[r0 + j] = f[j] != 0;
+    kept_before += f[j];
   }
-  return (int)cudaGetLastError();
 }
 
-SRT_API int k4_scatter_valid(const void* valid, const void* flags,
-                             const void* dest, long long n, void* dst,
-                             void* stream) {
-  scatter_valid<<<srt::blocks_for(n, BLOCK), BLOCK, 0,
-                  (cudaStream_t)stream>>>((const bool*)valid,
-                                          (const uint8_t*)flags,
-                                          (const int*)dest, n, (bool*)dst);
-  return (int)cudaGetLastError();
-}
-
-SRT_API int k4_gather_rows(const void* src, const void* idx, long long n_out,
-                           long long n_src, int row_bytes, void* dst,
-                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned g = srt::blocks_for(n_out, BLOCK);
-  const int* ix = (const int*)idx;
-  switch (row_bytes) {
-    case 1:
-      gather_elems<uint8_t><<<g, BLOCK, 0, st>>>((const uint8_t*)src, ix,
-                                                 n_out, n_src, (uint8_t*)dst);
-      break;
-    case 2:
-      gather_elems<uint16_t><<<g, BLOCK, 0, st>>>(
-          (const uint16_t*)src, ix, n_out, n_src, (uint16_t*)dst);
-      break;
-    case 4:
-      gather_elems<uint32_t><<<g, BLOCK, 0, st>>>(
-          (const uint32_t*)src, ix, n_out, n_src, (uint32_t*)dst);
-      break;
-    case 8:
-      gather_elems<unsigned long long><<<g, BLOCK, 0, st>>>(
-          (const unsigned long long*)src, ix, n_out, n_src,
-          (unsigned long long*)dst);
-      break;
-    default:
-      gather_bytes<<<g, BLOCK, 0, st>>>((const uint8_t*)src, ix, n_out,
-                                        n_src, row_bytes, (uint8_t*)dst);
+// order[dest[i]] = i: the stable argsort of ~keep as row indices
+__global__ void compact_order_rows(const bool* __restrict__ keep,
+                                   const int* __restrict__ num_rows,
+                                   long long n,
+                                   const int* __restrict__ tile_offsets,
+                                   const int* __restrict__ count,
+                                   int* __restrict__ order) {
+  __shared__ int s_dest[TILE];
+  __shared__ bool s_ok[TILE];
+  tile_destinations(keep, num_rows, n, tile_offsets, count, s_dest, s_ok);
+  const long long tile = (long long)blockIdx.x * TILE;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int r = threadIdx.x * ITEMS + j;
+    if (tile + r < n) order[s_dest[r]] = (int)(tile + r);
   }
-  return (int)cudaGetLastError();
 }
 
-// mask == NULL: no mask
-SRT_API int k4_gather_valid(const void* valid, const void* idx,
-                            const void* mask, long long n_out,
-                            long long n_src, void* dst, void* stream) {
-  gather_valid<<<srt::blocks_for(n_out, BLOCK), BLOCK, 0,
-                 (cudaStream_t)stream>>>((const bool*)valid, (const int*)idx,
-                                         (const bool*)mask, n_out, n_src,
-                                         (bool*)dst);
-  return (int)cudaGetLastError();
+// the compaction's move: one scan tile of source rows a block, every
+// column of the table scattered to its rows' destinations
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+    compact_cols(__grid_constant__ const MoveTable t,
+                 const bool* __restrict__ keep,
+                 const int* __restrict__ num_rows, long long n,
+                 const int* __restrict__ tile_offsets,
+                 const int* __restrict__ count) {
+  __shared__ int s_dest[TILE];
+  __shared__ bool s_ok[TILE];
+  tile_destinations(keep, num_rows, n, tile_offsets, count, s_dest, s_ok);
+  __syncthreads();
+  const long long base = (long long)blockIdx.x * TILE;
+  const long long left = n - base;
+  const int rows = left < TILE ? (int)left : TILE;
+  for (int c = 0; c < t.n; ++c)
+    move_column<true>(t.col[c], s_dest, s_ok, rows, base);
 }
 
-// k4_compact_plan, then order[dest[i]] = i: the stable argsort of ~keep
-// (kept rows first) as int32 row indices, and the kept count
-SRT_API int k4_compact_order(const void* keep, const void* num_rows,
-                             long long n, void* flags, void* tile_sums,
-                             void* dest, void* count, void* order,
-                             void* stream) {
-  int e = k4_compact_plan(keep, num_rows, n, flags, tile_sums, dest, count,
-                          stream);
-  if (e != 0) return e;
-  invert_dest<<<srt::blocks_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int*)dest, n, (int*)order);
-  return (int)cudaGetLastError();
+// rank[order[i]] = i: the inverse of a permutation
+__global__ void invert_rows(const int* __restrict__ order, long long n,
+                            int* __restrict__ rank) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  rank[order[i]] = (int)i;
 }
 
-// K7: n_cols columns of a join output gathered in one launch.  `words`
-// (host memory) holds 8 int64 words a column: source, validity, lengths
-// (0: 1-D data), output data, output validity, output lengths (0), the
-// source's rows, and row_bytes | side << 32 (side 0 reads lidx, 1 ridx;
-// ridx may be NULL when no column reads it).  -1 = a null row; slots
-// with slot_valid false are null.
-SRT_API int k7_gather(const long long* words, int n_cols, const void* lidx,
-                      const void* ridx, const void* slot_valid,
-                      long long n_out, void* stream) {
-  if (n_cols < 1 || n_cols > K7_COLS) return (int)cudaErrorInvalidValue;
-  K7Table t;
-  t.n = n_cols;
+// The table from `words` (host memory), 8 int64 words a column: data,
+// validity (0: none), lengths (0: 1-D data), output data, output validity,
+// output lengths, the source's rows, and row_bytes | side << 32.
+int load_table(const long long* words, int n_cols, int sides,
+               MoveTable* t) {
+  if (n_cols < 1 || n_cols > MOVE_COLS) return (int)cudaErrorInvalidValue;
+  t->n = n_cols;
   for (int c = 0; c < n_cols; ++c) {
     const long long* w = words + 8 * c;
-    K7Col& d = t.col[c];
+    MoveCol& d = t->col[c];
     d.src = (const uint8_t*)(uintptr_t)w[0];
     d.valid = (const bool*)(uintptr_t)w[1];
     d.lengths = (const int*)(uintptr_t)w[2];
@@ -396,13 +361,99 @@ SRT_API int k7_gather(const long long* words, int n_cols, const void* lidx,
     d.n_src = w[6];
     d.row_bytes = (int)(w[7] & 0xffffffffll);
     d.side = (int)(w[7] >> 32);
-    if (d.row_bytes < 1 || d.side < 0 || d.side > 1 ||
-        (d.side == 1 && ridx == nullptr))
+    if (d.row_bytes < 1 || d.side < 0 || d.side >= sides ||
+        (d.valid != nullptr) != (d.dst_valid != nullptr) ||
+        (d.lengths != nullptr) != (d.dst_lengths != nullptr))
       return (int)cudaErrorInvalidValue;
   }
-  gather_pair<<<srt::blocks_for(n_out, K7_SLOTS), BLOCK, 0,
-                (cudaStream_t)stream>>>(t, (const int*)lidx,
+  return 0;
+}
+
+}  // namespace
+
+// tile_sums: scratch int32[ceil(n / 2048)] (left holding each tile's
+// offset); count: int32 scalar (the new num_rows).  Two launches.
+SRT_API int k4_compact_plan(const void* keep, const void* num_rows,
+                            long long n, void* tile_sums, void* count,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ntiles = srt::tiles_for(n);
+  keep_tile_sums<<<ntiles, BLOCK, 0, st>>>((const bool*)keep,
+                                           (const int*)num_rows, n,
+                                           (int*)tile_sums);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  srt::scan_tile_offsets<<<1, srt::scan_threads(ntiles), 0, st>>>(
+      (int*)tile_sums, ntiles, (int*)count);
+  return (int)cudaGetLastError();
+}
+
+// after k4_compact_plan: every column of the table (8 words a column,
+// see load_table; side 0) moved to its compacted rows in one launch
+SRT_API int k4_compact_move(const long long* words, int n_cols,
+                            const void* keep, const void* num_rows,
+                            long long n, const void* tile_sums,
+                            const void* count, void* stream) {
+  MoveTable t;
+  int e = load_table(words, n_cols, 1, &t);
+  if (e != 0) return e;
+  compact_cols<<<srt::tiles_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+      t, (const bool*)keep, (const int*)num_rows, n,
+      (const int*)tile_sums, (const int*)count);
+  return (int)cudaGetLastError();
+}
+
+// k4_compact_plan, then order[dest[i]] = i: the stable argsort of ~keep
+// (kept rows first) as int32 row indices, and the kept count.  Three
+// launches.
+SRT_API int k4_compact_order(const void* keep, const void* num_rows,
+                             long long n, void* tile_sums, void* count,
+                             void* order, void* stream) {
+  int e = k4_compact_plan(keep, num_rows, n, tile_sums, count, stream);
+  if (e != 0) return e;
+  compact_order_rows<<<srt::tiles_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const bool*)keep, (const int*)num_rows, n, (const int*)tile_sums,
+      (const int*)count, (int*)order);
+  return (int)cudaGetLastError();
+}
+
+// K4: every column of the table (side 0) gathered by idx in one launch;
+// validity ANDed with mask (NULL: none) and cleared from row *count on
+// (count NULL: none)
+SRT_API int k4_gather(const long long* words, int n_cols, const void* idx,
+                      const void* mask, const void* count, long long n_out,
+                      void* stream) {
+  MoveTable t;
+  int e = load_table(words, n_cols, 1, &t);
+  if (e != 0) return e;
+  gather_cols<<<(unsigned)(n_cols * srt::blocks_for(n_out, MOVE_ROWS)),
+                BLOCK, 0, (cudaStream_t)stream>>>(t, (const int*)idx, nullptr,
+                                        (const bool*)mask,
+                                        (const int*)count, 0, n_out);
+  return (int)cudaGetLastError();
+}
+
+SRT_API int k4_invert(const void* order, long long n, void* rank,
+                      void* stream) {
+  invert_rows<<<srt::blocks_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int*)order, n, (int*)rank);
+  return (int)cudaGetLastError();
+}
+
+// K7: n_cols columns of a join output gathered in one launch (the table
+// as k4_gather's, side 0 reading lidx and 1 ridx; ridx may be NULL when
+// no column reads it).  -1 = a null row; slots with slot_valid false are
+// null.
+SRT_API int k7_gather(const long long* words, int n_cols, const void* lidx,
+                      const void* ridx, const void* slot_valid,
+                      long long n_out, void* stream) {
+  MoveTable t;
+  int e = load_table(words, n_cols, ridx == nullptr ? 1 : 2, &t);
+  if (e != 0) return e;
+  gather_cols<<<(unsigned)(n_cols * srt::blocks_for(n_out, MOVE_ROWS)),
+                BLOCK, 0, (cudaStream_t)stream>>>(t, (const int*)lidx,
                                         (const int*)ridx,
-                                        (const bool*)slot_valid, n_out);
+                                        (const bool*)slot_valid, nullptr, 1,
+                                        n_out);
   return (int)cudaGetLastError();
 }

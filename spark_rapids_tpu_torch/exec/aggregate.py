@@ -1,11 +1,12 @@
 """Device hash aggregate (sort-based).
 
 Counterpart of ``spark_rapids_tpu/exec/aggregate.py:134-307``: sort rows
-by key (K1), gather the keys (K4), derive segment ids (K2), take each
-segment's first row (K3 over the row index) and reduce every buffer per
-segment (K3) with a static segment count (the row bucket), then apply
-the finalize expressions.  Modes partial and final, as the planner
-emits them.
+by key (K1), gather the keys and every buffer's input in one launch
+(K4), derive segment ids (K2), reduce every numeric buffer per segment
+and take each segment's first row in one K3 call (two launches) with a
+static segment count (the row bucket), gather the output keys (K4),
+then apply the finalize expressions.  Modes partial and final, as the
+planner emits them.
 
 A partition that arrives as several batches is aggregated as the
 reference's ``_agg_chunked`` (``:322-381``) does: each batch in buffer
@@ -92,109 +93,116 @@ class TpuHashAggregateExec(TpuExec):
         key_cols = [DeviceColumn(c.dtype, c.data, c.validity & rm,
                                  c.lengths) for c in key_cols]
 
+        inputs, jobs = self._buffer_inputs(batch, phase, nkeys, padded, dev,
+                                           rm)
         lane = torch.arange(padded, dtype=torch.int32, device=dev)
         if nkeys:
             order = seg.lexsort_device(key_cols, pad_valid=rm)
-            sorted_keys = [G.gather_column(c, order) for c in key_cols]
-            pad_sorted = G.gather_array(rm, order)
-            seg_ids = seg.segment_ids_device(sorted_keys,
-                                             pad_valid=pad_sorted)
+            # one K4 launch: the keys and every buffer input in key order.
+            # The sort puts the padding rows last, so the sorted row mask
+            # is rm itself
+            moved = [k for k, c in enumerate(inputs) if c is not None]
+            gathered = G.gather_columns(
+                key_cols + [inputs[k] for k in moved], order)
+            sorted_keys = gathered[:nkeys]
+            for k, c in zip(moved, gathered[nkeys:]):
+                inputs[k] = c
+            seg_ids = seg.segment_ids_device(sorted_keys, pad_valid=rm)
             total = rm.sum().to(torch.int32)
             last = torch.clamp(total - 1, 0, padded - 1).to(torch.int64)
             n_real = torch.where(total > 0, seg_ids[last] + 1,
                                  torch.zeros_like(total)).to(torch.int32)
         else:
-            order = None  # identity: rows stay in place
-            pad_sorted = rm
-            seg_ids = torch.where(rm, torch.zeros_like(lane), lane + 1)
+            # rows stay in place: segment 0 the rows, 1 the padding (the
+            # reference gives each padding row its own segment; only
+            # segment 0 is an output row either way)
+            seg_ids = torch.where(rm, torch.zeros_like(lane),
+                                  torch.ones_like(lane))
             sorted_keys = []
             n_real = torch.ones((), dtype=torch.int32, device=dev)
 
         out_valid_seg = lane < n_real
-        # output key columns = first row of each segment
-        seg_starts = seg.segment_min_index(seg_ids, padded)
-        safe_starts = torch.clamp(seg_starts, 0, padded - 1
-                                  ).to(torch.int32)
-        out_keys = [G.gather_column(c, safe_starts, out_valid_seg)
-                    for c in sorted_keys]
-
-        if phase == "update":
-            buffers = self._update_buffers(batch, rm, order, pad_sorted,
-                                           seg_ids, padded, out_valid_seg)
-        else:
-            buffers = self._merge_buffers(batch, rm, order, pad_sorted,
-                                          seg_ids, padded, out_valid_seg,
-                                          nkeys)
+        buffers, seg_starts = self._reduce_buffers(
+            inputs, jobs, seg_ids, padded, out_valid_seg, rm, bool(nkeys))
+        out_keys = []
+        if nkeys:
+            # output key columns = first row of each segment
+            safe_starts = torch.clamp(seg_starts, 0, padded - 1
+                                      ).to(torch.int32)
+            out_keys = G.gather_columns(sorted_keys, safe_starts,
+                                        out_valid_seg)
         if emit == "buffers":
             return DeviceBatch(self.buffer_schema, out_keys + buffers,
                                n_real)
         return self._finalize(out_keys, buffers, n_real, padded,
                               out_valid_seg)
 
-    @staticmethod
-    def _sorted(x, order):
-        return x if order is None else G.gather_array(x, order)
+    def _buffer_inputs(self, batch, phase, nkeys, padded, dev, rm):
+        """The buffers' input columns, unsorted, validity ANDed with the
+        row mask and lengths int32 (None: count(*), whose count reads the
+        row mask alone), and the jobs: (input index, op, buffer dtype) a
+        buffer, in the node's order.  An update's functions read their
+        child once however many buffers they fill."""
+        def masked(c):
+            return DeviceColumn(
+                c.dtype, c.data, c.validity & rm,
+                None if c.lengths is None else c.lengths.to(torch.int32))
 
-    @classmethod
-    def _sorted_lengths(cls, c: DeviceColumn, order):
-        if c.lengths is None:
-            return None
-        return cls._sorted(c.lengths.to(torch.int32), order)
+        inputs, jobs = [], []
+        if phase == "update":
+            for sp in self.specs:
+                func = sp.func
+                if func.child is None:
+                    inputs.append(None)
+                else:
+                    inputs.append(masked(as_device_column(
+                        func.child.eval_tpu(batch), padded, dev)))
+                base = len(inputs) - 1
+                for (op, which), bt in zip(func.updates,
+                                           func.buffer_dtypes()):
+                    jobs.append((base + which, op, bt))
+        else:
+            col_idx = nkeys
+            for sp in self.specs:
+                for op, bt in zip(sp.func.merges, sp.func.buffer_dtypes()):
+                    inputs.append(masked(batch.columns[col_idx]))
+                    jobs.append((len(inputs) - 1, op, bt))
+                    col_idx += 1
+        return inputs, jobs
 
-    def _update_buffers(self, batch, rm, order, pad_sorted, seg_ids,
-                        padded, out_valid_seg) -> List[DeviceColumn]:
-        buffers = []
-        dev = batch.device
-        for sp in self.specs:
-            func = sp.func
-            if func.child is None:  # count(*)
-                inputs = [(torch.ones(padded, dtype=torch.int64, device=dev),
-                           pad_sorted, None)]
-            else:
-                c = as_device_column(func.child.eval_tpu(batch), padded,
-                                     dev)
-                inputs = [(self._sorted(c.data, order),
-                           self._sorted(c.validity & rm, order),
-                           self._sorted_lengths(c, order))]
-            for (op, which), bt in zip(func.updates, func.buffer_dtypes()):
-                vals, valid, lens = inputs[which]
-                buffers.append(self._reduce_one(
-                    vals, valid, seg_ids, padded, op, bt, out_valid_seg,
-                    pad_sorted, lens))
-        return buffers
-
-    def _merge_buffers(self, batch, rm, order, pad_sorted, seg_ids, padded,
-                       out_valid_seg, nkeys) -> List[DeviceColumn]:
-        buffers = []
-        col_idx = nkeys
-        for sp in self.specs:
-            for op, bt in zip(sp.func.merges, sp.func.buffer_dtypes()):
-                c = batch.columns[col_idx]
-                buffers.append(self._reduce_one(
-                    self._sorted(c.data, order),
-                    self._sorted(c.validity & rm, order), seg_ids, padded,
-                    op, bt, out_valid_seg, pad_sorted,
-                    self._sorted_lengths(c, order)))
-                col_idx += 1
-        return buffers
-
-    def _reduce_one(self, vals, valid, seg_ids, padded, op,
-                    buf_dtype: T.DType, out_valid_seg,
-                    present, lengths=None) -> DeviceColumn:
-        if buf_dtype.is_string:
+    def _reduce_buffers(self, inputs, jobs, seg_ids, padded, out_valid_seg,
+                        present, starts: bool):
+        """Every buffer of the node from its sorted input: the numeric
+        ones (and, with ``starts``, the segment starts) in one K3 call
+        (``segment.segment_reduce_many``), string min/max through
+        ``segment.string_minmax``.  Returns (buffers, starts or None)."""
+        buffers = [None] * len(jobs)
+        numeric = []
+        for k, (i, op, bt) in enumerate(jobs):
+            c = inputs[i]
+            if not bt.is_string:
+                # count(*) counts the rows: its validity is the row mask
+                numeric.append((k, (None, present, op) if c is None
+                                else (c.data, c.validity, op)))
+                continue
             if op not in ("min", "max"):
                 raise NotImplementedError(
                     f"{op} over a string column on the device")
-            data, lens, counts = seg.string_minmax(vals, lengths, valid,
-                                                   seg_ids, padded, op)
-            return DeviceColumn(buf_dtype, data,
-                                (counts > 0) & out_valid_seg, lens)
-        data, ok = seg.segment_reduce_device(vals, valid, seg_ids, padded,
-                                             op, present=present)
-        ok = out_valid_seg if op == "count" else ok & out_valid_seg
-        if data.dtype != buf_dtype.torch_dtype:
-            data = data.to(buf_dtype.torch_dtype)
-        return DeviceColumn(buf_dtype, data, ok)
+            data, lens, counts = seg.string_minmax(c.data, c.lengths,
+                                                   c.validity, seg_ids,
+                                                   padded, op)
+            buffers[k] = DeviceColumn(bt, data, (counts > 0) & out_valid_seg,
+                                      lens)
+        results, seg_starts = seg.segment_reduce_many(
+            [sp for _k, sp in numeric], seg_ids, padded, present=present,
+            starts=starts)
+        for (k, (_v, _ok, op)), (data, ok) in zip(numeric, results):
+            bt = jobs[k][2]
+            ok = out_valid_seg if op == "count" else ok & out_valid_seg
+            if data.dtype != bt.torch_dtype:
+                data = data.to(bt.torch_dtype)
+            buffers[k] = DeviceColumn(bt, data, ok)
+        return buffers, seg_starts
 
     def _finalize(self, out_keys, buffers, n_real, padded,
                   out_valid_seg) -> DeviceBatch:

@@ -105,24 +105,27 @@ class TpuWindowExec(TpuExec):
             order = seg.lexsort_device(all_cols, desc, nf, pad_valid=rm)
         else:
             order = lane
-        rm_s = G.gather_array(rm, order)
+        # the sort puts the padding rows last, so rm is also the sorted
+        # row mask
+        func = wx.func
+        ranked = isinstance(func, (Rank, DenseRank)) and bool(order_cols)
+        # one K4 launch: the partition keys (and a rank's order keys)
+        sorted_all = G.gather_columns(all_cols if ranked else part_cols,
+                                      order)
         if part_cols:
-            sorted_parts = [G.gather_column(c, order) for c in part_cols]
-            seg_ids = seg.segment_ids_device(sorted_parts, pad_valid=rm_s)
+            seg_ids = seg.segment_ids_device(sorted_all[:len(part_cols)],
+                                             pad_valid=rm)
         else:
             # padding rows still need their own segments
-            seg_ids = torch.where(rm_s, torch.zeros_like(lane), lane + 1)
+            seg_ids = torch.where(rm, torch.zeros_like(lane), lane + 1)
         start, end = W.segment_bounds(seg_ids)
 
-        func = wx.func
         if isinstance(func, (RowNumber, Rank, DenseRank)):
             ok_ids = ok_start = None
             if not isinstance(func, RowNumber):
                 if order_cols:
-                    sorted_all = [G.gather_column(c, order)
-                                  for c in all_cols]
                     ok_ids = seg.segment_ids_device(sorted_all,
-                                                    pad_valid=rm_s)
+                                                    pad_valid=rm)
                     if isinstance(func, Rank):
                         ok_start = W.segment_bounds(ok_ids)[0]
                 else:  # no ordering: every row is its own tie group

@@ -61,16 +61,15 @@ KERNELS: Dict[str, tuple] = {
         "k2_scan_ids": ([P, Q, P, P, P], 3),
     }),
     "segment_reduce": ("segment_reduce.cu", {
-        # 1 launch (the fill) when there are no rows
-        "k3_segment_reduce": ([P, I, P, P, Q, Q, I, P, P, P, P, P, P], 4),
+        # 1 launch (the slots past the last id) when there are no rows
+        "k3_segment_reduce_many": ([P, I, P, Q, Q, P, P], 2),
     }),
     "gather": ("gather.cu", {
-        "k4_compact_plan": ([P, P, Q, P, P, P, P, P], 4),
-        "k4_scatter_rows": ([P, P, Q, I, P, P], 1),
-        "k4_scatter_valid": ([P, P, P, Q, P, P], 1),
-        "k4_gather_rows": ([P, P, Q, Q, I, P, P], 1),
-        "k4_gather_valid": ([P, P, P, Q, Q, P, P], 1),
-        "k4_compact_order": ([P, P, Q, P, P, P, P, P, P], 5),
+        "k4_compact_plan": ([P, P, Q, P, P, P], 2),
+        "k4_compact_move": ([P, I, P, P, Q, P, P, P], 1),
+        "k4_compact_order": ([P, P, Q, P, P, P, P], 3),
+        "k4_gather": ([P, I, P, P, P, Q, P], 1),
+        "k4_invert": ([P, Q, P, P], 1),
         "k7_gather": ([P, I, P, P, P, Q, P], 1),
     }),
     "join_probe": ("join_probe.cu", {

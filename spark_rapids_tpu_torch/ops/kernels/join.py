@@ -29,7 +29,6 @@ versions.  Nothing is left out of the reference module.
 """
 from __future__ import annotations
 
-import array
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -43,9 +42,9 @@ from . import segment as seg
 JOIN_PROBE_LAUNCHES = B.LaunchCounter("join_probe")
 JOIN_EXPAND_LAUNCHES = B.LaunchCounter("join_expand")
 GATHER_SIDE_LAUNCHES = B.LaunchCounter("gather_side")
-#: columns one K7 launch takes (``K7_COLS`` of csrc/gather.cu); a wider
+#: columns one K7 launch takes (K4's table, csrc/gather.cu); a wider
 #: join output is split into as few launches as it needs
-GATHER_TABLE_COLUMNS = 32
+GATHER_TABLE_COLUMNS = G.TABLE_COLUMNS
 
 JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
 
@@ -389,80 +388,20 @@ def expand_pairs(p: Probe, e: Emit, c_out: int,
     return lidx, ridx, slot_valid
 
 
-def _outputs(columns: Sequence[DeviceColumn], n_out: int, dev):
-    """The output arrays of ``columns`` gathered to ``n_out`` rows: one
-    block a (dtype, row shape) for the data, one for every validity and
-    one for every lengths array, each cut into its columns' rows by one
-    ``unbind`` (a ``torch.empty`` an array costs more host time than the
-    launch).  A block stays allocated while any of its columns lives."""
-    groups = {}
-    for k, c in enumerate(columns):
-        groups.setdefault((c.data.dtype, c.data.shape[1:]), []).append(k)
-    data = [None] * len(columns)
-    for (dtype, row), ks in groups.items():
-        for k, t in zip(ks, torch.empty((len(ks), n_out) + tuple(row),
-                                        dtype=dtype, device=dev).unbind(0)):
-            data[k] = t
-    validity = torch.empty((len(columns), n_out), dtype=torch.bool,
-                           device=dev).unbind(0)
-    strings = [k for k, c in enumerate(columns) if c.lengths is not None]
-    lengths = [None] * len(columns)
-    if strings:
-        for k, t in zip(strings, torch.empty((len(strings), n_out),
-                                             dtype=torch.int32,
-                                             device=dev).unbind(0)):
-            lengths[k] = t
-    return data, validity, lengths
-
-
 def _gather_cuda(sides, slot_valid, kernels: B.Kernels
                  ) -> List[DeviceColumn]:
     """K7 over ``sides`` = [(columns, idx)] (side 0 the left indices, 1
-    the right ones): one launch a ``GATHER_TABLE_COLUMNS`` columns, each
-    column a row of 8 words in a host table the C function copies into
-    the kernel's parameters.  The host work is most of a call's time, so
-    the loop below stays lean: every tensor it takes an address of is
-    contiguous by construction."""
-    lib = kernels.library("gather")
-    st = kernels.stream(slot_valid)
-    n_out = slot_valid.shape[0]
+    the right ones): K4's table of columns (``gather.move``), one launch a
+    ``GATHER_TABLE_COLUMNS`` columns."""
     idx = [i.to(torch.int32).contiguous() for _c, i in sides]
     slot_valid = slot_valid.contiguous()
-    columns = [c for cols, _i in sides for c in cols]
-    data, validity, lengths = _outputs(columns, n_out, slot_valid.device)
-    out, words = [], []
-    # the inputs as the kernel reads them, alive until it is enqueued (a
-    # converted copy freed earlier could be reused by the next one)
-    inputs = []
-    k = 0
-    for side, (cols, _i) in enumerate(sides):
-        for c in cols:
-            src, valid = c.data.contiguous(), c.validity.contiguous()
-            row_bytes = src.element_size()
-            if src.dim() == 2:
-                row_bytes *= src.shape[1]
-            d, v, ln = data[k], validity[k], lengths[k]
-            if ln is None:
-                lens_p = ln_p = 0
-            else:
-                lens = c.lengths.to(torch.int32).contiguous()
-                inputs.append(lens)
-                lens_p, ln_p = lens.data_ptr(), ln.data_ptr()
-            inputs.append((src, valid))
-            words += [src.data_ptr(), valid.data_ptr(), lens_p,
-                      d.data_ptr(), v.data_ptr(), ln_p, src.shape[0],
-                      row_bytes | side << 32]
-            out.append(DeviceColumn(c.dtype, d, v, ln))
-            k += 1
+    n_out = slot_valid.shape[0]
     ridx = idx[1].data_ptr() if len(idx) > 1 else None
-    per = 8 * GATHER_TABLE_COLUMNS
-    for w in range(0, len(words), per):
-        table = words[w:w + per]
-        table = array.array("q", table)
-        B.launch(GATHER_SIDE_LAUNCHES, lib, "k7_gather",
-                 table.buffer_info()[0], len(table) // 8,
-                 idx[0].data_ptr(), ridx, slot_valid.data_ptr(), n_out, st)
-    return out
+    return G.move(GATHER_SIDE_LAUNCHES, kernels.library("gather"),
+                  "k7_gather", [cols for cols, _i in sides], n_out,
+                  slot_valid.device,
+                  (idx[0].data_ptr(), ridx, slot_valid.data_ptr(), n_out,
+                   kernels.stream(slot_valid)))
 
 
 def gather_side(columns: Sequence[DeviceColumn], idx, slot_valid,

@@ -23,6 +23,7 @@ input order, which splits groups and misses join matches (ROADMAP C.6).
 """
 from __future__ import annotations
 
+import array
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -437,7 +438,10 @@ def segment_ids_device(sorted_keys: Sequence[DeviceColumn],
 # ===========================================================================
 # K3 — segmented reduction
 # ===========================================================================
-_OPS = {"sum": 0, "min": 1, "max": 2}
+_OPS = {"sum": 0, "min": 1, "max": 2, "count": 3}
+#: buffers one K3 launch takes (``K3_BUFS`` of csrc/segment_reduce.cu); a
+#: wider call is split into as few calls as it needs
+REDUCE_TABLE_BUFFERS = 32
 
 
 def _acc_dtype(values: Optional[torch.Tensor], op: str) -> torch.dtype:
@@ -490,48 +494,118 @@ def segment_aggregate_plain(values, valid, seg_ids, n_segments: int,
     return acc, counts
 
 
+def _spec(sp):
+    """(values, valid, op, counts wanted) of a ``segment_aggregate_many``
+    spec."""
+    return (tuple(sp) + (True,))[:4]
+
+
+def segment_aggregate_many_plain(specs, seg_ids, n_segments: int):
+    out = []
+    for sp in specs:
+        values, valid, op, want = _spec(sp)
+        acc, counts = segment_aggregate_plain(
+            None if op == "count" else values, valid, seg_ids, n_segments,
+            "sum" if op == "count" else op)
+        if want == "has":
+            counts = counts > 0
+        out.append((None if op == "count" else acc,
+                    counts if want else None))
+    return out
+
+
+def segment_aggregate_many(specs, seg_ids: torch.Tensor, n_segments: int,
+                           kernels: Optional[B.Kernels] = None
+                           ) -> List[Tuple[Optional[torch.Tensor],
+                                           Optional[torch.Tensor]]]:
+    """K3: for every spec ``(values, valid, op[, counts])``, per segment
+    the ``op`` (sum/min/max) of the valid rows' values (identity where
+    none) and the count of valid rows, as ``(result, counts)``.
+    ``values=None`` reduces the row index; ``valid=None`` takes every
+    row; op ``"count"`` gives the counts alone (result None); ``counts``
+    False leaves them out (None), ``"has"`` gives ``counts > 0`` (bool).  Sums accumulate in float64 for floats,
+    int64 otherwise.  Every buffer reduces in one data pass over the ids
+    (two launches a ``REDUCE_TABLE_BUFFERS`` buffers).  The kernel needs
+    nondecreasing ``seg_ids`` (contiguous segments)."""
+    kernels = B.kernels_for(seg_ids, kernels)
+    if kernels is None:
+        return segment_aggregate_many_plain(specs, seg_ids, n_segments)
+    if not specs:
+        return []
+    specs = [_spec(sp) for sp in specs]
+    dev = seg_ids.device
+    n = seg_ids.shape[0]
+    # results: one block a dtype, the counts one block, cut into views
+    acc_ts = [None if op == "count" else _acc_dtype(v, op)
+              for v, _ok, op, _w in specs]
+    results = [None] * len(specs)
+    groups = {}
+    for k, t in enumerate(acc_ts):
+        if t is not None:
+            groups.setdefault(t, []).append(k)
+    for t, ks in groups.items():
+        for k, x in zip(ks, torch.empty((len(ks), n_segments), dtype=t,
+                                        device=dev).unbind(0)):
+            results[k] = x
+    counts = [None] * len(specs)
+    for want, dtype in ((True, torch.int64), ("has", torch.bool)):
+        ks = [k for k, sp in enumerate(specs) if sp[3] == want]
+        if ks:
+            for k, x in zip(ks, torch.empty((len(ks), n_segments),
+                                            dtype=dtype,
+                                            device=dev).unbind(0)):
+                counts[k] = x
+    lib = kernels.library("segment_reduce")
+    st = kernels.stream(seg_ids)
+    ids = seg_ids.to(torch.int32).contiguous()
+    words, keep = [], [ids]
+    for (values, valid, op, want), res, cnt in zip(specs, results,
+                                                    counts):
+        if op == "count":
+            values = None  # a count reads the validity alone
+        if values is not None:
+            values = values.contiguous()
+            keep.append(values)
+        if valid is not None:
+            valid = valid.contiguous()
+            keep.append(valid)
+        words += [B.ptr(values) or 0, B.ptr(valid) or 0, B.ptr(res) or 0,
+                  B.ptr(cnt) or 0,
+                  B.DTYPE_CODES[(values if values is not None
+                                 else ids).dtype],
+                  _OPS[op] | (256 if want == "has" else 0)
+                  | (512 if values is None else 0)]
+    per = 6 * REDUCE_TABLE_BUFFERS
+    nt = B.tiles(n)
+    for w in range(0, len(words), per):
+        table = array.array("q", words[w:w + per])
+        nb = len(table) // 6
+        scratch = torch.empty(nt * (5 * nb + 1), dtype=torch.int64,
+                              device=dev)
+        B.launch(SEGMENT_REDUCE_LAUNCHES, lib, "k3_segment_reduce_many",
+                 table.buffer_info()[0], nb, ids.data_ptr(), n, n_segments,
+                 scratch.data_ptr(), st, launched=None if n else 1)
+    return list(zip(results, counts))
+
+
 def segment_aggregate(values: Optional[torch.Tensor],
                       valid: Optional[torch.Tensor], seg_ids: torch.Tensor,
                       n_segments: int, op: str,
                       kernels: Optional[B.Kernels] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: per segment, the ``op`` (sum/min/max) of the valid rows'
-    values (identity where none) and the count of valid rows.
-    ``values=None`` reduces the row index; ``valid=None`` takes every
-    row.  Sums accumulate in float64 for floats, int64 otherwise.  The
-    kernel needs nondecreasing ``seg_ids`` (contiguous segments)."""
-    kernels = B.kernels_for(seg_ids, kernels)
-    if kernels is None:
-        return segment_aggregate_plain(values, valid, seg_ids, n_segments,
-                                       op)
-    lib = kernels.library("segment_reduce")
-    n = seg_ids.shape[0]
-    dev = seg_ids.device
-    st = kernels.stream(seg_ids)
-    acc_t = _acc_dtype(values, op)
-    out = torch.empty(n_segments, dtype=acc_t, device=dev)
-    out_cnt = torch.empty(n_segments, dtype=torch.int64, device=dev)
-    nt = B.tiles(n)
-    tile_f = torch.empty(nt, dtype=torch.int32, device=dev)
-    tile_acc = torch.empty(nt, dtype=acc_t, device=dev)
-    tile_cnt = torch.empty(nt, dtype=torch.int64, device=dev)
-    vals = None if values is None else values.contiguous()
-    code = 4 if vals is None else B.DTYPE_CODES[vals.dtype]
-    B.launch(SEGMENT_REDUCE_LAUNCHES, lib, "k3_segment_reduce",
-             B.ptr(vals), code,
-             B.ptr(None if valid is None else valid.contiguous()),
-             B.ptr(seg_ids.contiguous()), n, n_segments, _OPS[op],
-             B.ptr(out), B.ptr(out_cnt), B.ptr(tile_f), B.ptr(tile_acc),
-             B.ptr(tile_cnt), st, launched=None if n else 1)
-    return out, out_cnt
+    values (identity where none) and the count of valid rows: the
+    one-buffer case of ``segment_aggregate_many``."""
+    return segment_aggregate_many([(values, valid, op)], seg_ids,
+                                  n_segments, kernels)[0]
 
 
 def segment_min_index(seg_ids: torch.Tensor, n_segments: int,
                       kernels: Optional[B.Kernels] = None) -> torch.Tensor:
     """First row index of each segment (int64 max where empty): the
     reference aggregate's ``segment_min`` of the row index."""
-    return segment_aggregate(None, None, seg_ids, n_segments, "min",
-                             kernels)[0]
+    return segment_aggregate_many([(None, None, "min", False)], seg_ids,
+                                  n_segments, kernels)[0][0]
 
 
 def segment_pick_device(eligible, seg_ids, n_segments: int, op: str,
@@ -546,32 +620,60 @@ def segment_pick_device(eligible, seg_ids, n_segments: int, op: str,
     return safe, counts > 0
 
 
+_PICKS = ("first", "last", "first_any", "last_any")
+
+
+def segment_reduce_many(specs, seg_ids, n_segments: int, present=None,
+                        starts: bool = False,
+                        kernels: Optional[B.Kernels] = None):
+    """``segment_reduce_device`` over every ``(values, valid, op)`` of
+    ``specs`` against one ``seg_ids``: one K3 call for all of them (and,
+    with ``starts``, each segment's first row index, the aggregate's
+    segment starts), then one K4 gather a first/last pick.  Returns
+    ([(values, validity)], starts or None)."""
+    k3 = []
+    for values, valid, op in specs:
+        if op == "count":
+            k3.append((None, valid, "count"))
+        elif op in ("sum", "min", "max"):
+            k3.append((values, valid, op, "has"))
+        elif op in _PICKS:
+            eligible = valid if op in ("first", "last") else (
+                present if present is not None else torch.ones_like(valid))
+            k3.append((None, eligible,
+                       "min" if op.startswith("first") else "max", "has"))
+        else:
+            raise ValueError(op)
+    if starts:
+        k3.append((None, None, "min", False))
+    res = segment_aggregate_many(k3, seg_ids, n_segments, kernels)
+    n = seg_ids.shape[0]
+    out = []
+    for (values, valid, op), (acc, counts) in zip(specs, res):
+        if op == "count":
+            out.append((counts, torch.ones(n_segments, dtype=torch.bool,
+                                           device=seg_ids.device)))
+        elif op in ("sum", "min", "max"):
+            out.append((acc, counts))
+        else:
+            safe = torch.clamp(acc, 0, max(n - 1, 0)).to(torch.int32)
+            has = counts
+            if op in ("first", "last"):
+                out.append((G.gather_array(values, safe, kernels), has))
+            else:  # the value and its validity, ANDed with has
+                c = G.gather_columns([DeviceColumn(None, values, valid)],
+                                     safe, has, kernels)[0]
+                out.append((c.data, c.validity))
+    return out, (res[-1][0] if starts else None)
+
+
 def segment_reduce_device(values, valid, seg_ids, n_segments: int, op: str,
                           present=None, kernels: Optional[B.Kernels] = None):
     """Per-segment reduction with the reference's semantics
     (``segment_reduce_device``): returns (values, validity) with
     ``n_segments`` rows."""
-    if op == "count":
-        _acc, counts = segment_aggregate(None, valid, seg_ids, n_segments,
-                                         "sum", kernels)
-        return counts, torch.ones(n_segments, dtype=torch.bool,
-                                  device=seg_ids.device)
-    if op in ("sum", "min", "max"):
-        acc, counts = segment_aggregate(values, valid, seg_ids, n_segments,
-                                        op, kernels)
-        return acc, counts > 0
-    if op in ("first", "last"):
-        safe, has = segment_pick_device(valid, seg_ids, n_segments, op,
-                                        kernels)
-        return G.gather_array(values, safe, kernels), has
-    if op in ("first_any", "last_any"):
-        eligible = present if present is not None \
-            else torch.ones_like(valid)
-        safe, has = segment_pick_device(eligible, seg_ids, n_segments, op,
-                                        kernels)
-        return G.gather_array(values, safe, kernels), \
-            has & G.gather_array(valid, safe, kernels)
-    raise ValueError(op)
+    return segment_reduce_many([(values, valid, op)], seg_ids, n_segments,
+                               present, kernels=kernels)[0][0]
 
 
 # ===========================================================================
