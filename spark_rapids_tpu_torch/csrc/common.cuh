@@ -162,42 +162,7 @@ __device__ __forceinline__ long long block_excl_scan64(long long v,
   return r;
 }
 
-// ---------------------------------------------------------------------
-// Stable ranked placement of one round of BLOCK rows by a digit in
-// [0, 256) (256 marks a lane without a row), for a block of BLOCK threads
-// where thread t owns digit t.  s_base[d] holds the next free position of
-// digit d for this block and is advanced past the round's rows.  Stability
-// comes from ranks, never from atomics: a row's rank inside its warp is
-// the number of lower lanes with its digit (__match_any_sync), and the
-// warps of the round are ordered by a prefix over their per-warp digit
-// counts.  s_cnt must be zero on entry and is left zero.  Returns the
-// row's position (0 for a lane without a row).  Used by K10's partition
-// scatter.
-// ---------------------------------------------------------------------
 constexpr int WARPS = BLOCK / 32;
-
-__device__ __forceinline__ unsigned ranked_position(
-    int dig, bool in, unsigned* s_base, unsigned (*s_cnt)[256],
-    unsigned (*s_off)[256]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
-  const unsigned peers = __match_any_sync(FULL_MASK, dig);
-  const unsigned rank = (unsigned)__popc(peers & ((1u << lane) - 1u));
-  if (in && rank == 0u) s_cnt[w][dig] = (unsigned)__popc(peers);
-  __syncthreads();
-  unsigned run = s_base[tid];
-#pragma unroll
-  for (int ww = 0; ww < WARPS; ++ww) {
-    const unsigned c = s_cnt[ww][tid];
-    s_off[ww][tid] = run;
-    run += c;
-    s_cnt[ww][tid] = 0u;
-  }
-  s_base[tid] = run;
-  __syncthreads();
-  return in ? s_off[w][dig] + rank : 0u;
-}
 
 // ---------------------------------------------------------------------
 // Decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
@@ -285,6 +250,88 @@ __device__ __forceinline__ unsigned long long lookback_prefix(
   if (tile > 0)
     lb_store(words + (long long)tile * stride, epoch, LB_PREFIX,
              excl + count);
+  return excl;
+}
+
+// The sum of the counts of tiles [0, tile) for one warp, where every
+// tile below has published at least its own count (a word of another
+// epoch is waited on): lane l reads the word of tile j - l, 32
+// predecessors a round trip, and the walk ends at the nearest word that
+// holds its inclusive prefix (there is always tile 0's).  Every lane
+// returns the sum; the caller publishes the tile's prefix.
+__device__ __forceinline__ unsigned long long lookback_warp(
+    const unsigned long long* words, long long stride, int tile,
+    unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long excl = 0ull;
+  for (int j = tile - 1; j >= 0; j -= 32) {
+    const int k = j - lane;
+    unsigned long long w = 0ull;
+    bool prefix = k < 0;
+    if (k >= 0) {
+      w = *(const volatile unsigned long long*)(words + (long long)k * stride);
+      if ((unsigned)(w >> 48) != epoch || ((w >> 40) & 3ull) == 0ull)
+        w = lb_wait(words + (long long)k * stride, epoch);
+      prefix = ((w >> 40) & 3ull) == LB_PREFIX;
+    }
+    const unsigned m = __ballot_sync(FULL_MASK, prefix);
+    const int first = m ? __ffs(m) - 1 : 32;
+    unsigned long long v = k >= 0 && lane <= first ? (w & LB_VALUE) : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+    excl += v;
+    if (m) break;
+  }
+  return excl;
+}
+
+// lookback_warp for a whole block (every thread calls it, blockDim.x a
+// multiple of 32): thread i reads the word of tile j - i, blockDim.x
+// predecessors a round trip, so a wave of blocks that look back together
+// resolves blockDim.x tiles a round trip instead of 32.  Every thread
+// returns the sum.
+__device__ __forceinline__ unsigned long long lookback_block(
+    const unsigned long long* words, long long stride, int tile,
+    unsigned epoch) {
+  __shared__ unsigned s_mask[32];
+  __shared__ unsigned long long s_sum[32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  unsigned long long excl = 0ull;
+  for (int j = tile - 1; j >= 0; j -= (int)blockDim.x) {
+    const int k = j - (int)threadIdx.x;
+    unsigned long long wd = 0ull;
+    bool prefix = k < 0;
+    if (k >= 0) {
+      wd = *(const volatile unsigned long long*)(words + (long long)k * stride);
+      if ((unsigned)(wd >> 48) != epoch || ((wd >> 40) & 3ull) == 0ull)
+        wd = lb_wait(words + (long long)k * stride, epoch);
+      prefix = ((wd >> 40) & 3ull) == LB_PREFIX;
+    }
+    const unsigned m = __ballot_sync(FULL_MASK, prefix);
+    if (lane == 0) s_mask[w] = m;
+    __syncthreads();
+    // the nearest word holding its prefix: the lowest warp with one, its
+    // lowest lane; it and every word nearer count
+    int fw = nw, fl = 32;
+    for (int q = 0; q < nw; ++q)
+      if (s_mask[q] != 0u) {
+        fw = q;
+        fl = __ffs(s_mask[q]) - 1;
+        break;
+      }
+    unsigned long long v =
+        k >= 0 && (w < fw || (w == fw && lane <= fl)) ? (wd & LB_VALUE)
+                                                      : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+    if (lane == 0) s_sum[w] = v;
+    __syncthreads();
+    for (int q = 0; q < nw; ++q) excl += s_sum[q];
+    __syncthreads();
+    if (fw < nw) break;
+  }
   return excl;
 }
 

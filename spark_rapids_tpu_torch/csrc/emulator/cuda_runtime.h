@@ -40,6 +40,12 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
+// the vector types a kernel loads and stores as one access
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
@@ -183,6 +189,18 @@ inline unsigned __match_any_sync(unsigned, int v) {
   unsigned m = 0;
   for (int j = 0; j < 32; ++j)
     if (w.slot[j] == (uint64_t)(int64_t)v) m |= 1u << j;
+  w.bar.arrive_and_wait();
+  return m;
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int lane = threadIdx.x & 31;
+  SrtWarp& w = srt_warps[threadIdx.x >> 5];
+  w.slot[lane] = pred ? 1u : 0u;
+  w.bar.arrive_and_wait();
+  unsigned m = 0;
+  for (int j = 0; j < w.bar.expected; ++j)
+    if (w.slot[j]) m |= 1u << j;
   w.bar.arrive_and_wait();
   return m;
 }

@@ -50,6 +50,33 @@
 //     Scatter against an order and a gather (4 launches): the scatter was
 //     faster at Q1's reader batch and the export's 147-byte rows
 //     (tools/k3_k4_split.py, PERF.md §6).
+//
+// K10's split (k10_split) — the exchange's partition write, and the grace
+// join's bucket split (K25).
+//
+// Replaces spark_rapids_tpu/shuffle/device_shuffle.py:packed_slice (118)
+// on the exchange's path, and with it packed_build's gather of the batch
+// into a block (96), and the per-bucket compactions of
+// spark_rapids_tpu/exec/joins.py:108 _bucket_side: from K10's stable
+// order of a batch by destination partition (csrc/shuffle.cu) and the
+// counts read back once, ONE launch writes every column of every
+// non-empty partition straight from the batch: partition p's lane l
+// carries row order[starts[p] + l] for l < counts[p] (data, validity,
+// lengths) and is zero, invalid and of length 0 past it, at
+// bucket_rows(counts[p]) lanes.  Bound: bytes; each real row is read once
+// and written once with its order entry, each padding lane written once
+// (shuffle/device_shuffle.py:split_bytes).  Design: the outputs of one
+// column are the partitions' lanes end to end in one array, so the
+// gather's MoveTable and its row movers (units of 16/8/4/2/1 bytes, a
+// warp a row for wide rows, several rows in flight a thread) write them;
+// a block takes MOVE_ROWS lanes of ONE partition of one column (the
+// partition table, one row of SPLIT_WORDS a partition plus an end row,
+// in the kernel parameters up to 32 partitions, else on the card; one
+// thread finds the block's partition by a binary search over the first
+// blocks and puts its row in shared memory), loads its
+// rows' indices from the order once, moves the real rows and zeroes the
+// rest.  No lane index is built on the host and no block of the batch
+// is written first.
 #include "common.cuh"
 
 namespace {
@@ -100,26 +127,28 @@ __device__ __forceinline__ int unit_bytes(const MoveCol& d) {
 }
 
 // A thread takes ROW_BATCH rows at a time and loads them all before it
-// stores any, so that many independent (random) reads are in flight.
+// stores any, so that many independent (random) reads are in flight (K10's
+// split takes SPLIT_BATCH: a block's 2,048 rows in one batch a thread).
 constexpr int ROW_BATCH = 4;
+constexpr int SPLIT_BATCH = 8;
 
-// Rows of one column, rows r + k * BLOCK (k < ROW_BATCH) to thread r: with
+// Rows of one column, rows r + k * BLOCK (k < BATCH) to thread r: with
 // DATA their element (E: the row's one unit), their validity ANDed with
 // the row's ok flag and their length.  Gather: output row base + r read
 // from source row clamp(ix[r]).  Scatter: source row base + r written to
 // row ix[r].
-template <typename E, bool SCATTER, bool DATA>
+template <typename E, bool SCATTER, bool DATA, int BATCH = ROW_BATCH>
 __device__ __forceinline__ void move_rows(const MoveCol& d, const int* ix,
                                           const bool* ok, int rows,
                                           long long base) {
   const E* src = (const E*)d.src;
   E* dst = (E*)d.dst;
-  for (int r0 = threadIdx.x; r0 < rows; r0 += ROW_BATCH * BLOCK) {
-    E v[ROW_BATCH];
-    bool val[ROW_BATCH];
-    int len[ROW_BATCH];
+  for (int r0 = threadIdx.x; r0 < rows; r0 += BATCH * BLOCK) {
+    E v[BATCH];
+    bool val[BATCH];
+    int len[BATCH];
 #pragma unroll
-    for (int k = 0; k < ROW_BATCH; ++k) {
+    for (int k = 0; k < BATCH; ++k) {
       const int r = r0 + k * BLOCK;
       if (r >= rows) continue;
       const long long from = SCATTER ? base + r : clamp_index(ix[r], d.n_src);
@@ -128,7 +157,7 @@ __device__ __forceinline__ void move_rows(const MoveCol& d, const int* ix,
       if (d.lengths != nullptr) len[k] = d.lengths[from];
     }
 #pragma unroll
-    for (int k = 0; k < ROW_BATCH; ++k) {
+    for (int k = 0; k < BATCH; ++k) {
       const int r = r0 + k * BLOCK;
       if (r >= rows) continue;
       const long long to = SCATTER ? (long long)ix[r] : base + r;
@@ -195,31 +224,33 @@ __device__ __forceinline__ void move_units(const MoveCol& d, const int* ix,
   }
 }
 
-template <typename E, bool SCATTER>
+template <typename E, bool SCATTER, int BATCH>
 __device__ __forceinline__ void move_by(const MoveCol& d, const int* ix,
                                         const bool* ok, int rows,
                                         long long base) {
   if (d.row_bytes == (int)sizeof(E)) {
-    move_rows<E, SCATTER, true>(d, ix, ok, rows, base);
+    move_rows<E, SCATTER, true, BATCH>(d, ix, ok, rows, base);
     return;
   }
   move_units<E, SCATTER>(d, ix, rows, base);
   if (d.valid != nullptr || d.lengths != nullptr)
-    move_rows<uint8_t, SCATTER, false>(d, ix, ok, rows, base);
+    move_rows<uint8_t, SCATTER, false, BATCH>(d, ix, ok, rows, base);
 }
 
 // one column of the block's rows, in units of the widest size (16, 8, 4,
 // 2 or 1 bytes) that divides its row width and both base addresses
-template <bool SCATTER>
+template <bool SCATTER, int BATCH = ROW_BATCH>
 __device__ __forceinline__ void move_column(const MoveCol& d, const int* ix,
                                             const bool* ok, int rows,
                                             long long base) {
   switch (unit_bytes(d)) {
-    case 16: move_by<Bytes16, SCATTER>(d, ix, ok, rows, base); break;
-    case 8: move_by<unsigned long long, SCATTER>(d, ix, ok, rows, base); break;
-    case 4: move_by<uint32_t, SCATTER>(d, ix, ok, rows, base); break;
-    case 2: move_by<uint16_t, SCATTER>(d, ix, ok, rows, base); break;
-    default: move_by<uint8_t, SCATTER>(d, ix, ok, rows, base);
+    case 16: move_by<Bytes16, SCATTER, BATCH>(d, ix, ok, rows, base); break;
+    case 8:
+      move_by<unsigned long long, SCATTER, BATCH>(d, ix, ok, rows, base);
+      break;
+    case 4: move_by<uint32_t, SCATTER, BATCH>(d, ix, ok, rows, base); break;
+    case 2: move_by<uint16_t, SCATTER, BATCH>(d, ix, ok, rows, base); break;
+    default: move_by<uint8_t, SCATTER, BATCH>(d, ix, ok, rows, base);
   }
 }
 
@@ -251,6 +282,91 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   }
   __syncthreads();
   move_column<false>(d, s_idx, s_ok, rows, base);
+}
+
+// zero units [first, first + units) of dst, neighbouring threads on
+// neighbouring units
+template <typename E>
+__device__ __forceinline__ void zero_units(uint8_t* dst, long long first,
+                                           long long units) {
+  const E z{};
+  for (long long q = threadIdx.x; q < units; q += BLOCK)
+    ((E*)dst)[first + q] = z;
+}
+
+// output rows [from, from + rows) of a column: data zero, validity false,
+// length 0
+__device__ __forceinline__ void zero_rows(const MoveCol& d, long long from,
+                                          int rows) {
+  if (rows <= 0) return;
+  const int ub = unit_bytes(d);
+  const long long u_row = d.row_bytes / ub;
+  const long long first = from * u_row, units = rows * u_row;
+  switch (ub) {
+    case 16: zero_units<Bytes16>(d.dst, first, units); break;
+    case 8: zero_units<unsigned long long>(d.dst, first, units); break;
+    case 4: zero_units<uint32_t>(d.dst, first, units); break;
+    case 2: zero_units<uint16_t>(d.dst, first, units); break;
+    default: zero_units<uint8_t>(d.dst, first, units);
+  }
+  for (int r = threadIdx.x; r < rows; r += BLOCK) {
+    if (d.dst_valid != nullptr) d.dst_valid[from + r] = false;
+    if (d.dst_lengths != nullptr) d.dst_lengths[from + r] = 0;
+  }
+}
+
+// K10's split: the partition table's words a partition (first block of
+// the partition among a column's blocks, first output lane, start in the
+// order, count); row nparts ends the table (a column's blocks, every
+// partition's lanes).  Up to SPLIT_PARAM_PARTS partitions travel in the
+// kernel parameters beside the MoveTable (~1 KB of the 4 KB), more in a
+// table on the card.
+constexpr int SPLIT_WORDS = 4;
+constexpr int SPLIT_PARAM_PARTS = 32;
+
+struct SplitParts {
+  long long w[(SPLIT_PARAM_PARTS + 1) * SPLIT_WORDS];
+};
+
+// block b of column b / per_col: lanes [k * MOVE_ROWS, ...) of the
+// partition whose blocks hold b % per_col (k its block within them)
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
+    split_cols(__grid_constant__ const MoveTable t,
+               __grid_constant__ const SplitParts pp,
+               const int* __restrict__ order,
+               const long long* __restrict__ parts_dev, int nparts,
+               long long per_col) {
+  const long long* parts = parts_dev != nullptr ? parts_dev : pp.w;
+  __shared__ int s_idx[MOVE_ROWS];
+  __shared__ bool s_ok[MOVE_ROWS];
+  __shared__ long long s_part[2 * SPLIT_WORDS];
+  const long long b = (long long)blockIdx.x % per_col;
+  if (threadIdx.x == 0) {
+    // the last partition whose first block is at or before b
+    int lo = 0, hi = nparts - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (parts[(long long)mid * SPLIT_WORDS] <= b) lo = mid; else hi = mid - 1;
+    }
+    for (int w = 0; w < 2 * SPLIT_WORDS; ++w)
+      s_part[w] = parts[(long long)lo * SPLIT_WORDS + w];
+  }
+  __syncthreads();
+  const long long l0 = (b - s_part[0]) * MOVE_ROWS;  // lane in the partition
+  const long long cap = s_part[SPLIT_WORDS + 1] - s_part[1];
+  const int rows = cap - l0 < MOVE_ROWS ? (int)(cap - l0) : MOVE_ROWS;
+  const long long left = s_part[3] - l0;
+  const int real = left <= 0 ? 0 : (left < rows ? (int)left : rows);
+  const long long from = s_part[2] + l0;
+  for (int r = threadIdx.x; r < real; r += blockDim.x) {
+    s_idx[r] = order[from + r];
+    s_ok[r] = true;
+  }
+  __syncthreads();
+  const MoveCol& d = t.col[blockIdx.x / per_col];
+  const long long base = s_part[1] + l0;
+  if (real > 0) move_column<false, SPLIT_BATCH>(d, s_idx, s_ok, real, base);
+  zero_rows(d, base + real, rows - real);
 }
 
 // the tile's keep flags: keep[i] && i < num_rows
@@ -437,6 +553,33 @@ SRT_API int k4_invert(const void* order, long long n, void* rank,
                       void* stream) {
   invert_rows<<<srt::blocks_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
       (const int*)order, n, (int*)rank);
+  return (int)cudaGetLastError();
+}
+
+// K10's split: every column of the table (side 0; outputs of every
+// partition's lanes end to end) written from the batch through order
+// (int32, K10's build) in one launch; the partition table, int64[(nparts
+// + 1) * SPLIT_WORDS] (see split_cols), in host memory (parts_host, at
+// most SPLIT_PARAM_PARTS partitions: copied into the parameters) or on
+// the card (parts_dev); per_col the blocks of one column
+SRT_API int k10_split(const long long* words, int n_cols, const void* order,
+                      const long long* parts_host, const void* parts_dev,
+                      int nparts, long long per_col, void* stream) {
+  MoveTable t;
+  int e = load_table(words, n_cols, 1, &t);
+  if (e != 0) return e;
+  if (nparts < 1 || per_col < 1 || per_col * n_cols > 0x7fffffffll ||
+      (parts_dev == nullptr &&
+       (parts_host == nullptr || nparts > SPLIT_PARAM_PARTS)))
+    return (int)cudaErrorInvalidValue;
+  SplitParts pp;
+  if (parts_dev == nullptr)
+    for (int i = 0; i < (nparts + 1) * SPLIT_WORDS; ++i)
+      pp.w[i] = parts_host[i];
+  split_cols<<<(unsigned)(per_col * n_cols), BLOCK, 0,
+               (cudaStream_t)stream>>>(t, pp, (const int*)order,
+                                       (const long long*)parts_dev, nparts,
+                                       per_col);
   return (int)cudaGetLastError();
 }
 

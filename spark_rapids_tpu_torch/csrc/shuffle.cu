@@ -1,40 +1,47 @@
-// K10 — the packed partition build and slice of the device exchange.
+// K10 — the partition build of the device exchange.
 //
 // Replaces spark_rapids_tpu/shuffle/device_shuffle.py:packed_build (96)
-// and packed_slice (118).  The build groups a batch's rows by destination
+// up to its gather.  The build groups a batch's rows by destination
 // partition, stably: rows at or past num_rows get the sentinel bucket
 // n_out, so every real row lands in front of the padding, and the
 // permutation equals the reference's stable argsort of
 // where(row_mask, pids, n_out); counts[p] and starts[p] delimit
 // partition p's contiguous range (the reference's searchsorted bounds).
-// K4's gather then moves the batch into that order.  The slice copies one
-// partition's range [start, start + count) of every column to the front
-// of an output of the block's padded size, with the reference's clipped
-// index (lanes past the range carry the clipped row's data) and validity
-// AND lane < count.
+// The exchange then reads the counts back once a chunk of batches and
+// writes every non-empty partition straight from the batch through this
+// order in one launch (K10's split, csrc/gather.cu k10_split); the
+// reference's block and its per-partition slices are not written.
 //
-// Bound on this card: bytes.  The build reads the 4-byte pids twice
-// (histogram, scatter) and writes the 4-byte order once; at 3.35 TB/s
-// Q3's 4,194,304-row lineitem batch is ~50 MB, about 15 us.  The slice
-// reads and writes each column's padded rows once.  Design:
-//   * build, three launches: k10 tile_hist counts the n_out + 1 buckets of
-//     each 2,048-row tile in shared memory (warp-aggregated atomics on
-//     counts, which are order-free); scan_buckets, one block, turns the
-//     bucket-major [bucket][tile] counts into global offsets with one
-//     flat exclusive scan and writes counts and starts on the card; the
-//     scatter ranks each row within its bucket with K1's warp-ranking
-//     round (srt::ranked_position), so the order is stable without
-//     atomics.  One thread owns one bucket there, so this route takes at
-//     most 255 partitions.
+// Bound on this card: bytes.  The build reads the real rows' 4-byte
+// pids twice (histogram, scatter) and writes the 4-byte order once; at
+// 3.35 TB/s Q3's 4,194,304-row lineitem batch is ~50 MB, about 15 us.
+// Design, two launches in the style of K1's onesweep (csrc/sort.cu):
+//   * k10 bucket_hist counts each 2,048-row tile's buckets in shared
+//     memory (warp-aggregated atomics: counts are order-free), adds them
+//     to a global histogram and publishes them as the tile's look-back
+//     status words (common.cuh; an epoch in each word, so one buffer
+//     serves every call with no memset);
+//   * scatter_rows walks back over those words a warp a bucket, 32 tiles
+//     a round trip (srt::lookback_warp; every count is there before the
+//     launch, so no block waits on another's start), publishes its
+//     inclusive prefix so later tiles stop early, adds the bucket's start
+//     (the exclusive scan of the global histogram), then ranks each row
+//     within its bucket as K1's onesweep does (warp ranks over a warp's
+//     256 rows, one block scan of the warps' counts), so the order is
+//     stable without atomics.
+//     Padding rows (at or past num_rows) go last in row order, so row i
+//     of them sits at position i: a tile of padding alone writes i and
+//     takes no part in the look-back.  Tile 0's block writes counts and
+//     starts and zeroes the other half of the two-buffer histogram for
+//     the next call.  One thread owns one bucket in the ranking, so this
+//     route takes at most 255 partitions.  (A one-block scan of the
+//     [bucket][tile] counts between a histogram and a scatter took
+//     12-13% of the build at every recorded shape:
+//     tools/k10_k2_split.py.)
 //   * a wider fan-out (only repartition(n) with a large n) counts the
 //     buckets with global atomics (hist_wide) and scans them with the same
 //     scan_buckets over one tile; the wrapper takes the order from K1's
 //     radix sort of the bucket ids.
-//   * slice: one launch for up to 32 columns (blockIdx.y picks the
-//     column from a table passed as a kernel parameter), copying data,
-//     validity and lengths of a row in one pass with 1/2/4/8-byte element
-//     copies or a byte loop for string matrices.  The index is computed in
-//     the kernel; no index tensor is built.
 //
 // K24 — the distributed exchange's tiles.
 //
@@ -55,8 +62,8 @@
 // last destination's clipped lanes add rows.  Every lane writes its tile
 // entries and the mask (device_shuffle.py:exchange_tiles_bytes;
 // chip_smoke.py computes it at Q3's and Q18's hash exchanges on four
-// shards).  Design: one launch for up to 32
-// columns (K10's column table, blockIdx.y the column), one thread a lane
+// shards).  Design: one launch for up to 32 columns (a column table in
+// the kernel parameters, blockIdx.y the column), one thread a lane
 // computing its row from order/starts/counts (no rows tensor is built),
 // 1/2/4/8-byte element copies or a byte loop for string rows.
 #include "common.cuh"
@@ -67,7 +74,10 @@ using srt::BLOCK;
 using srt::ITEMS;
 using srt::TILE;
 
-constexpr int MAX_SLICE_COLS = 32;
+constexpr int MAX_TILE_COLS = 32;
+// fan-outs whose buckets the build counts and ranks by one ballot a
+// bucket (a lane a bucket) instead of __match_any_sync
+constexpr int SMALL_FANOUT = 8;
 
 __device__ __forceinline__ int bucket_of(const int* __restrict__ pids,
                                          long long i, long long nr,
@@ -75,29 +85,52 @@ __device__ __forceinline__ int bucket_of(const int* __restrict__ pids,
   return i < nr ? pids[i] : n_out;
 }
 
-// counts[b][tile] for b in [0, n_out]
-__global__ void tile_hist(const int* __restrict__ pids,
-                          const int* __restrict__ num_rows, long long n,
-                          int n_out, int ntiles,
-                          unsigned* __restrict__ counts) {
+// the rows of buckets [0, n_out) of tile t added to hist and published
+// as its look-back counts, status[t * n_out + b] (tiles of padding alone
+// count nothing and publish nothing)
+__global__ void bucket_hist(const int* __restrict__ pids,
+                            const int* __restrict__ num_rows, long long n,
+                            int n_out, unsigned* __restrict__ hist,
+                            unsigned long long* __restrict__ status,
+                            unsigned epoch) {
   __shared__ unsigned h[256];
   const int lane = threadIdx.x & 31;
-  h[threadIdx.x] = 0u;
-  __syncthreads();
   const long long nr = *num_rows;
   const long long base = (long long)blockIdx.x * TILE;
+  if (base >= nr) return;
+  h[threadIdx.x] = 0u;
+  __syncthreads();
+  int b[ITEMS];
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
     const long long i = base + r * BLOCK + threadIdx.x;
-    const bool in = i < n;
-    const int b = in ? bucket_of(pids, i, nr, n_out) : 256;
-    const unsigned peers = __match_any_sync(srt::FULL_MASK, b);
-    if (in && lane == __ffs(peers) - 1)
-      atomicAdd(&h[b], (unsigned)__popc(peers));
+    b[r] = i < n && i < nr ? pids[i] : 256;
+  }
+  if (n_out <= SMALL_FANOUT) {
+    // lane q counts bucket q's rows of the warp by ballots
+    unsigned c = 0u;
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r)
+      for (int q = 0; q < n_out; ++q) {
+        const unsigned m = __ballot_sync(srt::FULL_MASK, b[r] == q);
+        if (lane == q) c += (unsigned)__popc(m);
+      }
+    if (lane < n_out && c != 0u) atomicAdd(&h[lane], c);
+  } else {
+#pragma unroll
+    for (int r = 0; r < ITEMS; ++r) {
+      const unsigned peers = __match_any_sync(srt::FULL_MASK, b[r]);
+      if (b[r] < 256 && lane == __ffs(peers) - 1)
+        atomicAdd(&h[b[r]], (unsigned)__popc(peers));
+    }
   }
   __syncthreads();
-  if (threadIdx.x <= n_out)
-    counts[(long long)threadIdx.x * ntiles + blockIdx.x] = h[threadIdx.x];
+  if (threadIdx.x < n_out) {
+    const unsigned c = h[threadIdx.x];
+    if (c != 0u) atomicAdd(&hist[threadIdx.x], c);
+    srt::lookback_publish(status + threadIdx.x, n_out, (int)blockIdx.x,
+                          epoch, c);
+  }
 }
 
 // global bucket counts for a fan-out past the shared histogram
@@ -135,33 +168,128 @@ __global__ void scan_buckets(unsigned* __restrict__ counts, int nb,
   }
 }
 
-// order[pos] = row, rows grouped by bucket, stable within a bucket
-__global__ void scatter_rows(const int* __restrict__ pids,
-                             const int* __restrict__ num_rows, long long n,
-                             int n_out, int ntiles,
-                             const unsigned* __restrict__ offsets,
-                             int* __restrict__ order) {
+// A row's rank among the rows of its warp's rounds so far that share its
+// bucket (256: a lane without a row); cnt is the warp's own row of counts,
+// left advanced past the round (K1's warp_rank, csrc/sort.cu).  For at
+// most SMALL_FANOUT buckets, warp_rank_small: lane q keeps bucket q's
+// count in a register, and a ballot a bucket ranks the round.
+__device__ __forceinline__ unsigned warp_rank_small(int b, int n_out,
+                                                    unsigned* c) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = 0u;
+  for (int q = 0; q < n_out; ++q) {
+    const unsigned m = __ballot_sync(srt::FULL_MASK, b == q);
+    const unsigned before = __shfl_sync(srt::FULL_MASK, *c, q);
+    if (b == q) rank = before + (unsigned)__popc(m & ((1u << lane) - 1u));
+    if (lane == q) *c += (unsigned)__popc(m);
+  }
+  return rank;
+}
+
+__device__ __forceinline__ unsigned warp_rank(int b, unsigned* cnt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(srt::FULL_MASK, b);
+  const unsigned below = (unsigned)__popc(peers & ((1u << lane) - 1u));
+  const unsigned before = b < 256 ? cnt[b] : 0u;
+  __syncwarp();
+  if (b < 256 && below == 0u) cnt[b] = before + (unsigned)__popc(peers);
+  __syncwarp();
+  return before + below;
+}
+
+// order[pos] = row, rows grouped by bucket, stable within a bucket; the
+// look-back words of bucket b and tile t at status[t * n_out + b], every
+// real tile's count published by bucket_hist.  Warp w holds rows [256 w,
+// 256 w + 256) of the tile, round j the 32 from 256 w + 32 j, so rows
+// rank in (warp, round, lane) order, which is row order.
+__global__ void __launch_bounds__(BLOCK) scatter_rows(
+    const int* __restrict__ pids, const int* __restrict__ num_rows,
+    long long n, int n_out, const unsigned* __restrict__ hist,
+    unsigned* __restrict__ next_hist, unsigned long long* __restrict__ status,
+    unsigned epoch, int* __restrict__ counts_out,
+    int* __restrict__ starts_out, int* __restrict__ order) {
   __shared__ unsigned s_base[256];
-  __shared__ unsigned s_cnt[srt::WARPS][256];
-  __shared__ unsigned s_off[srt::WARPS][256];
+  __shared__ unsigned s_start[256];
+  __shared__ unsigned s_wcnt[srt::WARPS][256];
   const int tid = threadIdx.x;
-  s_base[tid] =
-      tid <= n_out ? offsets[(long long)tid * ntiles + blockIdx.x] : 0u;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int tile = (int)blockIdx.x;
 #pragma unroll
-  for (int ww = 0; ww < srt::WARPS; ++ww) s_cnt[ww][tid] = 0u;
-  __syncthreads();
+  for (int ww = 0; ww < srt::WARPS; ++ww) s_wcnt[ww][tid] = 0u;
+  // each bucket's start: the rows of the buckets below it
+  const unsigned c = tid < n_out ? hist[tid] : 0u;
+  int total;
+  const int start = srt::block_excl_scan((int)c, &total);
+  s_start[tid] = (unsigned)start;
+  if (tile == 0) {
+    if (tid < n_out) {
+      counts_out[tid] = (int)c;
+      starts_out[tid] = start;
+    }
+    next_hist[tid] = 0u;
+  }
   const long long nr = *num_rows;
-  const long long base = (long long)blockIdx.x * TILE;
-  for (int r = 0; r < ITEMS; ++r) {
-    const long long i = base + r * BLOCK + tid;
-    const bool in = i < n;
-    const int b = in ? bucket_of(pids, i, nr, n_out) : 256;
-    const unsigned pos = srt::ranked_position(b, in, s_base, s_cnt, s_off);
-    if (in) order[pos] = (int)i;
+  const long long base = (long long)tile * TILE + w * (32 * ITEMS);
+  if ((long long)tile * TILE >= nr) {
+    // padding alone: row i at position i
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long i = base + j * 32 + lane;
+      if (i < n) order[i] = (int)i;
+    }
+    return;
+  }
+  int b[ITEMS];
+  unsigned rank[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = base + j * 32 + lane;
+    b[j] = i < n && i < nr ? pids[i] : 256;
+  }
+  if (n_out <= SMALL_FANOUT) {
+    unsigned c = 0u;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) rank[j] = warp_rank_small(b[j], n_out, &c);
+    if (lane < n_out) s_wcnt[w][lane] = c;
+  } else {
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) rank[j] = warp_rank(b[j], s_wcnt[w]);
+  }
+  __syncthreads();
+  // thread tid owns bucket tid: each warp's start inside the tile's run
+  unsigned run = 0u;
+#pragma unroll
+  for (int ww = 0; ww < srt::WARPS; ++ww) {
+    const unsigned v = s_wcnt[ww][tid];
+    s_wcnt[ww][tid] = run;
+    run += v;
+  }
+  // each bucket's rows in the tiles before: warp w walks back for buckets
+  // w, w + 8, ..., then publishes the tile's inclusive prefix
+  for (int k = w; k < n_out; k += srt::WARPS) {
+    const unsigned long long before =
+        srt::lookback_warp(status + k, n_out, tile, epoch);
+    if (lane == 0) {
+      unsigned long long* word = status + (long long)tile * n_out + k;
+      if (tile > 0)
+        srt::lb_store(word, epoch, srt::LB_PREFIX,
+                      before + (*(volatile unsigned long long*)word &
+                                srt::LB_VALUE));
+      s_base[k] = s_start[k] + (unsigned)before;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long i = base + j * 32 + lane;
+    if (i >= n) continue;
+    order[b[j] < 256 ? (long long)(s_base[b[j]] + s_wcnt[w][b[j]] + rank[j])
+                     : i] = (int)i;
   }
 }
 
-struct SliceCol {
+struct TileCol {
   const uint8_t* src;
   uint8_t* dst;
   const bool* src_valid;
@@ -172,8 +300,8 @@ struct SliceCol {
   int dst_row_bytes;  // K24's string tiles may be wider than the source
 };
 
-struct SliceCols {
-  SliceCol c[MAX_SLICE_COLS];
+struct TileCols {
+  TileCol c[MAX_TILE_COLS];
 };
 
 template <typename E>
@@ -182,32 +310,9 @@ __device__ __forceinline__ void copy_elem(const uint8_t* src, uint8_t* dst,
   ((E*)dst)[to] = ((const E*)src)[from];
 }
 
-__global__ void slice_cols(SliceCols cols, long long padded, long long start,
-                           long long count) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= padded) return;
-  const SliceCol& c = cols.c[blockIdx.y];
-  long long k = start + lane;
-  if (k < 0) k = 0;
-  if (k > padded - 1) k = padded - 1;
-  switch (c.row_bytes) {
-    case 1: copy_elem<uint8_t>(c.src, c.dst, k, lane); break;
-    case 2: copy_elem<uint16_t>(c.src, c.dst, k, lane); break;
-    case 4: copy_elem<uint32_t>(c.src, c.dst, k, lane); break;
-    case 8: copy_elem<unsigned long long>(c.src, c.dst, k, lane); break;
-    default: {
-      const uint8_t* s = c.src + k * c.row_bytes;
-      uint8_t* d = c.dst + lane * c.row_bytes;
-      for (int j = 0; j < c.row_bytes; ++j) d[j] = s[j];
-    }
-  }
-  c.dst_valid[lane] = c.src_valid[k] && lane < count;
-  if (c.src_len != nullptr) c.dst_len[lane] = c.src_len[k];
-}
-
 // K24: lane t of the [n_parts * cap] tiles; blockIdx.y picks the column
 // (y == 0 also writes the lane mask; ncols == 0 writes only the mask)
-__global__ void exchange_tiles(SliceCols cols, int ncols,
+__global__ void exchange_tiles(TileCols cols, int ncols,
                                const int* __restrict__ order,
                                const int* __restrict__ starts,
                                const int* __restrict__ counts, long long n,
@@ -224,7 +329,7 @@ __global__ void exchange_tiles(SliceCols cols, int ncols,
   const bool in = lane < (long long)counts[d];
   if (blockIdx.y == 0 && lane_valid != nullptr) lane_valid[t] = in;
   if ((int)blockIdx.y >= ncols) return;
-  const SliceCol& c = cols.c[blockIdx.y];
+  const TileCol& c = cols.c[blockIdx.y];
   if (c.row_bytes == c.dst_row_bytes) {
     switch (c.row_bytes) {
       case 1: copy_elem<uint8_t>(c.src, c.dst, row, t); break;
@@ -251,27 +356,32 @@ __global__ void exchange_tiles(SliceCols cols, int ncols,
 }  // namespace
 
 // Stable grouping of n rows by pid (rows at or past *num_rows get the
-// sentinel n_out), n_out + 1 <= 256.  scratch: uint32[(n_out + 1) *
-// tiles]; counts, starts: int32[n_out]; order: int32[n].
+// sentinel n_out), n_out + 1 <= 256.  hist: uint32[256], zero on entry;
+// next_hist: uint32[256], zeroed here (the next call's hist); status:
+// uint64[status_words] whose epochs differ from `epoch` (1..65535), at
+// least n_out * tiles (fewer is an error, not a look-back that waits on
+// a word no tile writes); counts, starts: int32[n_out]; order: int32[n].
+// Two launches.
 SRT_API int k10_build(const void* pids, const void* num_rows, long long n,
-                      int n_out, void* scratch, void* counts, void* starts,
-                      void* order, void* stream) {
-  if (n_out < 1 || n_out + 1 > 256) return (int)cudaErrorInvalidValue;
+                      int n_out, void* hist, void* next_hist, void* status,
+                      long long status_words, int epoch, void* counts,
+                      void* starts, void* order, void* stream) {
+  if (n_out < 1 || n_out + 1 > 256 || epoch < 1 || epoch > 0xffff)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ntiles = srt::tiles_for(n < 1 ? 1 : n);
-  tile_hist<<<ntiles, BLOCK, 0, st>>>((const int*)pids,
-                                      (const int*)num_rows, n, n_out,
-                                      ntiles, (unsigned*)scratch);
+  if ((long long)n_out * ntiles > status_words)
+    return (int)cudaErrorInvalidValue;
+  bucket_hist<<<ntiles, BLOCK, 0, st>>>(
+      (const int*)pids, (const int*)num_rows, n, n_out, (unsigned*)hist,
+      (unsigned long long*)status, (unsigned)epoch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  scan_buckets<<<1, srt::scan_threads((n_out + 1) * ntiles), 0, st>>>(
-      (unsigned*)scratch, n_out + 1, ntiles, n_out, (int*)counts,
-      (int*)starts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   scatter_rows<<<ntiles, BLOCK, 0, st>>>(
-      (const int*)pids, (const int*)num_rows, n, n_out, ntiles,
-      (const unsigned*)scratch, (int*)order);
+      (const int*)pids, (const int*)num_rows, n, n_out,
+      (const unsigned*)hist, (unsigned*)next_hist,
+      (unsigned long long*)status, (unsigned)epoch, (int*)counts,
+      (int*)starts, (int*)order);
   return (int)cudaGetLastError();
 }
 
@@ -292,31 +402,6 @@ SRT_API int k10_counts_wide(const void* pids, const void* num_rows,
   return (int)cudaGetLastError();
 }
 
-// table: per column seven int64 (src data, dst data, src validity, dst
-// validity, src lengths or 0, dst lengths or 0, bytes a row); every array
-// has `padded` rows.
-SRT_API int k10_slice(const long long* table, int ncols, long long padded,
-                      long long start, long long count, void* stream) {
-  if (ncols < 1 || ncols > MAX_SLICE_COLS) return (int)cudaErrorInvalidValue;
-  SliceCols cols;
-  for (int c = 0; c < ncols; ++c) {
-    const long long* d = table + 7 * c;
-    cols.c[c].src = (const uint8_t*)d[0];
-    cols.c[c].dst = (uint8_t*)d[1];
-    cols.c[c].src_valid = (const bool*)d[2];
-    cols.c[c].dst_valid = (bool*)d[3];
-    cols.c[c].src_len = (const int*)d[4];
-    cols.c[c].dst_len = (int*)d[5];
-    cols.c[c].row_bytes = (int)d[6];
-    cols.c[c].dst_row_bytes = (int)d[6];
-  }
-  if (padded <= 0) return (int)cudaSuccess;
-  dim3 grid(srt::blocks_for(padded, BLOCK), (unsigned)ncols);
-  slice_cols<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(cols, padded, start,
-                                                       count);
-  return (int)cudaGetLastError();
-}
-
 // K24.  table: per column eight int64 (src data, dst tile, src validity,
 // dst validity, src lengths or 0, dst lengths or 0, source bytes a row,
 // tile bytes a row); sources have n >= 1 rows, tiles n_parts * capacity.
@@ -326,10 +411,10 @@ SRT_API int k24_tiles(const long long* table, int ncols, long long n,
                       const void* order, const void* starts,
                       const void* counts, int n_parts, long long capacity,
                       void* lane_valid, void* stream) {
-  if (ncols < 0 || ncols > MAX_SLICE_COLS || n < 1 || n_parts < 1 ||
+  if (ncols < 0 || ncols > MAX_TILE_COLS || n < 1 || n_parts < 1 ||
       capacity < 1)
     return (int)cudaErrorInvalidValue;
-  SliceCols cols;
+  TileCols cols;
   for (int c = 0; c < ncols; ++c) {
     const long long* d = table + 8 * c;
     cols.c[c].src = (const uint8_t*)d[0];

@@ -4,24 +4,29 @@ Counterpart of ``spark_rapids_tpu/exec/exchange.py:TpuShuffleExchangeExec``
 on its default data path (``spark.rapids.tpu.shuffle.mode=auto``, which
 on this card is always the device path):
 
-  * hash and round robin take the packed path (``:312-332``): per input
-    batch, in write order (input partition, then batch), the partition
-    ids (K9 Murmur3 for hash; ``(row + offset) % n_out`` for round robin,
-    the offset advancing on the card by each batch's row count), then
-    K10's partition build into one flat block.  One readback per chunk
-    of up to 32 blocks fetches their counts and starts
-    (``shuffle/device_shuffle.py:fetch_counts``); a reader slices its
-    contiguous range out of each block with K10 at the block's padded
-    size, skipping empty partitions and empty blocks without touching
-    the card (``:693-708``).
-  * range takes the compaction path (``:418-430,464-481,599-606,
+  * hash and round robin (the reference's packed path, ``:312-332``):
+    per input batch, in write order (input partition, then batch), the
+    partition ids (K9 Murmur3 for hash; ``(row + offset) % n_out`` for
+    round robin, the offset advancing on the card by each batch's row
+    count), then K10's stable build of the batch's order by partition.
+    One readback per chunk of up to 32 batches fetches their counts
+    (``shuffle/device_shuffle.py:fetch_counts``); then K10's split
+    writes every non-empty partition of each batch straight from it, in
+    one launch, at ``bucket_rows(count)`` rows (the reference gathers the
+    batch into a block and slices each partition out of it at the
+    block's padded size, ``:693-708``).  A reader yields its partition's
+    batches in write order, skipping empty ones without touching the
+    card.
+  * range (the reference's compaction path, ``:418-430,464-481,599-606,
     710-717``): at write time each batch's key passes (K1's encoding,
     strings cut to ``RANGE_PREFIX_BYTES``, nothing after the first
     string key) and 128 samples of them; one readback per chunk of up to
     32 batches fetches the row counts and samples; the bounds are picked
     on the host from every sample in write order; each batch's partition
-    ids come from K11; a reader compacts ``pids == p`` out of each batch
-    with K4, reading the slices' row counts back eight at a time.
+    ids come from K11; then the same K10 build, counts and split as hash
+    (the reference compacts ``pids == p`` out of each batch for each
+    partition).  Rows keep their batch order inside a partition: the
+    build is stable, as the compaction is.
   * one output partition (single partitioning, or any partitioning to
     one partition) hands the child's batches of every input partition
     through in order: the reference's build and slice return the same
@@ -47,7 +52,6 @@ from ..data.column import DeviceBatch, DeviceColumn
 from ..ops.expression import as_device_column
 from ..ops.kernels import _build as B
 from ..ops.kernels import segment as seg
-from ..ops.kernels.gather import compact
 from ..shuffle import device_shuffle as DS
 from ..shuffle.partitioning import (HashPartitioning, RangePartitioning,
                                     RoundRobinPartitioning)
@@ -61,11 +65,9 @@ RANGE_PREFIX_BYTES = 32
 #: device key samples taken per batch for the range bounds
 RANGE_SAMPLES_PER_BATCH = 128
 
-#: blocks (or range batches) whose counts one host readback fetches
+#: batches whose counts (or row counts and samples) one host readback
+#: fetches
 WRITE_CHUNK = 32
-
-#: range slices whose row counts one host readback fetches
-READ_CHUNK = 8
 
 #: CUDA kernels launched by K11
 RANGE_PID_LAUNCHES = B.LaunchCounter("range_pids")
@@ -196,47 +198,68 @@ class TpuShuffleExchangeExec(TpuExec):
         raise NotImplementedError(
             f"no device placement for {self.partitioning.describe()}")
 
-    def _write_packed(self, child, placement) -> list:
-        """Build every input batch into a packed block; returns the
-        non-empty blocks as ``(block, counts, starts)`` with host ints."""
+    def _split(self, batches, placement, count_written: bool) -> list:
+        """K10's build of each ``(batch, pids)``, one readback of a
+        chunk's counts, then K10's split of each batch; returns the
+        non-empty batches as ``(partition batches, counts)`` (a batch or
+        None a partition; host ints).  ``count_written`` adds the rows to
+        the placement's ``rows_written``."""
         items: list = []
         chunk: list = []
-        rr: Optional[torch.Tensor] = None
 
         def flush():
-            got = DS.fetch_counts([(c, s) for _b, c, s, _n in chunk],
-                                  [n for _b, _c, _s, n in chunk])
-            for (block, _c, _s, _n), (counts, starts, rows) in zip(chunk,
-                                                                   got):
+            got = DS.fetch_counts([(c, s) for _b, _o, c, s in chunk],
+                                  [b.num_rows for b, _o, _c, _s in chunk])
+            # each input batch is let go as soon as it is split
+            chunk.reverse()
+            for counts, _starts, rows in got:
+                b, order, device_counts, _s = chunk.pop()
                 if sum(counts) != rows:
                     raise RuntimeError(
                         f"{self.describe()}: the partition build placed "
                         f"{sum(counts)} of {rows} rows")
-                placement["rows_written"] += rows
+                if count_written:
+                    placement["rows_written"] += rows
                 if rows:
-                    items.append((block, counts, starts))
-            chunk.clear()
+                    parts = DS.partition_split(
+                        b, order, counts, device_counts=device_counts)
+                    DS.GLOBAL.add("deviceBytes", sum(
+                        pb.device_bytes() for pb in parts if pb is not None))
+                    items.append((parts, counts))
 
-        for pid in range(child.n_partitions):
-            for b in child.iterator(pid):
-                if rr is None:
-                    rr = torch.zeros((), dtype=torch.int32, device=b.device)
-                block, counts, starts = DS.packed_build(
-                    b, self._pids(b, rr), self.n_out)
-                DS.GLOBAL.add("deviceBytes", block.device_bytes())
-                chunk.append((block, counts, starts, b.num_rows))
-                if isinstance(self.partitioning, RoundRobinPartitioning):
-                    rr = (rr + b.num_rows) % self.n_out
-                if len(chunk) >= WRITE_CHUNK:
-                    flush()
+        for b, pids in batches:
+            order, counts, starts = DS.partition_order(pids, b.num_rows,
+                                                       self.n_out)
+            chunk.append((b, order, counts, starts))
+            if len(chunk) >= WRITE_CHUNK:
+                flush()
         if chunk:
             flush()
         return items
 
-    def _write_range(self, child, placement) -> list:
+    def _write_packed(self, child, placement) -> list:
+        """Every input batch's partition ids (K9 or round robin), then
+        ``_split``."""
+        def with_pids():
+            rr: Optional[torch.Tensor] = None
+            for pid in range(child.n_partitions):
+                for b in child.iterator(pid):
+                    if rr is None:
+                        rr = torch.zeros((), dtype=torch.int32,
+                                         device=b.device)
+                    pids = self._pids(b, rr)
+                    if isinstance(self.partitioning,
+                                  RoundRobinPartitioning):
+                        rr = (rr + b.num_rows) % self.n_out
+                    yield b, pids
+
+        return self._split(with_pids(), placement, True)
+
+    def _write_range(self, child, placement):
         """Key passes and samples of every input batch, bounds from all
         samples in write order, then each batch's partition ids (K11);
-        returns the non-empty batches as ``(batch, pids)``."""
+        yields the non-empty batches as ``(batch, pids)``, for ``_split``,
+        dropping each batch's passes as its ids are made."""
         keys = self.partitioning._bound_keys
         kept: list = []   # (batch, passes)
         samples: List[np.ndarray] = []
@@ -262,12 +285,14 @@ class TpuShuffleExchangeExec(TpuExec):
         if chunk:
             flush()
         if not kept:
-            return []
+            return
         bounds = torch.from_numpy(pick_bounds_host(
             np.concatenate(samples, axis=1), self.n_out)).to(
                 kept[0][1].device)
-        return [(b, range_pids_from_bounds(passes, bounds))
-                for b, passes in kept]
+        kept.reverse()
+        while kept:
+            b, passes = kept.pop()
+            yield b, range_pids_from_bounds(passes, bounds)
 
     def execute_columnar(self, ctx):
         DS.resolve_mode(ctx.conf.get(SHUFFLE_MODE))
@@ -288,37 +313,19 @@ class TpuShuffleExchangeExec(TpuExec):
         def materialized():
             """The shuffle write, run once by the first reader."""
             if not store:
-                store.append(self._write_range(child, placement) if is_range
-                             else self._write_packed(child, placement))
+                store.append(
+                    self._split(self._write_range(child, placement),
+                                placement, False) if is_range
+                    else self._write_packed(child, placement))
             return store[0]
 
-        def packed_reader(p):
-            for block, counts, starts in materialized():
+        def reader(p):
+            for parts, counts in materialized():
                 if counts[p] == 0:
                     continue
                 placement["partition_rows"][p] += counts[p]
-                yield DS.packed_slice(block, starts[p], counts[p])
+                yield parts[p]
 
-        def range_reader(p):
-            outs: List[DeviceBatch] = []
-
-            def drain():
-                ns = torch.stack([o.num_rows.to(torch.int32) for o in outs]
-                                 ).cpu().tolist()
-                for out, n in zip(outs, ns):
-                    if n:
-                        placement["partition_rows"][p] += n
-                        yield out
-                outs.clear()
-
-            for b, pids in materialized():
-                outs.append(compact(b, pids == p))
-                if len(outs) >= READ_CHUNK:
-                    yield from drain()
-            if outs:
-                yield from drain()
-
-        reader = range_reader if is_range else packed_reader
         return DevicePartitionedData(
             [lambda p=p: reader(p) for p in range(self.n_out)])
 

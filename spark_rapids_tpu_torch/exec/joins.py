@@ -149,8 +149,8 @@ class TpuHashJoinExec(TpuExec):
                      key_exprs: List[Expression], m: int, seed: int):
         """Split every batch of ``batches`` into ``m`` key-hash buckets
         (K9 from ``seed``, pmod ``m``; K10's order; one read back of the
-        m counts; K25), taking each batch out of the list as it is split
-        so that it is freed.  Returns the pieces of each bucket and each
+        m counts; K10's split), taking each batch out of the list as it
+        is split so that it is freed.  Returns the pieces of each bucket and each
         bucket's row total."""
         buckets: List[List[DeviceBatch]] = [[] for _ in range(m)]
         totals = [0] * m

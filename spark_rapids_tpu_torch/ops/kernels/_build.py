@@ -55,10 +55,7 @@ KERNELS: Dict[str, tuple] = {
         "k1_sort_small": ([P, I, Q, P, P], 1),
     }),
     "segment_ids": ("segment_ids.cu", {
-        "k2_flags_init": ([P, Q, P, P], 1),
-        "k2_flags_num": ([P, P, I, Q, P, P], 1),
-        "k2_flags_str": ([P, P, P, I, Q, P, P], 1),
-        "k2_scan_ids": ([P, Q, P, P, P], 3),
+        "k2_segment_ids": ([P, I, P, Q, P, Q, P, I, P, P], 1),
     }),
     "segment_reduce": ("segment_reduce.cu", {
         # 1 launch (the slots past the last id) when there are no rows
@@ -71,6 +68,7 @@ KERNELS: Dict[str, tuple] = {
         "k4_gather": ([P, I, P, P, P, Q, P], 1),
         "k4_invert": ([P, Q, P, P], 1),
         "k7_gather": ([P, I, P, P, P, Q, P], 1),
+        "k10_split": ([P, I, P, P, P, I, Q, P], 1),
     }),
     "join_probe": ("join_probe.cu", {
         "k5_ok": ([P, Q, P, Q, P, I, P, P, P], 1),
@@ -122,13 +120,9 @@ KERNELS: Dict[str, tuple] = {
         "k9_murmur3": ([P, I, Q, Q, I, P, P, P], 1),
     }),
     "shuffle": ("shuffle.cu", {
-        "k10_build": ([P, P, Q, I, P, P, P, P, P], 3),
+        "k10_build": ([P, P, Q, I, P, P, P, Q, I, P, P, P, P], 2),
         "k10_counts_wide": ([P, P, Q, I, P, P, P, P], 2),
-        "k10_slice": ([P, I, Q, Q, Q, P], 1),
         "k24_tiles": ([P, I, Q, P, P, P, I, Q, P, P], 1),
-    }),
-    "bucket": ("bucket.cu", {
-        "k25_bucket_split": ([P, I, I, Q, P, P], 1),
     }),
     "retile": ("retile.cu", {
         "k27_retile_max": ([P, I, I, I, Q, P, P], 1),

@@ -24,6 +24,7 @@ input order, which splits groups and misses join matches (ROADMAP C.6).
 from __future__ import annotations
 
 import array
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -401,38 +402,101 @@ def segment_ids_plain(sorted_keys: Sequence[DeviceColumn],
     return torch.cumsum(change.to(torch.int32), 0, dtype=torch.int32) - 1
 
 
+#: keys one K2 launch takes (csrc/segment_ids.cu MAX_KEYS); more are
+#: chained: the ids of the first ones become one int32 key of the next
+#: launch
+SEGMENT_ID_KEYS = 32
+#: rows of K2's smallest tile (csrc/segment_ids.cu: one round of 1,024
+#: rows; larger calls take 2 or 8 rounds a tile): a call's look-back
+#: status words, one a tile, are at most n / SEGMENT_ID_TILE rounded up
+SEGMENT_ID_TILE = 1024
+#: look-back epochs a status buffer serves before it is zeroed again (the
+#: 16 epoch bits of csrc/common.cuh's status words, 0 never used)
+LOOKBACK_EPOCHS = 0xFFFF
+
+
+class LookbackScratch:
+    """Decoupled look-back state kept between calls (K2's, and K10's build
+    with its histograms): a zeroed int64 buffer whose last word is the
+    tile counter, reused with a new epoch a call, so no call zeroes
+    memory.  One a (device, stream, user): calls on one stream run in
+    order, so none sees another's epoch.  ``take(words, device, stream,
+    user)`` returns ``(buffer, epoch)``: at least ``words`` words before
+    the counter, the buffer grown (zeroed, epochs restart) where it holds
+    fewer, and zeroed once the epochs run out."""
+
+    def __init__(self):
+        self._by_stream = {}
+        self._lock = threading.Lock()
+
+    def take(self, words: int, device, stream, user: str = "k2"):
+        with self._lock:
+            key = (str(device), stream, user)
+            buf, epoch = self._by_stream.get(key, (None, LOOKBACK_EPOCHS))
+            if buf is None or buf.shape[0] < words + 1:
+                buf = torch.zeros(max(words, 64) + 1, dtype=torch.int64,
+                                  device=device)
+                epoch = 0
+            elif epoch >= LOOKBACK_EPOCHS:
+                buf.zero_()
+                epoch = 0
+            epoch += 1
+            self._by_stream[key] = (buf, epoch)
+            return buf, epoch
+
+
+#: THE process-wide instance
+LOOKBACK = LookbackScratch()
+
+
+def _key_words(col: DeviceColumn, keep: list) -> list:
+    """K2's five table words of a key column (data, validity or 0, lengths
+    or 0, bytes a row of a byte matrix or 0, dtype code); the arrays it
+    reads go into ``keep``."""
+    data = col.data.contiguous()
+    valid = None if col.validity is None else col.validity.contiguous()
+    lengths = None
+    if col.dtype is not None and col.dtype.is_string:
+        lengths = col.lengths.to(torch.int32).contiguous()
+    keep += [data, valid, lengths]
+    return [data.data_ptr(), B.ptr(valid) or 0, B.ptr(lengths) or 0,
+            data.shape[1] if data.dim() == 2 else 0,
+            B.DTYPE_CODES[data.dtype]]
+
+
 def segment_ids_device(sorted_keys: Sequence[DeviceColumn],
                        pad_valid: Optional[torch.Tensor] = None,
                        kernels: Optional[B.Kernels] = None) -> torch.Tensor:
     """K2: int32 segment ids of rows in sorted key order; every padding
-    row (``pad_valid`` False) gets its own segment."""
+    row (``pad_valid`` False) gets its own segment.  One launch for up to
+    ``SEGMENT_ID_KEYS`` keys (none for no rows); past that the ids of
+    the first keys are the first key of the next launch."""
     probe = sorted_keys[0].data if sorted_keys else pad_valid
     kernels = B.kernels_for(probe, kernels)
     if kernels is None:
         return segment_ids_plain(sorted_keys, pad_valid)
-    lib = kernels.library("segment_ids")
     n = probe.shape[0]
+    dev = probe.device
+    if not n:
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    lib = kernels.library("segment_ids")
     st = kernels.stream(probe)
-    change = torch.empty(n, dtype=torch.uint8, device=probe.device)
-    B.launch(SEGMENT_IDS_LAUNCHES, lib, "k2_flags_init", B.ptr(pad_valid), n,
-             B.ptr(change), st)
-    for col in sorted_keys:
-        valid = col.validity.contiguous()
-        data = col.data.contiguous()
-        if col.dtype.is_string:
-            B.launch(SEGMENT_IDS_LAUNCHES, lib, "k2_flags_str",
-                     B.ptr(data), B.ptr(col.lengths.contiguous()),
-                     B.ptr(valid), data.shape[1], n, B.ptr(change), st)
-        else:
-            B.launch(SEGMENT_IDS_LAUNCHES, lib, "k2_flags_num",
-                     B.ptr(data), B.ptr(valid), B.DTYPE_CODES[data.dtype], n,
-                     B.ptr(change), st)
-    ids = torch.empty(n, dtype=torch.int32, device=probe.device)
-    tile_sums = torch.empty(B.tiles(n), dtype=torch.int32,
-                            device=probe.device)
-    B.launch(SEGMENT_IDS_LAUNCHES, lib, "k2_scan_ids", B.ptr(change), n,
-             B.ptr(tile_sums), B.ptr(ids), st)
-    return ids
+    pad = None if pad_valid is None else pad_valid.contiguous()
+    keys = list(sorted_keys)
+    while True:
+        now, keys = keys[:SEGMENT_ID_KEYS], keys[SEGMENT_ID_KEYS:]
+        keep: list = []
+        words = [w for c in now for w in _key_words(c, keep)]
+        table = array.array("q", words or [0])
+        ids = torch.empty(n, dtype=torch.int32, device=dev)
+        scratch, epoch = LOOKBACK.take(-(-n // SEGMENT_ID_TILE), dev, st)
+        B.launch(SEGMENT_IDS_LAUNCHES, lib, "k2_segment_ids",
+                 table.buffer_info()[0], len(now), B.ptr(pad), n,
+                 B.ptr(scratch), scratch.shape[0] - 1, B.ptr(scratch[-1]),
+                 epoch, B.ptr(ids), st)
+        if not keys:
+            return ids
+        keys.insert(0, DeviceColumn(T.INT32, ids, None))
 
 
 # ===========================================================================

@@ -1,13 +1,17 @@
-"""K10 — the device exchange's packed partition blocks.
+"""K10 — the device exchange's partition build and split.
 
 Counterpart of ``spark_rapids_tpu/shuffle/device_shuffle.py``: a shuffle
-write groups the rows of each input batch by destination partition into
-ONE flat device block (``packed_build``: a stable grouping by partition
-id, then K4's gather) and records per-partition ``counts``/``starts``;
-readers slice their contiguous range out of the resident block
-(``packed_slice``) at the block's padded size.  ``fetch_counts`` is the
-write path's one batched host readback per chunk of blocks, and
-``resolve_mode`` the ``spark.rapids.tpu.shuffle.mode`` choice.
+write groups the rows of each input batch by destination partition
+(``partition_order``: a stable grouping by partition id, each
+partition's ``counts``/``starts``), reads the counts back once a chunk of
+batches (``fetch_counts``), then writes every non-empty partition of
+the batch straight from it through that order, in one launch
+(``partition_split``), at ``bucket_rows(count)`` rows, the padding zero
+and invalid.  The reference's ``packed_build`` (the batch gathered into
+one flat block) and ``packed_slice`` (one partition's range at the
+block's padded size) stay as its counterparts for the tests against it;
+the exchange calls neither.  ``resolve_mode`` is the
+``spark.rapids.tpu.shuffle.mode`` choice.
 
 K24 (``exchange_tiles``) is the distributed exchange's tiling
 (``spark_rapids_tpu/parallel/exchange.py:bucket_rows`` and
@@ -16,16 +20,17 @@ column's ``[n_parts * capacity]`` tile and the lane mask, which the
 transport of ``parallel/`` swaps between shards.  ``collective_timer``
 wall-clocks each collective into ``collectiveTimeNs``.
 
-The wrappers launch ``csrc/shuffle.cu`` for CUDA tensors and take the
-plain PyTorch version only for CPU tensors, unless ``kernels=`` names the
-libraries to launch.
+The wrappers launch ``csrc/shuffle.cu`` (the build, K24) and
+``csrc/gather.cu`` (the split, ``k10_split``) for CUDA tensors and take
+the plain PyTorch version only for CPU tensors, unless ``kernels=``
+names the libraries to launch.
 
-K25 (``bucket_split``) is the grace join's bucket split
-(``spark_rapids_tpu/exec/joins.py:108 _bucket_side``): from K10's order
-of a batch by key-hash bucket and the bucket counts read back once, one
-launch writes every column of every non-empty bucket into a dense batch
-of its own at ``bucket_rows(count)`` rows, the padding zero and invalid.
-``split_by_bucket`` chains the two.
+K25, the grace join's bucket split
+(``spark_rapids_tpu/exec/joins.py:108 _bucket_side``), is K10's split
+of a batch by key-hash bucket: ``split_by_bucket`` builds the order,
+reads all the bucket counts back once and calls ``partition_split``,
+whose launches it counts in ``SPLIT_LAUNCHES``.  K24 and K10's split
+compute the same lane-to-row function.
 
 ``ShuffleStats`` keeps ``deviceBytes``, ``collectiveTimeNs`` and the
 cross-process counters of ``parallel/multiprocess.py`` (collectives,
@@ -36,6 +41,7 @@ fallbacks and checkpoint bytes.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import threading
 import time
@@ -50,28 +56,32 @@ from ..ops.kernels import gather as G
 from ..ops.kernels import segment as S
 from .. import types as T
 
-#: CUDA kernels launched by K10's build and slice
+#: CUDA kernels launched by K10's build and by its split
 BUILD_LAUNCHES = B.LaunchCounter("packed_build")
-SLICE_LAUNCHES = B.LaunchCounter("packed_slice")
+PARTITION_SPLIT_LAUNCHES = B.LaunchCounter("partition_split")
+#: int64 words of a partition in K10's split table (csrc/gather.cu
+#: SPLIT_WORDS): first block, first output lane, start, count
+PARTITION_SPLIT_WORDS = 4
+#: partitions whose table the split's kernel parameters carry
+#: (csrc/gather.cu SPLIT_PARAM_PARTS); more go as a table on the card
+SPLIT_PARAM_PARTS = 32
 #: CUDA kernels launched by K24
 TILE_LAUNCHES = B.LaunchCounter("exchange_tiles")
-#: CUDA kernels launched by K25
+#: K10's split launches for the grace join's bucket split (K25)
 SPLIT_LAUNCHES = B.LaunchCounter("bucket_split")
-#: int64 words of a column and of a bucket in K25's table
-#: (csrc/bucket.cu COL_WORDS, BUCKET_WORDS); a bucket's count is its
-#: third word
-SPLIT_COL_WORDS = 4
-SPLIT_BUCKET_WORDS = 4
 
 #: the widest fan-out of the shared-memory build (one thread per bucket)
 MAX_SHARED_FANOUT = 255
-#: columns one slice launch copies (csrc/shuffle.cu MAX_SLICE_COLS)
-MAX_SLICE_COLS = 32
+#: int64 words of the build's two 256-bucket uint32 histograms
+BUILD_HIST_WORDS = 256
+#: columns one K24 launch copies (csrc/shuffle.cu MAX_TILE_COLS)
+MAX_TILE_COLS = 32
 
 
 class ShuffleStats:
     """Process-wide shuffle counters: ``deviceBytes``, the bytes of the
-    packed blocks written on the card; ``collectiveTimeNs``, the wall of
+    exchange's partition batches that K10's split wrote on the card
+    (data, validity and lengths of every lane, padding included); ``collectiveTimeNs``, the wall of
     the distributed runner's collectives (a single-process transport's
     whole exchange; across processes, each ``torch.distributed`` call);
     ``processCollectives``, the ``torch.distributed`` calls this process
@@ -197,11 +207,19 @@ def partition_order(pids: torch.Tensor, num_rows: torch.Tensor, n_out: int,
     counts = torch.empty(n_out, dtype=torch.int32, device=dev)
     starts = torch.empty(n_out, dtype=torch.int32, device=dev)
     if n_out <= MAX_SHARED_FANOUT:
-        scratch = torch.empty((n_out + 1) * B.tiles(n), dtype=torch.int32,
-                              device=dev)
+        # the two-buffer histogram (a call counts into one and zeroes the
+        # other), then the look-back's status words, kept between calls
+        scratch, epoch = S.LOOKBACK.take(
+            BUILD_HIST_WORDS + n_out * B.tiles(n), dev, st, "k10_build")
+        hist = scratch[:BUILD_HIST_WORDS].view(torch.int32)
+        half = hist.shape[0] // 2
+        cur, nxt = ((hist[half:], hist[:half]) if epoch & 1
+                    else (hist[:half], hist[half:]))
         order = torch.empty(n, dtype=torch.int32, device=dev)
+        status = scratch[BUILD_HIST_WORDS:-1]
         B.launch(BUILD_LAUNCHES, lib, "k10_build", B.ptr(pids),
-                 B.ptr(num_rows), n, n_out, B.ptr(scratch), B.ptr(counts),
+                 B.ptr(num_rows), n, n_out, B.ptr(cur), B.ptr(nxt),
+                 B.ptr(status), status.shape[0], epoch, B.ptr(counts),
                  B.ptr(starts), B.ptr(order), st)
         return order, counts, starts
     # a fan-out past the shared histogram: counts and starts from the
@@ -222,21 +240,27 @@ def packed_build(batch: DeviceBatch, pids: torch.Tensor, n_out: int,
     """Group ``batch``'s rows by destination partition inside one flat
     block: ``(block, counts, starts)``, where ``counts[p]``/``starts[p]``
     delimit partition ``p``'s contiguous rows and padding rows come last
-    (the reference's ``packed_build``)."""
+    (the reference's ``packed_build``: K10's build, then K4's gather).
+    The exchange splits from the build's order instead
+    (``partition_split``)."""
     order, counts, starts = partition_order(pids, batch.num_rows, n_out,
                                             kernels)
     return G.gather_batch(batch, order, batch.num_rows), counts, starts
 
 
 # ---------------------------------------------------------------------------
-# slice
+# slice (the reference's counterpart; the exchange splits instead)
 # ---------------------------------------------------------------------------
+def _slice_rows(block: DeviceBatch, start: int, count: int):
+    lane = torch.arange(block.padded_rows, dtype=torch.int64,
+                        device=block.device)
+    idx = torch.clamp(start + lane, 0, max(block.padded_rows - 1, 0))
+    return idx, lane < count
+
+
 def packed_slice_plain(block: DeviceBatch, start: int,
                        count: int) -> DeviceBatch:
-    padded = block.padded_rows
-    lane = torch.arange(padded, dtype=torch.int64, device=block.device)
-    idx = torch.clamp(start + lane, 0, max(padded - 1, 0))
-    mask = lane < count
+    idx, mask = _slice_rows(block, start, count)
     cols = [G.gather_column_plain(c, idx, mask) for c in block.columns]
     return DeviceBatch(block.schema, cols, torch.full(
         (), count, dtype=torch.int32, device=block.device))
@@ -244,38 +268,134 @@ def packed_slice_plain(block: DeviceBatch, start: int,
 
 def packed_slice(block: DeviceBatch, start: int, count: int,
                  kernels: Optional[B.Kernels] = None) -> DeviceBatch:
-    """K10: partition rows ``[start, start + count)`` of a packed block,
-    moved to the front of a batch of the block's padded size (a
-    clipped-index gather; validity AND lane < count).  ``start`` and
-    ``count`` are host ints from ``fetch_counts``."""
+    """Partition rows ``[start, start + count)`` of a packed block, moved
+    to the front of a batch of the block's padded size (the reference's
+    clipped-index gather; validity AND lane < count), by K4's gather.
+    ``start`` and ``count`` are host ints from ``fetch_counts``.  The
+    exchange does not slice: ``partition_split`` writes each partition
+    once, from the batch."""
     kernels = B.kernels_for(block.columns[0].validity, kernels)
     if kernels is None:
         return packed_slice_plain(block, start, count)
-    lib = kernels.library("shuffle")
-    padded = block.padded_rows
-    dev = block.device
-    st = kernels.stream(block.columns[0].validity)
-    cols, desc = [], []
-    for c in block.columns:
-        data = c.data.contiguous()
-        valid = c.validity.contiguous()
-        out = DeviceColumn(c.dtype, torch.empty_like(data),
-                           torch.empty_like(valid),
-                           None if c.lengths is None
-                           else torch.empty_like(c.lengths.contiguous()))
-        lengths = None if c.lengths is None else c.lengths.contiguous()
-        cols.append(out)
-        desc.append([B.ptr(data), B.ptr(out.data), B.ptr(valid),
-                     B.ptr(out.validity), B.ptr(lengths) or 0,
-                     B.ptr(out.lengths) or 0, G._row_bytes(data)])
-    for at in range(0, len(desc), MAX_SLICE_COLS):
-        part = desc[at:at + MAX_SLICE_COLS]
-        flat = [v for d in part for v in d]
-        B.launch(SLICE_LAUNCHES, lib, "k10_slice",
-                 (ctypes.c_longlong * len(flat))(*flat), len(part), padded,
-                 start, count, st)
-    return DeviceBatch(block.schema, cols, torch.full(
-        (), count, dtype=torch.int32, device=dev))
+    idx, mask = _slice_rows(block, start, count)
+    return DeviceBatch(block.schema, G.gather_columns(
+        block.columns, idx.to(torch.int32), mask, kernels), torch.full(
+            (), count, dtype=torch.int32, device=block.device))
+
+
+# ---------------------------------------------------------------------------
+# split: every non-empty partition of a batch, written once
+# ---------------------------------------------------------------------------
+def bucket_layout(counts: Sequence[int], min_bucket_rows: int = 128
+                  ) -> List[Tuple[int, int, int, int]]:
+    """``(partition, start, count, capacity)`` of every non-empty
+    partition, from the host counts of K10's order: a partition's rows
+    start where the lower partitions' end, and its batch holds
+    ``bucket_rows(count)`` rows (the reference's ``slice_device_batch``
+    of a compacted bucket)."""
+    out, start = [], 0
+    for b, cnt in enumerate(counts):
+        if cnt:
+            out.append((b, start, cnt, bucket_rows(cnt, min_bucket_rows)))
+        start += cnt
+    return out
+
+
+def _take_rows(t: torch.Tensor, idx: torch.Tensor, cap: int) -> torch.Tensor:
+    """``t``'s rows ``idx`` at the front of ``cap`` zeroed rows."""
+    out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    out[:idx.shape[0]] = t.index_select(0, idx)
+    return out
+
+
+def partition_split_plain(batch: DeviceBatch, order: torch.Tensor,
+                          counts: Sequence[int], min_bucket_rows: int = 128
+                          ) -> List[Optional[DeviceBatch]]:
+    """Plain version of K10's split: each non-empty partition built by
+    ``index_select`` of its slice of the order, zero and invalid past its
+    count; None for an empty partition."""
+    out: List[Optional[DeviceBatch]] = [None] * len(counts)
+    dev = order.device
+    for b, start, cnt, cap in bucket_layout(counts, min_bucket_rows):
+        idx = order[start:start + cnt].to(torch.int64)
+        cols = [DeviceColumn(
+            c.dtype, _take_rows(c.data, idx, cap),
+            _take_rows(c.validity, idx, cap),
+            None if c.lengths is None
+            else _take_rows(c.lengths.to(torch.int32), idx, cap))
+            for c in batch.columns]
+        out[b] = DeviceBatch(batch.schema, cols, torch.tensor(
+            cnt, dtype=torch.int32, device=dev))
+    return out
+
+
+def partition_split(batch: DeviceBatch, order: torch.Tensor,
+                    counts: Sequence[int],
+                    kernels: Optional[B.Kernels] = None,
+                    min_bucket_rows: int = 128,
+                    device_counts: Optional[torch.Tensor] = None,
+                    launches: B.LaunchCounter = PARTITION_SPLIT_LAUNCHES
+                    ) -> List[Optional[DeviceBatch]]:
+    """K10's split: every column of ``batch`` written into one batch per
+    non-empty partition, in one launch (up to ``gather.TABLE_COLUMNS``
+    columns): partition ``p``'s row ``l`` is the batch's row
+    ``order[starts[p] + l]`` for ``l < counts[p]``, and zero, invalid and
+    of length 0 past it, at ``bucket_rows(counts[p])`` rows.  ``order`` is
+    K10's ``partition_order`` of the batch, ``counts`` its counts as host
+    ints (any fan-out), ``device_counts`` the same counts on the card
+    (the build's; each partition's row count is a view of them).  The
+    outputs are one block a (dtype, row shape) with every partition's
+    rows end to end, cut into views.  None for an empty partition.
+    ``launches`` counts the kernel's launches (the grace join's bucket
+    split counts its own)."""
+    kernels = B.kernels_for(order, kernels)
+    if kernels is None:
+        return partition_split_plain(batch, order, counts, min_bucket_rows)
+    layout = bucket_layout(counts, min_bucket_rows)
+    out: List[Optional[DeviceBatch]] = [None] * len(counts)
+    if not layout:
+        return out
+    dev = order.device
+    words, blocks, lanes = [], 0, 0
+    for _p, start, cnt, cap in layout:
+        words += [blocks, lanes, start, cnt]
+        blocks += -(-cap // B.TILE)
+        lanes += cap
+    words += [blocks, lanes, 0, 0]
+    if device_counts is None:
+        device_counts = torch.tensor(list(counts), dtype=torch.int32).to(dev)
+    # up to SPLIT_PARAM_PARTS partitions travel in the kernel's parameters,
+    # more in a table on the card
+    host = table = None
+    if len(layout) <= SPLIT_PARAM_PARTS:
+        host = array.array("q", words)
+    else:
+        table = B.device_table(words, dev)
+    order = order.to(torch.int32).contiguous()
+    cols = G.move(launches, kernels.library("gather"),
+                  "k10_split", [batch.columns], lanes, dev,
+                  (order.data_ptr(),
+                   None if host is None else host.buffer_info()[0],
+                   B.ptr(table), len(layout), blocks, kernels.stream(order)))
+    for i, (p, _start, _cnt, cap) in enumerate(layout):
+        lane = words[PARTITION_SPLIT_WORDS * i + 1]
+        out[p] = DeviceBatch(batch.schema, [DeviceColumn(
+            c.dtype, c.data[lane:lane + cap], c.validity[lane:lane + cap],
+            None if c.lengths is None else c.lengths[lane:lane + cap])
+            for c in cols], device_counts[p])
+    return out
+
+
+def split_bytes(batch: DeviceBatch, counts: Sequence[int],
+                min_bucket_rows: int = 128) -> int:
+    """Bytes K10's build and split must move for one batch: the real
+    rows' 4-byte pids read twice (histogram, scatter), their order entry
+    written and read, each real row's data, validity and lengths read
+    once and written once, and every padding row of the outputs written
+    once (``bucket_split_bytes``, which counts the order's read)."""
+    rows = sum(counts)
+    return 12 * rows + bucket_split_bytes(batch, counts, min_bucket_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +483,8 @@ def exchange_tiles(batch: DeviceBatch, order: torch.Tensor,
     order = order.to(torch.int32).contiguous()
     starts = starts.to(torch.int32).contiguous()
     counts = counts.to(torch.int32).contiguous()
-    for at in range(0, max(len(desc), 1), MAX_SLICE_COLS):
-        part = desc[at:at + MAX_SLICE_COLS]
+    for at in range(0, max(len(desc), 1), MAX_TILE_COLS):
+        part = desc[at:at + MAX_TILE_COLS]
         flat = [v for d in part for v in d] or [0]
         B.launch(TILE_LAUNCHES, kernels.library("shuffle"), "k24_tiles",
                  (ctypes.c_longlong * len(flat))(*flat), len(part), n,
@@ -402,129 +522,29 @@ def exchange_tiles_bytes(batch: DeviceBatch, tiles: Sequence[DeviceColumn],
 
 
 # ---------------------------------------------------------------------------
-# K25: the grace join's bucket split
+# K25: the grace join's bucket split (K10's split)
 # ---------------------------------------------------------------------------
-def bucket_layout(counts: Sequence[int], min_bucket_rows: int = 128
-                  ) -> List[Tuple[int, int, int, int]]:
-    """``(bucket, start, count, capacity)`` of every non-empty bucket, from
-    the host counts of K10's order: a bucket's rows start where the lower
-    buckets' end, and its batch holds ``bucket_rows(count)`` rows (the
-    reference's ``slice_device_batch`` of the compacted bucket)."""
-    out, start = [], 0
-    for b, cnt in enumerate(counts):
-        if cnt:
-            out.append((b, start, cnt, bucket_rows(cnt, min_bucket_rows)))
-        start += cnt
-    return out
-
-
-def _take_rows(t: torch.Tensor, idx: torch.Tensor, cap: int) -> torch.Tensor:
-    """``t``'s rows ``idx`` at the front of ``cap`` zeroed rows."""
-    out = torch.zeros((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    out[:idx.shape[0]] = t.index_select(0, idx)
-    return out
-
-
-def bucket_split_plain(batch: DeviceBatch, order: torch.Tensor,
-                       counts: Sequence[int], min_bucket_rows: int = 128
-                       ) -> List[Optional[DeviceBatch]]:
-    """Plain version of K25: each non-empty bucket built by
-    ``index_select`` of the order's slice, zero and invalid past its
-    count; None for an empty bucket."""
-    out: List[Optional[DeviceBatch]] = [None] * len(counts)
-    dev = order.device
-    for b, start, cnt, cap in bucket_layout(counts, min_bucket_rows):
-        idx = order[start:start + cnt].to(torch.int64)
-        cols = [DeviceColumn(
-            c.dtype, _take_rows(c.data, idx, cap),
-            _take_rows(c.validity, idx, cap),
-            None if c.lengths is None
-            else _take_rows(c.lengths.to(torch.int32), idx, cap))
-            for c in batch.columns]
-        out[b] = DeviceBatch(batch.schema, cols, torch.tensor(
-            cnt, dtype=torch.int32, device=dev))
-    return out
-
-
-def bucket_split(batch: DeviceBatch, order: torch.Tensor,
-                 counts: Sequence[int], kernels: Optional[B.Kernels] = None,
-                 min_bucket_rows: int = 128) -> List[Optional[DeviceBatch]]:
-    """K25: every column of ``batch`` gathered into one dense batch per
-    non-empty bucket, in one launch: bucket ``b``'s row ``j`` is the
-    batch's row ``order[starts[b] + j]`` for ``j < counts[b]``, and zero
-    and invalid past it, at ``bucket_rows(counts[b])`` rows.  ``order`` is
-    K10's ``partition_order`` of the rows' bucket ids, ``counts`` its
-    counts as host ints (at most 64 buckets).  None for an empty
-    bucket."""
-    kernels = B.kernels_for(order, kernels)
-    if kernels is None:
-        return bucket_split_plain(batch, order, counts, min_bucket_rows)
-    layout = bucket_layout(counts, min_bucket_rows)
-    out: List[Optional[DeviceBatch]] = [None] * len(counts)
-    if not layout:
-        return out
-    dev = order.device
-    srcs, words = [], []
-    for c in batch.columns:
-        data = c.data.contiguous()
-        valid = c.validity.contiguous()
-        lengths = None if c.lengths is None else \
-            c.lengths.to(torch.int32).contiguous()
-        srcs.append((data, valid, lengths))
-        words += [B.ptr(data), B.ptr(valid), B.ptr(lengths) or 0,
-                  G._row_bytes(data)]
-    lane = 0
-    for _b, start, cnt, cap in layout:
-        words += [lane, start, cnt, cap]
-        lane += cap
-    bucket_cols = []
-    for _b, _start, _cnt, cap in layout:
-        cols = []
-        for c, (data, _valid, lengths) in zip(batch.columns, srcs):
-            o = DeviceColumn(
-                c.dtype, torch.empty((cap,) + tuple(data.shape[1:]),
-                                     dtype=data.dtype, device=dev),
-                torch.empty(cap, dtype=torch.bool, device=dev),
-                None if lengths is None else
-                torch.empty(cap, dtype=torch.int32, device=dev))
-            cols.append(o)
-            words += [B.ptr(o.data), B.ptr(o.validity),
-                      B.ptr(o.lengths) or 0]
-        bucket_cols.append(cols)
-    table = B.device_table(words, dev)
-    # each bucket's row count: its count word of the table
-    at = SPLIT_COL_WORDS * len(batch.columns) + 2
-    num_rows = table[at:at + SPLIT_BUCKET_WORDS * len(layout):
-                     SPLIT_BUCKET_WORDS].to(torch.int32)
-    for i, ((b, _s, _c, _cap), cols) in enumerate(zip(layout, bucket_cols)):
-        out[b] = DeviceBatch(batch.schema, cols, num_rows[i])
-    order = order.to(torch.int32).contiguous()
-    B.launch(SPLIT_LAUNCHES, kernels.library("bucket"), "k25_bucket_split",
-             B.ptr(table), len(batch.columns), len(layout), lane,
-             B.ptr(order), kernels.stream(order))
-    return out
-
-
 def split_by_bucket(batch: DeviceBatch, pids: torch.Tensor, m: int,
                     kernels: Optional[B.Kernels] = None,
                     min_bucket_rows: int = 128):
     """``batch``'s rows split by their bucket ids ``pids`` (in ``[0,
     m)``): K10's stable order by bucket, ONE host read of all ``m``
-    counts, then K25.  Returns ``(buckets, counts)``: a batch or None per
-    bucket, and the counts as host ints."""
-    order, counts, _starts = partition_order(pids, batch.num_rows, m,
-                                             kernels)
-    counts = counts.cpu().tolist()
-    return bucket_split(batch, order, counts, kernels,
-                        min_bucket_rows), counts
+    counts, then K10's split (one launch, counted in ``SPLIT_LAUNCHES``).
+    Returns ``(buckets, counts)``: a batch or None per bucket, and the
+    counts as host ints."""
+    order, dev_counts, _starts = partition_order(pids, batch.num_rows, m,
+                                                 kernels)
+    counts = dev_counts.cpu().tolist()
+    return partition_split(batch, order, counts, kernels, min_bucket_rows,
+                           device_counts=dev_counts,
+                           launches=SPLIT_LAUNCHES), counts
 
 
 def bucket_split_bytes(batch: DeviceBatch, counts: Sequence[int],
                        min_bucket_rows: int = 128) -> int:
-    """Bytes K25 must move: each real row's data, validity and lengths
-    read once and written once, its 4-byte order entry read, and every
-    padding row of the outputs written once."""
+    """Bytes K10's split must move: each real row's data, validity and
+    lengths read once and written once, its 4-byte order entry read, and
+    every padding row of the outputs written once."""
     per_row = sum(G._row_bytes(c.data) + 1 +
                   (4 if c.lengths is not None else 0)
                   for c in batch.columns)

@@ -188,8 +188,8 @@ def test_k1_k2_match_plain(emu, desc):
     S.SEGMENT_IDS_LAUNCHES.reset()
     got_ids = S.segment_ids_device(sorted_keys, pad_sorted, kernels=emu)
     _same(got_ids, want_ids)
-    # change flags: padding + one per key; scan: 3
-    assert S.SEGMENT_IDS_LAUNCHES.count == 1 + 2 + 3
+    # every key's flags, the scan and the look-back in one launch
+    assert S.SEGMENT_IDS_LAUNCHES.count == 1
 
 
 def _ids(rng):
@@ -420,26 +420,31 @@ def test_k10_build_and_slice_match_plain(emu, n_out):
     got = DS.partition_order(pids, num_rows, n_out, kernels=emu)
     for g, w in zip(got, want):
         _same(g, w)
-    # histogram, scan, scatter; or global histogram and scan (+ K1)
-    assert DS.BUILD_LAUNCHES.count == (3 if n_out == 3 else 2)
+    # histogram and look-back scatter; or global histogram and scan (+ K1)
+    assert DS.BUILD_LAUNCHES.count == 2
     cols = _keys(rng) + [DeviceColumn(
         T.FLOAT64, torch.from_numpy(rng.uniform(-5, 5, N)),
         torch.from_numpy(rng.random(N) > 0.2))]
-    block = DeviceBatch(T.Schema([T.Field("s", T.STRING),
+    batch = DeviceBatch(T.Schema([T.Field("s", T.STRING),
                                   T.Field("i", T.INT32),
                                   T.Field("d", T.FLOAT64)]), cols, num_rows)
-    counts, starts = want[1].tolist(), want[2].tolist()
-    DS.SLICE_LAUNCHES.reset()
-    for p in (0, n_out // 2, n_out - 1):
-        g = DS.packed_slice(block, starts[p], counts[p], kernels=emu)
-        w = DS.packed_slice_plain(block, starts[p], counts[p])
+    # K10's split of the batch by the build's order (the exchange slices
+    # no block since the split replaced the slice)
+    counts = want[1].tolist()
+    DS.PARTITION_SPLIT_LAUNCHES.reset()
+    got_parts = DS.partition_split(batch, got[0], counts, kernels=emu)
+    want_parts = DS.partition_split_plain(batch, want[0], counts)
+    assert DS.PARTITION_SPLIT_LAUNCHES.count == 1  # every column, once
+    for g, w in zip(got_parts, want_parts):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
         _same(g.num_rows, w.num_rows)
         for gc, wc in zip(g.columns, w.columns):
             _same(gc.data, wc.data)
             _same(gc.validity, wc.validity)
             if wc.lengths is not None:
                 _same(gc.lengths, wc.lengths)
-    assert DS.SLICE_LAUNCHES.count == 3  # one a slice, every column in it
 
 
 def test_k11_matches_plain(emu):

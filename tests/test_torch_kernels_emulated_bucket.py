@@ -1,5 +1,6 @@
-"""K25 (the grace join's bucket split, ``csrc/bucket.cu``) and K9 from a
-seed (``csrc/hashing.cu``), built for the CPU with the host C++ compiler
+"""K25 (the grace join's bucket split: ``split_by_bucket``, K10's order
+and K10's split ``k10_split`` of ``csrc/gather.cu``) and K9 from a seed
+(``csrc/hashing.cu``), built for the CPU with the host C++ compiler
 against ``csrc/emulator/cuda_runtime.h``
 (``test_torch_kernels_emulated._build_emulated``) and held against their
 plain PyTorch versions on the same inputs.
@@ -9,12 +10,14 @@ last row and belong to no bucket), over every column type with nulls
 (one-byte to eight-byte elements, string matrices 6 and 13 bytes wide);
 bucket ids from K9 with the grace seeds, pmod m, for m = 1, 2, 7 and 64
 (so some buckets are empty at m = 64), and a draw that leaves most of 7
-buckets empty; K10's emulated order and counts feed K25.  Every bucket
+buckets empty; ``split_by_bucket`` on the emulated kernels against
+``partition_order_plain`` and ``partition_split_plain``.  Every bucket
 is compared to the byte, data, validity, lengths and row count, padding
-rows included (zero and invalid); one launch a split.
+rows included (zero and invalid); one split launch a batch, counted in
+``SPLIT_LAUNCHES``.
 
-Mutation check: a K25 that ignores each bucket's start in the order,
-built from an edited copy of ``bucket.cu``, must disagree with the plain
+Mutation check: a split that ignores each bucket's start in the order,
+built from an edited copy of ``gather.cu``, must disagree with the plain
 version.
 
 Also B.26, the write's sort by its partition columns
@@ -106,11 +109,12 @@ def _split(emu, batch, pids, m):
     want_order = DS.partition_order_plain(pids, batch.num_rows, m)
     assert all(torch.equal(a, b) for a, b in zip((order, counts, starts),
                                                  want_order))
-    counts = counts.tolist()
     before = DS.SPLIT_LAUNCHES.count
-    got = DS.bucket_split(batch, order, counts, kernels=emu)
+    got, counts = DS.split_by_bucket(batch, pids, m, kernels=emu)
+    assert counts == want_order[1].tolist()
     assert DS.SPLIT_LAUNCHES.count - before == (1 if sum(counts) else 0)
-    return got, DS.bucket_split_plain(batch, order, counts), counts
+    return got, DS.partition_split_plain(batch, want_order[0],
+                                         counts), counts
 
 
 @pytest.mark.parametrize("m", [1, 2, 7, 64])
@@ -161,16 +165,17 @@ def test_k9_seeded_matches_plain(emu, seed):
 
 
 def test_k25_without_starts_mutant_differs(emu):
-    """A K25 that reads every bucket from the front of the order, built
-    from an edited copy of ``bucket.cu``, must disagree."""
-    mutant = _mutant("bucket", ("order[bk[lo][1] + j]", "order[j]"))
+    """A split that reads every bucket from the front of the order, built
+    from an edited copy of ``gather.cu``, must disagree."""
+    mutant = _mutant("gather", ("const long long from = s_part[2] + l0;",
+                                "const long long from = l0;"))
     batch = _batch(21)
     pids = H.hash_pids([batch.columns[4]], 7, kernels=emu,
                        seed=PJ.GRACE_SEED)
     order, counts, _starts = DS.partition_order(pids, batch.num_rows, 7,
                                                 kernels=emu)
-    got = DS.bucket_split(batch, order, counts.tolist(), kernels=mutant)
-    want = DS.bucket_split_plain(batch, order, counts.tolist())
+    got = DS.partition_split(batch, order, counts.tolist(), kernels=mutant)
+    want = DS.partition_split_plain(batch, order, counts.tolist())
     with pytest.raises(AssertionError):
         _same(got, want)
 

@@ -157,9 +157,11 @@ def test_chunked_partial_aggregate_matches_reference(host, want):
     check_rows(got, want(q), "the chunked unpivot")
     # at 64 KiB every Expand batch reaches the partial aggregate alone
     # (two exceed 64 KiB); at one partition the sort gets one batch, at
-    # two the range exchange hands each partition's sort a slice of each
-    # window output, which the tile merge sorts
-    for n_partitions, sort_batches in ((1, 1), (2, 4)):
+    # two the range exchange hands each partition a slice of each window
+    # output at bucket_rows of its rows: the two slices of one partition
+    # fit the 64 KiB target together and coalesce, the other partition's
+    # two reach its sort, which the tile merge sorts
+    for n_partitions, sort_batches in ((1, 1), (2, 3)):
         psess, pq = _port("q67", host["q67"],
                           {"spark.rapids.tpu.sql.batchSizeBytes": 1 << 16},
                           n_partitions)
